@@ -1,0 +1,157 @@
+"""The CUDA kernels B1-B3 on the card, against their plain PyTorch
+versions, and the port's engine end to end on the card. Marked `cuda`;
+each test skips (from its fixture) where no GPU is present. Run on a GPU
+machine with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: out / dist2 allclose at rtol = 1e-5, atol = 1e-5 (f32 sums in
+another order than the plain version's); exit flags equal outside a
+1e-4 relative margin around the squared threshold; the fused kernel's
+`out` bitwise equal to the SpMM kernel's and its flags to the two-launch
+composition's (csrc/block_ell.cuh)."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.gnn import (GNNConfig, NAIConfig, init_classifiers,
+                             load_dataset)
+from repro_torch.gnn.nai import decision_distances
+from repro_torch.kernels import build
+from repro_torch.kernels.nap_exit import nap_exit, ref_nap_exit
+from repro_torch.kernels.nap_step import (nap_step_fused, ref_nap_step,
+                                          two_launch_step)
+from repro_torch.kernels.spmm import CB, RB, ref_spmm_block_ell, spmm_block_ell
+from repro_torch.serving import NAIServingEngine
+
+from torch_parity import assert_orders_match, near_threshold
+
+pytestmark = pytest.mark.cuda
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    build.library()
+    return torch.device("cuda")
+
+
+def _operands(dev, seed=0, n_rb=96, tb=5, n_cb=6, F=384, nb=64,
+              frac_active=0.7):
+    g = torch.Generator().manual_seed(seed)
+    # sparse-ish tiles: ~3% non-zero, like the packer's
+    tiles = torch.rand((n_rb, tb, RB, CB), generator=g)
+    tiles *= torch.rand(tiles.shape, generator=g) < 0.03
+    tile_col = torch.randint(0, n_cb, (n_rb, tb), generator=g,
+                             dtype=torch.int32)
+    valid = (torch.rand((n_rb, tb), generator=g) < 0.6).to(torch.int32)
+    active = (torch.rand(n_rb, generator=g) < frac_active).to(torch.int32)
+    active[:nb // RB] = 1
+    x = torch.randn((n_cb * CB, F), generator=g)
+    c = torch.rand(nb, generator=g) + 0.1
+    s = torch.randn(F, generator=g)
+    nact = (torch.rand((nb, 1), generator=g) < 0.8).to(torch.int32)
+    return [t.to(dev) for t in (tiles, tile_col, valid, active, x, c, s,
+                                nact)]
+
+
+def _threshold(out, c, s, nact):
+    """A squared threshold at the median active distance."""
+    d2 = ((out[:c.numel()] - c[:, None] * s[None, :]) ** 2).sum(1)
+    return float(d2[nact[:, 0] != 0].median())
+
+
+def _exits_match(a, b, d2, ts2):
+    far = (d2.flatten() - ts2).abs() > 1e-4 * abs(ts2)
+    assert torch.equal(a.flatten()[far], b.flatten()[far])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_spmm_kernel_matches_plain(cuda, seed):
+    tiles, tile_col, valid, active, x, *_ = _operands(cuda, seed)
+    before = spmm_block_ell.launches
+    out = spmm_block_ell(tiles, tile_col, valid, active, x)
+    torch.cuda.synchronize()
+    assert spmm_block_ell.launches == before + 1
+    ref = ref_spmm_block_ell(tiles, tile_col, valid, active, x)
+    torch.testing.assert_close(out, ref, **TOL)
+    dead = (active == 0).repeat_interleave(RB)
+    assert not out[dead].any()
+
+
+def test_nap_step_kernel_matches_plain_and_spmm(cuda):
+    ops = _operands(cuda, 2)
+    tiles, tile_col, valid, active, x, c, s, nact = ops
+    out_b1 = spmm_block_ell(tiles, tile_col, valid, active, x)
+    ts2 = _threshold(out_b1, c, s, nact)
+    out, exits, blk = nap_step_fused(*ops, ts2)
+    r_out, r_exits, r_blk = ref_nap_step(*ops, ts2)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_b1)             # bitwise, same fmaf chain
+    torch.testing.assert_close(out, r_out, **TOL)
+    d2 = ((r_out[:c.numel()] - c[:, None] * s[None, :]) ** 2).sum(1)
+    _exits_match(exits, r_exits, d2, ts2)
+    t_out, t_exits, t_blk = two_launch_step(*ops, float(np.sqrt(ts2)))
+    t_ts2 = float(np.float32(np.sqrt(ts2) * np.sqrt(ts2)))
+    f_out, f_exits, f_blk = nap_step_fused(*ops, t_ts2)
+    assert torch.equal(t_out, f_out)
+    assert torch.equal(t_exits, f_exits) and torch.equal(t_blk, f_blk)
+
+
+def test_nap_exit_kernel_matches_plain(cuda):
+    _, _, _, _, x, c, s, nact = _operands(cuda, 3)
+    nb = c.numel()
+    xb = x[:nb].contiguous()
+    x_inf = c[:, None] * s[None, :]
+    ts2 = float(((xb - x_inf) ** 2).sum(1).median())
+    d2, exits, blk = nap_exit(xb, x_inf, nact, ts2)
+    r_d2, r_exits, r_blk = ref_nap_exit(xb, x_inf, nact, ts2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(d2, r_d2, **TOL)
+    _exits_match(exits, r_exits, r_d2, ts2)
+
+
+def test_kernels_refuse_bad_operands_on_cuda(cuda):
+    tiles, tile_col, valid, active, x, *_ = _operands(cuda, 4)
+    with pytest.raises(ValueError, match="tile_col"):
+        spmm_block_ell(tiles, tile_col.long(), valid, active, x)
+    with pytest.raises(ValueError, match="several devices"):
+        spmm_block_ell(tiles, tile_col, valid, active, x.cpu())
+
+
+def test_engine_on_card(cuda):
+    """block_ell and fused agree exactly; every backend agrees with the
+    host path outside the threshold margin."""
+    g = load_dataset("pubmed-like", scale=0.1, seed=0)
+    cfg = GNNConfig("sgc", g.features.shape[1], g.num_classes, k=4,
+                    hidden=64, mlp_layers=2)
+    nai = NAIConfig(t_s=20.0, t_min=1, t_max=3, batch_size=100)
+    heads = init_classifiers(cfg, torch.Generator().manual_seed(0),
+                             device=cuda)
+    nodes = np.random.default_rng(0).choice(g.test_idx, size=300,
+                                            replace=False)
+
+    def serve(**kw):
+        eng = NAIServingEngine(cfg, nai, heads, g, device=cuda,
+                               max_wait_s=10.0, **kw)
+        eng.submit(nodes)
+        done = []
+        while eng.queue:
+            done += eng.step()
+        done += eng.flush()
+        assert [r.status for r in done] == ["completed"] * len(nodes)
+        return (np.array([r.prediction for r in done]),
+                np.array([r.exit_order for r in done]))
+
+    host = serve(mode="host")
+    res = {impl: serve(mode="compiled", spmm_impl=impl, pipeline_depth=2)
+           for impl in ("segment", "block_ell", "fused")}
+    for a, b in zip(res["fused"], res["block_ell"]):
+        np.testing.assert_array_equal(a, b)
+    near = near_threshold(decision_distances, cfg, nai, g, nodes, 100)
+    for impl, (p, o) in res.items():
+        assert_orders_match(p, o, *host, near)
+    assert set(host[1]) == {1, 2, 3}
