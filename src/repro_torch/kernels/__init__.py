@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels of the NAP serving path.
+"""Hand-written Hopper kernels of the NAP serving path and the LM path.
 
 * spmm      -- block-ELL sparse feature propagation with NAP row-block
                predication (`spmm_block_ell`)
@@ -6,6 +6,9 @@
                (`nap_exit`)
 * nap_step  -- the two fused in one kernel (`nap_step_fused`), plus the
                two-launch composition it must agree with
+* wkv6      -- the RWKV6 WKV recurrence of the LM time-mix (`wkv6`)
+* flash_attention -- causal / banded attention of the LM `local` and
+               `attn` layers (`flash_attention`)
 
 Each subpackage mirrors `repro.kernels.<name>`: `kernel.py` holds the
 wrapper that launches the CUDA kernel from `repro_torch/csrc/` (built by

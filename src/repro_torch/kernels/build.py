@@ -25,7 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("spmm_block_ell.cu", "nap_step_fused.cu", "nap_exit.cu")
+SOURCES = ("spmm_block_ell.cu", "nap_step_fused.cu", "nap_exit.cu",
+           "wkv6.cu", "flash_attention.cu")
 HEADERS = ("block_ell.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -40,6 +41,9 @@ SIGNATURES = {
     "nap_step_fused_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P,
                               _P, _I, _I, _I, _I, _I, _P),
     "nap_exit_launch": (_P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _P),
+    "wkv6_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _F, _I, _I, _P),
 }
 
 

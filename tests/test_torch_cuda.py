@@ -1,4 +1,4 @@
-"""The CUDA kernels B1-B3 on the card, against their plain PyTorch
+"""The CUDA kernels B1-B5 on the card, against their plain PyTorch
 versions, and the port's engine end to end on the card. Marked `cuda`;
 each test skips (from its fixture) where no GPU is present. Run on a GPU
 machine with
@@ -9,7 +9,12 @@ Tolerances: out / dist2 allclose at rtol = 1e-5, atol = 1e-5 (f32 sums in
 another order than the plain version's); exit flags equal outside a
 1e-4 relative margin around the squared threshold; the fused kernel's
 `out` bitwise equal to the SpMM kernel's and its flags to the two-launch
-composition's (csrc/block_ell.cuh)."""
+composition's (csrc/block_ell.cuh). WKV6 (B5): out and state at
+rtol = 1e-4, atol = 1e-3 (the same chunked f32 factorization, with
+exp(+-80)-sized factors, summed in another order). Flash attention (B4):
+f32 at rtol = 1e-4, atol = 2e-5 (softmax sums in another order); bf16
+inputs against the plain version on the same bf16 inputs at
+rtol = atol = 1e-2 (one bf16 rounding of the output, 2^-8 relative)."""
 import numpy as np
 import pytest
 import torch
@@ -18,10 +23,14 @@ from repro_torch.gnn import (GNNConfig, NAIConfig, init_classifiers,
                              load_dataset)
 from repro_torch.gnn.nai import decision_distances
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 gqa_flash_attention,
+                                                 ref_attention)
 from repro_torch.kernels.nap_exit import nap_exit, ref_nap_exit
 from repro_torch.kernels.nap_step import (nap_step_fused, ref_nap_step,
                                           two_launch_step)
 from repro_torch.kernels.spmm import CB, RB, ref_spmm_block_ell, spmm_block_ell
+from repro_torch.kernels.wkv6 import ref_wkv6, wkv6
 from repro_torch.serving import NAIServingEngine
 
 from torch_parity import assert_orders_match, near_threshold
@@ -155,3 +164,66 @@ def test_engine_on_card(cuda):
     for impl, (p, o) in res.items():
         assert_orders_match(p, o, *host, near)
     assert set(host[1]) == {1, 2, 3}
+
+
+@pytest.mark.parametrize("hd,T", [(16, 48), (32, 64), (64, 128)])
+def test_wkv6_kernel_matches_plain(cuda, hd, T):
+    g = torch.Generator().manual_seed(hd)
+    BH = 6
+    r, k, v = (torch.randn((BH, T, hd), generator=g) for _ in range(3))
+    logw = torch.clamp(-torch.exp(0.5 * torch.randn((BH, T, hd),
+                                                    generator=g)), min=-5.0)
+    u = 0.1 * torch.randn((BH, hd), generator=g)
+    args = [t.to(cuda) for t in (r, k, v, logw, u)]
+    before = wkv6.launches
+    out, state = wkv6(*args)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    r_out, r_state = ref_wkv6(*args)
+    torch.testing.assert_close(out, r_out, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(state, r_state, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype,hd,H,KV,S,window,causal", [
+    (torch.float32, 64, 4, 4, 256, 0, True),
+    (torch.float32, 128, 4, 2, 384, 128, True),
+    (torch.float32, 256, 4, 1, 256, 64, True),
+    (torch.float32, 64, 2, 1, 256, 0, False),
+    (torch.bfloat16, 256, 8, 1, 512, 192, True),
+    (torch.bfloat16, 128, 4, 4, 256, 0, True),
+])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, hd, H, KV, S,
+                                              window, causal):
+    g = torch.Generator().manual_seed(S + hd)
+    B = 2
+    q = torch.randn((B, S, H, hd), generator=g).to(cuda, dtype)
+    k = torch.randn((B, S, KV, hd), generator=g).to(cuda, dtype)
+    v = torch.randn((B, S, KV, hd), generator=g).to(cuda, dtype)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = ref_attention(q, k, v, causal=causal, window=window)
+    tol = dict(rtol=1e-4, atol=2e-5) if dtype == torch.float32 \
+        else dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+def test_gqa_flash_attention_unpadded_on_card(cuda):
+    g = torch.Generator().manual_seed(7)
+    q = torch.randn((2, 100, 8, 64), generator=g).to(cuda)
+    k = torch.randn((2, 100, 2, 64), generator=g).to(cuda)
+    v = torch.randn((2, 100, 2, 64), generator=g).to(cuda)
+    out = gqa_flash_attention(q, k, v, window=48)
+    ref = ref_attention(q, k, v, window=48)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=2e-5)
+
+
+def test_lm_kernels_refuse_bad_operands_on_cuda(cuda):
+    x = torch.zeros((2, 128, 1, 32), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(x, x, x)
+    y = torch.zeros((2, 16, 48), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        wkv6(y, y, y, y, torch.zeros((2, 48), device=cuda))

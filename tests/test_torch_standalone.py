@@ -104,3 +104,29 @@ def test_kernel_wrappers_refuse_mixed_devices():
     with pytest.raises(ValueError, match="several devices"):
         nap_exit(x, torch.zeros((8, 128), device="meta"),
                  torch.ones((8, 1), dtype=torch.int32), 1.0)
+
+
+def test_lm_entry_points_default_to_cuda(monkeypatch):
+    """The LM path's entry points ask for CUDA unless told otherwise."""
+    from repro_torch.configs import ARCHS, smoke
+    from repro_torch.launch import serve
+    from repro_torch.models import decoder_lm as M
+    from repro_torch.models.convert import lm_params_from_numpy
+    from repro_torch.serving import LMServingEngine
+    _no_cuda(monkeypatch)
+    cfg = smoke(ARCHS["rwkv6-3b"])
+    model = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    calls = {
+        "init_params": lambda: M.init_params(
+            cfg, torch.Generator().manual_seed(0)),
+        "init_cache": lambda: M.init_cache(cfg, 2, 8),
+        "lm_params_from_numpy": lambda: lm_params_from_numpy(cfg, {}),
+        "LMServingEngine": lambda: LMServingEngine(cfg, model),
+        "serve": lambda: serve.main(["--arch", "rwkv6-3b", "--smoke"]),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    LMServingEngine(cfg, model, device="cpu")
+    serve.main(["--arch", "rwkv6-3b", "--smoke", "--device", "cpu",
+                "--tokens", "4", "--batch", "2"])
