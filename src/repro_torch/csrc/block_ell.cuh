@@ -2,18 +2,22 @@
 // nap_step_fused.cu, nap_exit.cu).
 //
 // Geometry (must match repro_torch/kernels/spmm/__init__.py): an adjacency
-// tile is RB x CB = 8 x 128 f32 coefficients; features are processed in
-// FB = 128-wide blocks, one CUDA thread per feature column of the block.
+// tile is RB x CB = 8 x 128 f32 coefficients; the fused step processes
+// features in FB = 128-wide blocks, one CUDA thread per feature column.
 //
-// Bit-parity contract: `accumulate_block` is the ONLY code that computes a
-// propagated value, and `reduce_rows` the ONLY code that sums a node's
-// squared distance over threads. The block-ELL SpMM kernel and the fused
-// NAP step call the same functions with the same operands, so their `out`
-// is bitwise equal; the fused step and the standalone exit kernel sum the
-// same per-element terms in the same order, so their distances (and exit
-// flags) are bitwise equal too. Every floating-point operation is an
-// explicit intrinsic (fmaf / __fmul_rn / __fsub_rn / __fadd_rn), so the
-// compiler cannot contract or reorder them differently per kernel.
+// Bit-parity contract. A propagated value is, for each output element, the
+// chain of fmaf over the valid slots ascending, then k ascending, from
+// +0.0f. `accumulate_block` computes it densely (the fused step); the
+// block-ELL SpMM kernel has its own zero-skipping code that runs the same
+// chain without the terms whose coefficient is zero, which leaves every bit
+// unchanged for finite x (spmm_block_ell.cu says why). Any change to one
+// must keep that per-row order. `reduce_rows` is the ONLY code that sums a
+// node's squared distance over threads: the fused step and the standalone
+// exit kernel sum the same per-element terms in the same order, so their
+// distances (and exit flags) are bitwise equal. Every floating-point
+// operation is an explicit intrinsic (fmaf / __fmul_rn / __fsub_rn /
+// __fadd_rn), so the compiler cannot contract or reorder them differently
+// per kernel.
 #pragma once
 
 #include <cuda_runtime.h>

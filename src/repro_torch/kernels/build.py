@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("spmm_block_ell.cu", "nap_step_fused.cu", "nap_exit.cu",
            "wkv6.cu", "flash_attention.cu")
-HEADERS = ("block_ell.cuh",)
+HEADERS = ("block_ell.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -78,19 +78,25 @@ def library_path() -> Path:
 
 def build_library() -> Path:
     """Compile every source in parallel and link the shared library, unless
-    a library of the same digest exists. The compiler's output (register
-    and shared-memory use per kernel, from ``-Xptxas -v``) is kept beside
-    the library as ``<name>.log``."""
+    a library of the same digest exists."""
     out = library_path()
-    if out.exists():
-        return out
+    if not out.exists():
+        compile_library(CSRC, SOURCES, out)
+    return out
+
+
+def compile_library(csrc: Path, sources, out: Path) -> Path:
+    """Compile `sources` of the directory `csrc`, one ``nvcc`` each, all
+    started together, and link them into `out` (renamed into place at the
+    end). The compiler's output (register and shared-memory use per
+    kernel, from ``-Xptxas -v``) is kept beside it as ``<out>.log``."""
     nvcc = nvcc_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         jobs = []
-        for name in SOURCES:
+        for name in sources:
             obj = os.path.join(tmp, name + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", obj]
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(Path(csrc) / name), "-o", obj]
             jobs.append((name, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -114,16 +120,22 @@ def build_library() -> Path:
     return out
 
 
+def bind(path: Path, names=tuple(SIGNATURES)) -> ctypes.CDLL:
+    """Load a kernel library with `argtypes` and `restype` set for the C
+    entry points `names` (each must be there)."""
+    lib = ctypes.CDLL(str(path))
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = list(SIGNATURES[name])
+        fn.restype = ctypes.c_int
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call), with `argtypes`
     and `restype` set for every C entry point."""
-    lib = ctypes.CDLL(str(build_library()))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return lib
+    return bind(build_library())
 
 
 def check_launch(name: str, err: int) -> None:

@@ -20,8 +20,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B, Sq, H, hd); k, v (B, Sk, KV, hd); Sq % BQ == 0 == Sk % BK,
     H % KV == 0; float32 or bfloat16. Causal attention, banded to the last
-    `window` keys when window > 0 (no mask when not causal); f32 inside,
-    output (B, Sq, H, hd) in q's dtype."""
+    `window` keys when window > 0 (no mask when not causal); softmax in
+    f32, output (B, Sq, H, hd) in q's dtype.
+
+    On the card the dtype picks one of two hand-written kernels: bfloat16
+    runs Q K^T and P V on the tensor cores (wgmma, f32 accumulation, P
+    rounded to bf16); float32 runs f32 FMAs on the CUDA cores (no TF32).
+    Neither falls back to the other: a failed launch raises."""
     dev = kernel_device(q=q, k=k, v=v)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]

@@ -21,7 +21,9 @@ def spmm_block_ell(tiles: torch.Tensor, tile_col: torch.Tensor,
     tile_col (n_rb, tb) int32 column-block index per tile; valid (n_rb,
     tb) int32 1 for real tiles; active (n_rb,) int32 NAP row-block
     predicate; x (n_x, F) f32 with n_x % CB == 0 and F % FB == 0.
-    Returns out (n_rb*RB, F) f32; inactive row blocks are zero.
+    Returns out (n_rb*RB, F) f32; inactive row blocks are
+    zero. On the card the kernel touches only the non-zero coefficients
+    (bitwise the same sums as the dense fused step on finite x).
 
     The tile_col of every valid slot must index a block of x (< n_x/CB):
     the packer guarantees it, and the CUDA path does not re-check it
@@ -37,7 +39,7 @@ def spmm_block_ell(tiles: torch.Tensor, tile_col: torch.Tensor,
     check("tile_col", tile_col, torch.int32, (n_rb, tb))
     check("valid", valid, torch.int32, (n_rb, tb))
     check("active", active, torch.int32, (n_rb,))
-    check("x", x, torch.float32)
+    check("x", x, torch.float32, aligned=dev.type == "cuda")
     if dev.type == "cpu":
         return ref_spmm_block_ell(tiles, tile_col, valid, active, x)
     out = torch.empty((n_rb * RB, F), dtype=torch.float32, device=dev)

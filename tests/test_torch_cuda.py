@@ -14,7 +14,10 @@ rtol = 1e-4, atol = 1e-3 (the same chunked f32 factorization, with
 exp(+-80)-sized factors, summed in another order). Flash attention (B4):
 f32 at rtol = 1e-4, atol = 2e-5 (softmax sums in another order); bf16
 inputs against the plain version on the same bf16 inputs at
-rtol = atol = 1e-2 (one bf16 rounding of the output, 2^-8 relative)."""
+rtol = atol = 1e-2 (the kernel rounds the softmax weights P to bf16 for
+the tensor cores, 2^-9 relative each, and both round the output to bf16,
+2^-8 relative). B1 on dense tiles at atol = 1e-3 (sums of ~10^4 terms of
+size ~1 in another order than the plain version's)."""
 import numpy as np
 import pytest
 import torch
@@ -49,11 +52,11 @@ def cuda():
 
 
 def _operands(dev, seed=0, n_rb=96, tb=5, n_cb=6, F=384, nb=64,
-              frac_active=0.7):
+              frac_active=0.7, density=0.03):
     g = torch.Generator().manual_seed(seed)
-    # sparse-ish tiles: ~3% non-zero, like the packer's
+    # sparse tiles: by default ~3% non-zero, the packer's order of magnitude
     tiles = torch.rand((n_rb, tb, RB, CB), generator=g)
-    tiles *= torch.rand(tiles.shape, generator=g) < 0.03
+    tiles *= torch.rand(tiles.shape, generator=g) < density
     tile_col = torch.randint(0, n_cb, (n_rb, tb), generator=g,
                              dtype=torch.int32)
     valid = (torch.rand((n_rb, tb), generator=g) < 0.6).to(torch.int32)
@@ -89,6 +92,29 @@ def test_spmm_kernel_matches_plain(cuda, seed):
     torch.testing.assert_close(out, ref, **TOL)
     dead = (active == 0).repeat_interleave(RB)
     assert not out[dead].any()
+
+
+@pytest.mark.parametrize("density,F,tb", [
+    (0.0, 128, 20), (0.0, 512, 20),        # every tile empty
+    (0.003, 128, 20), (0.003, 512, 20),    # ~3 non-zeros per tile
+    (0.03, 128, 20), (0.03, 512, 20),
+    (1.0, 128, 20), (1.0, 512, 20),        # dense: 1,024 per tile, 4 a chunk
+    (0.003, 128, 140),                     # more slots than one window
+])
+def test_spmm_kernel_by_density(cuda, density, F, tb):
+    """B1 skips zeros: allclose to the plain version at every density, and
+    bitwise equal to the dense fused step's `out`."""
+    ops = _operands(cuda, 5, tb=tb, F=F, density=density)
+    tiles, tile_col, valid, active, x, *_ = ops
+    out = spmm_block_ell(tiles, tile_col, valid, active, x)
+    f_out, _, _ = nap_step_fused(*ops, 1.0)
+    ref = ref_spmm_block_ell(tiles, tile_col, valid, active, x)
+    torch.cuda.synchronize()
+    tol = TOL if density < 1.0 else dict(rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(out, ref, **tol)
+    assert torch.equal(out, f_out)
+    if density == 0.0:
+        assert not out.any()
 
 
 def test_nap_step_kernel_matches_plain_and_spmm(cuda):
@@ -191,6 +217,10 @@ def test_wkv6_kernel_matches_plain(cuda, hd, T):
     (torch.float32, 64, 2, 1, 256, 0, False),
     (torch.bfloat16, 256, 8, 1, 512, 192, True),
     (torch.bfloat16, 128, 4, 4, 256, 0, True),
+    (torch.bfloat16, 64, 16, 1, 384, 100, True),     # window not a multiple of 64
+    (torch.bfloat16, 128, 16, 1, 256, 1000, True),   # window longer than S
+    (torch.bfloat16, 256, 16, 1, 512, 0, True),
+    (torch.bfloat16, 64, 4, 2, 256, 0, False),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, hd, H, KV, S,
                                               window, causal):
@@ -218,6 +248,18 @@ def test_gqa_flash_attention_unpadded_on_card(cuda):
     out = gqa_flash_attention(q, k, v, window=48)
     ref = ref_attention(q, k, v, window=48)
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=2e-5)
+
+
+def test_gqa_flash_attention_unpadded_bf16_on_card(cuda):
+    """S = 200 is padded to 256 for the tensor-core kernel and cut back."""
+    g = torch.Generator().manual_seed(8)
+    q = torch.randn((2, 200, 16, 256), generator=g).to(cuda, torch.bfloat16)
+    k = torch.randn((2, 200, 1, 256), generator=g).to(cuda, torch.bfloat16)
+    v = torch.randn((2, 200, 1, 256), generator=g).to(cuda, torch.bfloat16)
+    out = gqa_flash_attention(q, k, v, window=72)
+    ref = ref_attention(q, k, v, window=72)
+    assert out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
 
 
 def test_lm_kernels_refuse_bad_operands_on_cuda(cuda):
