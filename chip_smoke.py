@@ -12,7 +12,9 @@ fails (non-zero exit, no result line) on any failed check:
    configuration (`gnn_phases`): one real packed batch; each kernel (B1
    spmm_block_ell, B2 nap_step_fused, B3 nap_exit) against its plain
    PyTorch version on the card, B2's `out` bitwise against B1's and B2
-   against the two-launch composition B1 + B3; then 2,000 requests
+   against the two-launch composition B1 + B3; B1 and B2 again with NaN,
+   +Inf and -Inf planted in x rows that only zero coefficients name, and
+   in rows that non-zero ones name (`nonfinite_phase`); then 2,000 requests
    through `NAIServingEngine(mode="compiled")` for each backend (fused,
    block_ell, segment) at pipeline depth 2, after one warm pass, held
    against the port's host-mode engine;
@@ -44,14 +46,17 @@ cores), the plain version (which synchronises with the host: one call a
 timing, and of B4/B5 the median of 5) and, where one PyTorch call
 computes the same function, that call. The summary also gives the
 kernel's and the library call's time at one call per event pair, which
-adds the host's launch gap.
+adds the host's launch gap, and for B3 the device time alone: a CUDA
+graph of 10 calls replayed between events (`graph_ms`).
 
 Tolerances: propagated values allclose at rtol = atol = 1e-5 and squared
 distances at rtol = 1e-5, atol = 1e-4 (f32 sums in another order than
 the plain versions'); exit flags, exit orders and predictions equal
 outside a 1e-4 relative margin around the squared threshold, which may
 hold at most 5% of the nodes; B2 against B1 and against the two-launch
-composition, and the fused backend against block_ell, exactly. B5 at
+composition, and the fused backend against block_ell, exactly. With
+non-finite x: NaN and +-Inf in exactly the places of the plain version's
+output, the finite values as above. B5 at
 rtol = 1e-4, atol = 1e-5 of its largest value (the same f32 chunked
 factorization summed in another order); B4 at rtol = atol = 1e-2 (the
 kernel rounds the softmax weights to bf16 for the tensor cores, 2^-9
@@ -117,6 +122,35 @@ def time_ms(torch, fn, reps: int = REPS, warm: int = 3,
     return float(np.median(times))
 
 
+def graph_ms(torch, fn, calls: int = 10, reps: int = REPS) -> float:
+    """Device time of one fn() call with the host out of the way: a CUDA
+    graph of `calls` back-to-back calls, replayed between CUDA events;
+    median of `reps`, per call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return float(np.median(times))
+
+
 def timings(torch, kernel, plain, library=None, plain_reps: int = REPS):
     """A kernel's, its plain version's and the library call's times.
     `ms` and `library_ms` time 10 back-to-back calls per event pair; their
@@ -145,6 +179,87 @@ def rel_l2(a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
+def same_bits(torch, a, b) -> bool:
+    """Bitwise equality of two f32 tensors, NaN payloads included."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def nonfinite_equal(torch, got, want, rtol=1e-5, atol=1e-5) -> bool:
+    """NaN and +-Inf in exactly the same places (and signs), the finite
+    values allclose (f32 sums in another order than the plain
+    version's)."""
+    fin = torch.isfinite(want)
+    return (torch.equal(torch.isfinite(got), fin)
+            and torch.equal(got.isnan(), want.isnan())
+            and torch.equal(got[got.isinf()], want[want.isinf()])
+            and torch.allclose(got[fin], want[fin], rtol=rtol, atol=atol))
+
+
+def nonfinite_phase(torch, tiles, tile_col, valid, active, x0, c, s,
+                    node_active, ts2) -> None:
+    """B1 and B2 on the real step-1 operands with NaN, +Inf and -Inf
+    planted in x rows that only zero coefficients of the active tiles name,
+    then (separately) in rows that a non-zero coefficient names. Each
+    output against its plain version: non-finite entries identical,
+    finite ones allclose; B2's `out` and flags bitwise B1's; exit flags
+    equal to the plain version's outside the threshold margin."""
+    from repro_torch.kernels.nap_step import nap_step_fused, ref_nap_step
+    from repro_torch.kernels.spmm import (CB, RB, nonfinite_blocks,
+                                          ref_spmm_block_ell, spmm_block_ell,
+                                          zero_flags)
+    phase("non-finite x")
+    use = (valid != 0) & (active[:, None] != 0)
+    cols = tile_col[use].long()                       # (n_use,)
+    nz = (tiles[use] != 0).any(dim=1)                 # (n_use, CB)
+    named = torch.zeros(x0.shape[0], dtype=torch.bool, device=x0.device)
+    named[(cols[:, None] * CB + torch.arange(CB, device=x0.device))[nz]] = 1
+    reached = torch.zeros_like(named)
+    reached.view(-1, CB)[cols.unique()] = True
+    nb, F = node_active.shape[0], x0.shape[1]
+    n_rb = tile_col.shape[0]
+    for behind, pick in (("zero", reached & ~named), ("nonzero", named)):
+        cand = torch.nonzero(pick).flatten()
+        check(cand.numel() > 0, f"x rows behind {behind} coefficients")
+        rows = cand[torch.linspace(0, cand.numel() - 1, min(3, cand.numel()),
+                                   device=cand.device).long()]
+        x = x0.clone()
+        for i, (row, val) in enumerate(zip(rows.tolist(), (
+                float("nan"), float("inf"), float("-inf")))):
+            x[row, [i, F // 2 + i, F - 1 - i]] = val
+        bad = nonfinite_blocks(x)
+        ob1, ob2 = (zero_flags(n_rb * RB, F, x.device) for _ in range(2))
+        o1 = spmm_block_ell(tiles, tile_col, valid, active, x, x_bad=bad,
+                            out_bad=ob1)
+        f_out, f_ex, f_blk = nap_step_fused(tiles, tile_col, valid, active,
+                                            x, c, s, node_active, ts2,
+                                            x_bad=bad, out_bad=ob2)
+        r_out, r_ex, _ = ref_nap_step(tiles, tile_col, valid, active, x, c,
+                                      s, node_active, ts2)
+        r1 = ref_spmm_block_ell(tiles, tile_col, valid, active, x)
+        torch.cuda.synchronize()
+        n_nan, n_inf = int(r1.isnan().sum()), int(r1.isinf().sum())
+        check(n_nan > 0, f"the planted values reach the output ({behind})")
+        check(nonfinite_equal(torch, o1, r1),
+              f"spmm_block_ell vs plain on non-finite x behind {behind} "
+              f"coefficients")
+        check(nonfinite_equal(torch, f_out, r_out),
+              f"nap_step_fused vs plain on non-finite x behind {behind} "
+              f"coefficients")
+        check(same_bits(torch, f_out, o1) and torch.equal(ob1, ob2)
+              and torch.equal(ob1, nonfinite_blocks(r1)),
+              f"B2 out and flags bitwise B1's, flags as the plain output's "
+              f"({behind})")
+        d2 = ((r_out[:nb] - c[:, None] * s) ** 2).sum(1)
+        far = ~((d2 - ts2).abs() <= D2_MARGIN * ts2)   # NaN counts as far
+        check(torch.equal(f_ex.flatten()[far], r_ex.flatten()[far]),
+              f"nap_step_fused exit flags vs plain ({behind})")
+        print(f"behind {behind} coefficients: rows {rows.tolist()}; plain "
+              f"output NaN {n_nan}, Inf {n_inf}; B1 NaN "
+              f"{int(o1.isnan().sum())}, Inf {int(o1.isinf().sum())}; B2 "
+              f"NaN {int(f_out.isnan().sum())}; batch nodes with a NaN "
+              f"distance {int(d2.isnan().sum())}, exits {int(f_ex.sum())}")
+
+
 def gnn_phases(torch, dev, kernels):
     """The NAI serving path (kernels B1-B3) at the full pubmed-like size:
     returns the kernel rows, each with its launches in the measured
@@ -159,8 +274,9 @@ def gnn_phases(torch, dev, kernels):
     from repro_torch.kernels.nap_exit import nap_exit, ref_nap_exit
     from repro_torch.kernels.nap_step import (fused_step, nap_step_fused,
                                               ref_nap_step, two_launch_step)
-    from repro_torch.kernels.spmm import (CB, RB, ref_spmm_block_ell,
-                                          spmm_block_ell)
+    from repro_torch.kernels.spmm import (CB, RB, nonfinite_blocks,
+                                          ref_spmm_block_ell, spmm_block_ell,
+                                          zero_flags)
     from repro_torch.serving import NAIServingEngine
 
     # ---------------------------------------------------- configuration
@@ -214,9 +330,16 @@ def gnn_phases(torch, dev, kernels):
     node_active = torch.ones((nb, 1), dtype=torch.int32, device=dev)
     ts2 = float(np.float32(nai.t_s) ** 2)
     rows = []
+    # the non-finite flags of x0, as the NAP loop makes them once per batch
+    bad0 = nonfinite_blocks(x0)
+    flags_ms = time_ms(torch, lambda: nonfinite_blocks(x0), calls=1)
+    print(f"non-finite flags of x0 ({tuple(bad0.shape)}), once per batch: "
+          f"{flags_ms:.4f} ms; set: {int(bad0.sum())}")
+    ob = zero_flags(n_rb * RB, F, dev)
 
-    # B1: block-ELL SpMM
-    out = spmm_block_ell(tiles, tile_col, valid, active, x0)
+    # B1: block-ELL SpMM, called as the NAP loop calls it (flags in, out)
+    out = spmm_block_ell(tiles, tile_col, valid, active, x0, x_bad=bad0,
+                         out_bad=ob)
     ref = ref_spmm_block_ell(tiles, tile_col, valid, active, x0)
     torch.cuda.synchronize()
     err_b1 = float((out - ref).abs().max())
@@ -227,7 +350,8 @@ def gnn_phases(torch, dev, kernels):
     nnz = int((tiles[use] != 0).sum())
     n_xblk = int(torch.unique(tile_col[use]).numel())
     b1_bytes = (n_use * RB * CB * 4 + (int(active.sum()) * tb + n_use) * 4
-                + n_rb * 4 + n_xblk * CB * F * 4 + n_rb * RB * F * 4)
+                + n_rb * 4 + n_xblk * CB * F * 4 + n_rb * RB * F * 4
+                + bad0.numel() + ob.numel())
     b1_flops = 2 * nnz * F
     # the library yardstick: one sparse product over the same active rows
     keep = np.repeat(sa[0] != 0, RB)[p.dst[:len(sup.src)]]
@@ -247,7 +371,8 @@ def gnn_phases(torch, dev, kernels):
         replaces="src/repro/kernels/spmm/kernel.py:51",
         max_abs_err=err_b1,
         **timings(torch,
-                  lambda: spmm_block_ell(tiles, tile_col, valid, active, x0),
+                  lambda: spmm_block_ell(tiles, tile_col, valid, active, x0,
+                                         x_bad=bad0, out_bad=ob),
                   lambda: ref_spmm_block_ell(tiles, tile_col, valid, active,
                                              x0),
                   lambda: torch.sparse.mm(csr, x0)),
@@ -288,14 +413,28 @@ def gnn_phases(torch, dev, kernels):
                   lambda: ref_nap_exit(xb, x_inf, node_active, ts2),
                   lambda: ((xb - c[:, None] * s) ** 2).sum(1)),
         bound=bound(b3_bytes, 3 * nb * F)))
+    # device time alone (CUDA graph replay: no launch gaps), to tell the
+    # kernel from the host's launch rate that both event rulers include
+    b3 = rows[-1]
+    b3["device_ms"] = graph_ms(
+        torch, lambda: nap_exit(xb, x_inf, node_active, ts2))
+    b3["library_device_ms"] = graph_ms(
+        torch, lambda: ((xb - c[:, None] * s) ** 2).sum(1))
+    print(f"B3 device time (CUDA graph of 10 calls): kernel "
+          f"{b3['device_ms']:.4f} ms, library "
+          f"{b3['library_device_ms']:.4f} ms; events around 10 calls: "
+          f"{b3['ms']:.4f} / {b3['library_ms']:.4f} ms, one call: "
+          f"{b3['ms_one_call']:.4f} / {b3['library_ms_one_call']:.4f} ms")
 
-    # B2: fused step
+    # B2: fused step, called as the NAP loop calls it (flags in, out)
     f_args = (tiles, tile_col, valid, active, x0, c, s, node_active)
-    f_out, f_ex, f_blk = nap_step_fused(*f_args, ts2)
+    f_ob = zero_flags(n_rb * RB, F, dev)
+    f_out, f_ex, f_blk = nap_step_fused(*f_args, ts2, x_bad=bad0,
+                                        out_bad=f_ob)
     r_out, r_ex2, r_blk2 = ref_nap_step(*f_args, ts2)
     torch.cuda.synchronize()
-    check(torch.equal(f_out, out), "nap_step_fused out bitwise == "
-          "spmm_block_ell out")
+    check(torch.equal(f_out, out) and torch.equal(f_ob, ob),
+          "nap_step_fused out and its flags bitwise == spmm_block_ell's")
     check(torch.equal(f_ex, ex) and torch.equal(f_blk[:nb // RB], blk),
           "nap_step_fused flags == spmm_block_ell + nap_exit flags")
     err_b2 = float((f_out - r_out).abs().max())
@@ -314,10 +453,17 @@ def gnn_phases(torch, dev, kernels):
         source="src/repro_torch/csrc/nap_step_fused.cu",
         replaces="src/repro/kernels/nap_step/kernel.py:109",
         max_abs_err=err_b2,
-        **timings(torch, lambda: nap_step_fused(*f_args, ts2),
+        **timings(torch, lambda: nap_step_fused(*f_args, ts2, x_bad=bad0,
+                                                out_bad=f_ob),
                   lambda: ref_nap_step(*f_args, ts2)),
         bound=bound(b2_bytes, b1_flops + 4 * nb * F)))
-    del tiles, tile_col, valid, x0, x_inf, out, ref, f_out, r_out, one, two
+    b2 = rows[-1]
+    print(f"B2 kernel {b2['ms']:.4f} ms = {b2['bound'][0] / b2['ms']:.1%} of "
+          f"its bound, {b2['ms'] / b1['ms']:.2f}x B1")
+    del out, ref, f_out, r_out, one, two
+    nonfinite_phase(torch, tiles, tile_col, valid, active, x0, c, s,
+                    node_active, ts2)
+    del tiles, tile_col, valid, x0, x_inf
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------- serve
@@ -519,7 +665,7 @@ def lm_phases(torch, dev, kernels, arch, batch, seq, gate_seq, bf16_rel,
     from repro_torch.data.tokens import synthetic_lm_batch
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      ref_attention)
-    from repro_torch.kernels.wkv6 import ref_wkv6, wkv6
+    from repro_torch.kernels.wkv6 import ref_wkv6, wkv6_heads
     from repro_torch.models import decoder_lm as M
     from repro_torch.nn import attention, rwkv
     from repro_torch.nn import blocks as TB
@@ -554,13 +700,17 @@ def lm_phases(torch, dev, kernels, arch, batch, seq, gate_seq, bf16_rel,
             rf, kf, vf, lw, u, _ = rwkv.wkv_inputs(
                 cfg, p["tmix"], apply_norm(cfg, p["norm1"], x))
             B_, T, H, hd = rf.shape
+            # the kernel reads the model's (B, T, H, hd) layout as the
+            # prefill hands it over; the plain version takes (B*H, T, hd)
             flat = [a.transpose(1, 2).reshape(B_ * H, T, hd).contiguous()
                     for a in (rf, kf, vf, lw)]
             uf = u[None].expand(B_, H, hd).reshape(B_ * H, hd).contiguous()
             args = (*flat, uf)
-            out, state = wkv6(*args)
+            out, state = wkv6_heads(rf, kf, vf, lw, u)
             ref_out, ref_state = ref_wkv6(*args)
             torch.cuda.synchronize()
+            ref_out = ref_out.reshape(B_, H, T, hd).transpose(1, 2)
+            ref_state = ref_state.reshape(B_, H, hd, hd)
             err = float(max((out - ref_out).abs().max(),
                             (state - ref_state).abs().max()))
             scale = float(max(ref_out.abs().max(), ref_state.abs().max()))
@@ -580,7 +730,8 @@ def lm_phases(torch, dev, kernels, arch, batch, seq, gate_seq, bf16_rel,
             row = dict(name=kname, source="src/repro_torch/csrc/wkv6.cu",
                        replaces="src/repro/kernels/wkv6/kernel.py:60",
                        max_abs_err=err,
-                       **timings(torch, lambda: wkv6(*args),
+                       **timings(torch,
+                                 lambda: wkv6_heads(rf, kf, vf, lw, u),
                                  lambda: ref_wkv6(*args), plain_reps=5),
                        bound=bound(nbytes, flops))
             del args, flat, rf, kf, vf, lw, out, ref_out
@@ -829,7 +980,10 @@ def main() -> int:
               f"launches {r['launches']} {r['note']}, "
               f"max abs err {r['max_abs_err']:.3g}; one call per event "
               f"pair: kernel {r['ms_one_call']:.4f} ms, library "
-              f"{'n/a' if lib is None else '%.4f ms' % r['library_ms_one_call']}")
+              f"{'n/a' if lib is None else '%.4f ms' % r['library_ms_one_call']}"
+              + ("" if "device_ms" not in r else
+                 f"; device time (CUDA graph): kernel {r['device_ms']:.4f} "
+                 f"ms, library {r['library_device_ms']:.4f} ms"))
         line["kernels"].append(dict(
             name=r["name"], route="cuda", source=r["source"],
             replaces=r["replaces"], launches=r["launches"],

@@ -7,7 +7,11 @@ implementation is a `PropagationBackend` registered in `BACKENDS`, and
 * ``step(ops, x, node_active, active_rb, ts2, ...)`` — one NAP
   propagation step: the propagated rows plus the per-batch-node exit
   flags. The exit arithmetic is squared-f32 distance vs the squared
-  threshold (negative threshold = exits disabled this step).
+  threshold (negative threshold = exits disabled this step). The tile
+  backends also carry the non-finite flags of x from step to step
+  (`repro_torch.kernels.spmm.nonfinite_blocks`: one pass over x0 per
+  batch, then each kernel writes them for its output), so that their
+  zero-skipping kernels propagate a NaN or Inf as the dense product does.
 
 Backends:
 
@@ -35,7 +39,7 @@ keeps the card busy while it packs the next batch.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +47,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.nap_exit import nap_exit
 from repro_torch.kernels.nap_step import nap_step_fused
-from repro_torch.kernels.spmm import CB, RB, spmm_block_ell
+from repro_torch.kernels.spmm import (CB, RB, nonfinite_blocks, spmm_block_ell,
+                                      zero_flags)
 
 BACKENDS: Dict[str, "PropagationBackend"] = {}
 
@@ -92,13 +97,14 @@ class PropagationBackend:
         shape checks only)."""
 
     def step(self, ops: dict, x, node_active, active_rb, ts2: float, *,
-             n_batch: int, n_rows: int
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             n_batch: int, n_rows: int, x_bad=None
+             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
         """One propagation + exit-decision step. ``node_active`` (n_batch,)
         int32 not-yet-exited flags; ``active_rb`` the (n_rb,) int32
         row-block predicate (None for backends without tiles); ``ts2`` the
-        squared threshold. Returns ``(x_out (n_rows, f), exits (n_batch,)
-        bool)``."""
+        squared threshold; ``x_bad`` the non-finite flags of x (tile
+        backends). Returns ``(x_out (n_rows, f), exits (n_batch,) bool,
+        flags of x_out or None)``."""
         raise NotImplementedError
 
 
@@ -110,12 +116,12 @@ class SegmentBackend(PropagationBackend):
     uses_edges = True
 
     def step(self, ops, x, node_active, active_rb, ts2, *, n_batch,
-             n_rows):
+             n_rows, x_bad=None):
         contrib = ops["coef"][:, None] * x[ops["src"]]
         out = torch.zeros((n_rows, x.shape[1]), dtype=x.dtype,
                           device=x.device)
         out.index_add_(0, ops["dst"], contrib)
-        return out, _distance_exits(out, ops["x_inf"], ts2, n_batch)
+        return out, _distance_exits(out, ops["x_inf"], ts2, n_batch), None
 
 
 @register_backend
@@ -126,12 +132,14 @@ class BlockEllBackend(PropagationBackend):
     uses_tiles = True
 
     def step(self, ops, x, node_active, active_rb, ts2, *, n_batch,
-             n_rows):
+             n_rows, x_bad=None):
+        out_bad = zero_flags(ops["tile_col"].shape[0] * RB, x.shape[1],
+                              x.device)
         out = spmm_block_ell(ops["tiles"], ops["tile_col"], ops["valid"],
-                             active_rb, x)
+                             active_rb, x, x_bad=x_bad, out_bad=out_bad)
         _, exits, _ = nap_exit(out[:n_batch], ops["x_inf"],
                                node_active[:, None], ts2)
-        return out, exits[:, 0] != 0
+        return out, exits[:, 0] != 0, out_bad
 
 
 @register_backend
@@ -161,13 +169,16 @@ class FusedBackend(PropagationBackend):
                              f"{tuple(c.shape)} {tuple(s.shape)}")
 
     def step(self, ops, x, node_active, active_rb, ts2, *, n_batch,
-             n_rows):
+             n_rows, x_bad=None):
+        out_bad = zero_flags(ops["tile_col"].shape[0] * RB, x.shape[1],
+                              x.device)
         out, exits, _blk_still = nap_step_fused(
             ops["tiles"], ops["tile_col"], ops["valid"], active_rb, x,
-            ops["c_inf"], ops["s_inf"], node_active[:, None], ts2)
+            ops["c_inf"], ops["s_inf"], node_active[:, None], ts2,
+            x_bad=x_bad, out_bad=out_bad)
         # any(blk_still) == any(node_active & ~exits): the loop recovers
         # the live flag from exit_order, so blk_still is not threaded out
-        return out, exits[:, 0] != 0
+        return out, exits[:, 0] != 0, out_bad
 
 
 def pack_operands(backend: PropagationBackend, packed,
@@ -213,14 +224,16 @@ def _masked_loop(backend, nai, ops, x0, n_batch, n_rows):
     exit_order = torch.zeros((n_batch,), dtype=torch.int32,
                              device=x0.device)
     live = torch.ones((), dtype=torch.int32, device=x0.device)
+    bad = nonfinite_blocks(x0) if backend.uses_tiles else None
     for l in range(1, tmax + 1):
         node_active = (exit_order == 0).to(torch.int32)
         # T_min/T_max gating via the threshold sentinel: a negative
         # squared threshold means nobody exits this step
         ts2 = ts2_on if nai.t_min <= l < tmax else -1.0
         active_rb = sa[l - 1] * live if sa is not None else None
-        x, exits = backend.step(ops, x, node_active, active_rb, ts2,
-                                n_batch=n_batch, n_rows=n_rows)
+        x, exits, bad = backend.step(ops, x, node_active, active_rb, ts2,
+                                     n_batch=n_batch, n_rows=n_rows,
+                                     x_bad=bad)
         exit_order = torch.where((node_active != 0) & exits,
                                  torch.full_like(exit_order, l), exit_order)
         live = (exit_order == 0).any().to(torch.int32)

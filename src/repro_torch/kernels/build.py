@@ -33,15 +33,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # C entry point -> argument types (every pointer and the stream as
 # c_void_p, so 64-bit addresses are never cut to a 32-bit int)
 SIGNATURES = {
-    "spmm_block_ell_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "nap_step_fused_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P,
-                              _P, _I, _I, _I, _I, _I, _P),
+    "spmm_block_ell_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _P),
+    "nap_step_fused_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P,
+                              _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "nap_exit_launch": (_P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _P),
-    "wkv6_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "wkv6_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
+                    _I, _I, _P),
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _F, _I, _I, _P),
 }
@@ -120,13 +123,16 @@ def compile_library(csrc: Path, sources, out: Path) -> Path:
     return out
 
 
-def bind(path: Path, names=tuple(SIGNATURES)) -> ctypes.CDLL:
+def bind(path: Path, names=tuple(SIGNATURES),
+         signatures=None) -> ctypes.CDLL:
     """Load a kernel library with `argtypes` and `restype` set for the C
-    entry points `names` (each must be there)."""
+    entry points `names` (each must be there), from `signatures` (this
+    version's SIGNATURES when None)."""
+    signatures = SIGNATURES if signatures is None else signatures
     lib = ctypes.CDLL(str(path))
     for name in names:
         fn = getattr(lib, name)
-        fn.argtypes = list(SIGNATURES[name])
+        fn.argtypes = list(signatures[name])
         fn.restype = ctypes.c_int
     return lib
 

@@ -5,14 +5,18 @@ from __future__ import annotations
 import torch.nn.functional as F
 
 from repro_torch.kernels.wkv6 import CHUNK
-from repro_torch.kernels.wkv6.kernel import wkv6
+from repro_torch.kernels.wkv6.kernel import launch_heads, wkv6
 
 
 def wkv6_heads(r, k, v, logw, u):
-    """r/k/v/logw (B, T, H, hd) f32; u (H, hd). Pads T to CHUNK with
-    logw = 0 (no decay) and k = 0 — state-neutral steps, as
-    `repro.nn.rwkv` masks them. Returns (out (B, T, H, hd), final state
-    (B, H, hd, hd))."""
+    """r/k/v/logw (B, T, H, hd) f32; u (H, hd). Returns (out (B, T, H,
+    hd), final state (B, H, hd, hd)). On the card the kernel reads this
+    layout as it is, any T. On the CPU the plain version runs on (B*H, T,
+    hd) copies with T padded to CHUNK by logw = 0 (no decay) and k = 0 —
+    state-neutral steps, as `repro.nn.rwkv` masks them."""
+    if r.device.type == "cuda":
+        uf = u.float().contiguous()
+        return launch_heads(*(a.contiguous() for a in (r, k, v, logw)), uf)
     B, T, H, hd = r.shape
     pad = (-T) % CHUNK
 

@@ -17,7 +17,14 @@ inputs against the plain version on the same bf16 inputs at
 rtol = atol = 1e-2 (the kernel rounds the softmax weights P to bf16 for
 the tensor cores, 2^-9 relative each, and both round the output to bf16,
 2^-8 relative). B1 on dense tiles at atol = 1e-3 (sums of ~10^4 terms of
-size ~1 in another order than the plain version's)."""
+size ~1 in another order than the plain version's).
+
+Non-finite x: on dyadic operands (every product and sum exact in f32)
+B1 and B2 equal their plain versions elementwise, NaN and +-Inf in the
+same places, also over two chained steps that pass the kernels' own
+flags on. B5 at hd 16/32/64 and T up to 4096: out and state at
+rtol = 1e-4, atol = max(1e-3, 1e-5 * the largest plain value) (with no
+decay, logw = 0, the state sums thousands of steps and reaches ~10^3)."""
 import numpy as np
 import pytest
 import torch
@@ -32,8 +39,10 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.nap_exit import nap_exit, ref_nap_exit
 from repro_torch.kernels.nap_step import (nap_step_fused, ref_nap_step,
                                           two_launch_step)
-from repro_torch.kernels.spmm import CB, RB, ref_spmm_block_ell, spmm_block_ell
-from repro_torch.kernels.wkv6 import ref_wkv6, wkv6
+from repro_torch.kernels.spmm import (CB, RB, nonfinite_blocks,
+                                      ref_spmm_block_ell, spmm_block_ell,
+                                      zero_flags)
+from repro_torch.kernels.wkv6 import ref_wkv6, wkv6, wkv6_heads
 from repro_torch.serving import NAIServingEngine
 
 from torch_parity import assert_orders_match, near_threshold
@@ -52,10 +61,12 @@ def cuda():
 
 
 def _operands(dev, seed=0, n_rb=96, tb=5, n_cb=6, F=384, nb=64,
-              frac_active=0.7, density=0.03):
+              frac_active=0.7, density=0.03, dyadic=False):
     g = torch.Generator().manual_seed(seed)
     # sparse tiles: by default ~3% non-zero, the packer's order of magnitude
     tiles = torch.rand((n_rb, tb, RB, CB), generator=g)
+    if dyadic:   # 1/4, 1/2 or 1: exact products and sums below
+        tiles = 2.0 ** -torch.randint(0, 3, tiles.shape, generator=g)
     tiles *= torch.rand(tiles.shape, generator=g) < density
     tile_col = torch.randint(0, n_cb, (n_rb, tb), generator=g,
                              dtype=torch.int32)
@@ -65,6 +76,10 @@ def _operands(dev, seed=0, n_rb=96, tb=5, n_cb=6, F=384, nb=64,
     x = torch.randn((n_cb * CB, F), generator=g)
     c = torch.rand(nb, generator=g) + 0.1
     s = torch.randn(F, generator=g)
+    if dyadic:
+        x = torch.randint(-3, 4, x.shape, generator=g).float()
+        c = 2.0 ** -torch.randint(0, 2, c.shape, generator=g).float()
+        s = torch.randint(-1, 2, s.shape, generator=g).float()
     nact = (torch.rand((nb, 1), generator=g) < 0.8).to(torch.int32)
     return [t.to(dev) for t in (tiles, tile_col, valid, active, x, c, s,
                                 nact)]
@@ -269,3 +284,132 @@ def test_lm_kernels_refuse_bad_operands_on_cuda(cuda):
     y = torch.zeros((2, 16, 48), device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         wkv6(y, y, y, y, torch.zeros((2, 48), device=cuda))
+
+
+def _plant(ops, behind, seed):
+    """NaN, +Inf and -Inf into three x rows (a few features each) that
+    only zero coefficients of valid active tiles name (`behind="zero"`),
+    or that a non-zero coefficient of such a tile names."""
+    tiles, tile_col, valid, active, x = ops[:5]
+    g = torch.Generator().manual_seed(seed)
+    use = (valid != 0) & (active[:, None] != 0)
+    named = tile_col[use].unique()
+    for i, val in enumerate((float("nan"), float("inf"), float("-inf"))):
+        xb = int(named[i % len(named)])
+        k = int(torch.randint(0, CB, (1,), generator=g))
+        sel = use & (tile_col == xb)
+        if behind == "zero":
+            tiles[..., k][sel] = 0.0
+        else:
+            tiles[..., 0, k][sel] = 0.5
+        f = torch.randint(0, x.shape[1], (3,), generator=g)
+        x[xb * CB + k, f.to(x.device)] = val
+    return ops
+
+
+@pytest.mark.parametrize("behind", ["zero", "nonzero"])
+@pytest.mark.parametrize("F", [384, 640])
+def test_kernels_nonfinite_match_plain(cuda, behind, F):
+    """B1 and B2 equal their plain versions elementwise on x with NaN and
+    +-Inf behind zero (or non-zero) coefficients, for one step and for a
+    second step fed the first one's output and flags."""
+    ops = _plant(_operands(cuda, 11, F=F, dyadic=True), behind, 11)
+    tiles, tile_col, valid, active, x, c, s, nact = ops
+    ts2 = 50.0
+    x_bad = nonfinite_blocks(x)
+    b1_bad, b2_bad = (zero_flags(x.shape[0], F, cuda) for _ in range(2))
+    out1 = spmm_block_ell(tiles, tile_col, valid, active, x, x_bad=x_bad,
+                          out_bad=b1_bad)
+    f1 = nap_step_fused(*ops, ts2, x_bad=x_bad, out_bad=b2_bad)
+    r1 = ref_nap_step(*ops, ts2)
+    torch.cuda.synchronize()
+    assert out1.isnan().any() and (behind == "zero" or out1.isinf().any())
+    for a, b in zip(f1, r1):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    assert torch.equal(out1.isnan(), f1[0].isnan())
+    np.testing.assert_array_equal(out1.cpu().numpy(), r1[0].cpu().numpy())
+    assert torch.equal(b1_bad, nonfinite_blocks(r1[0]))
+    assert torch.equal(b1_bad, b2_bad)
+    # step 2: x = step 1's output, flags from the kernel (the NAP loop)
+    out2 = spmm_block_ell(tiles, tile_col, valid, active, out1,
+                          x_bad=b1_bad)
+    f2 = nap_step_fused(tiles, tile_col, valid, active, f1[0], c, s, nact,
+                        ts2, x_bad=b2_bad)
+    r2 = ref_nap_step(tiles, tile_col, valid, active, r1[0], c, s, nact,
+                      ts2)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(out2.cpu().numpy(), r2[0].cpu().numpy())
+    for a, b in zip(f2, r2):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+@pytest.mark.parametrize("density", [0.0, 0.003, 0.03, 1.0])
+@pytest.mark.parametrize("F", [128, 384, 512, 640])
+def test_nap_step_kernel_by_density_and_features(cuda, density, F):
+    """B2 runs B1's zero-skipping code: `out` and its flags bitwise B1's,
+    exit flags and block flags bitwise B1 then B3's, at every tile density
+    and with F over one 512-feature slab."""
+    ops = _operands(cuda, 6, tb=12, F=F, density=density)
+    tiles, tile_col, valid, active, x, c, s, nact = ops
+    b1_bad, b2_bad = (zero_flags(x.shape[0], F, cuda) for _ in range(2))
+    out_b1 = spmm_block_ell(tiles, tile_col, valid, active, x,
+                            out_bad=b1_bad)
+    ts2 = _threshold(out_b1, c, s, nact) if density > 0 else 1.0
+    t_s = float(np.sqrt(ts2))
+    t_ts2 = float(np.float32(t_s * t_s))
+    out, exits, blk = nap_step_fused(*ops, t_ts2, out_bad=b2_bad)
+    t_out, t_exits, t_blk = two_launch_step(*ops, t_s)
+    r_out = ref_spmm_block_ell(tiles, tile_col, valid, active, x)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_b1) and torch.equal(b1_bad, b2_bad)
+    assert torch.equal(out, t_out)
+    assert torch.equal(exits, t_exits) and torch.equal(blk, t_blk)
+    tol = TOL if density < 1.0 else dict(rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(out, r_out, **tol)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("T", [16, 2048, 4096])
+@pytest.mark.parametrize("decay", ["random", "min", "none"])
+def test_wkv6_kernel_by_shape_and_decay(cuda, hd, T, decay):
+    """B5 against its plain version; BH = 5 (no grouping of rows assumed);
+    logw random in [-5, 0), all at the clamp -5, or all 0 (no decay)."""
+    g = torch.Generator().manual_seed(hd + T)
+    BH = 5
+    r, k, v = (torch.randn((BH, T, hd), generator=g) for _ in range(3))
+    if decay == "random":
+        logw = torch.clamp(-torch.exp(0.5 * torch.randn((BH, T, hd),
+                                                        generator=g)),
+                           min=-5.0)
+    else:
+        logw = torch.full((BH, T, hd), -5.0 if decay == "min" else 0.0)
+    u = 0.1 * torch.randn((BH, hd), generator=g)
+    args = [t.to(cuda) for t in (r, k, v, logw, u)]
+    out, state = wkv6(*args)
+    r_out, r_state = ref_wkv6(*args)
+    torch.cuda.synchronize()
+    scale = float(max(r_out.abs().max(), r_state.abs().max()))
+    tol = dict(rtol=1e-4, atol=max(1e-3, 1e-5 * scale))
+    torch.testing.assert_close(out, r_out, **tol)
+    torch.testing.assert_close(state, r_state, **tol)
+
+
+@pytest.mark.parametrize("T", [5, 100, 2049])
+def test_wkv6_heads_unpadded_on_card(cuda, T):
+    """The model's (B, T, H, hd) layout goes to the kernel as it is, T not
+    a multiple of 16: out and state equal the plain version's on the
+    padded copies (`wkv6_heads` on the CPU)."""
+    g = torch.Generator().manual_seed(T)
+    B, H, hd = 2, 3, 64
+    r, k, v = (torch.randn((B, T, H, hd), generator=g) for _ in range(3))
+    logw = torch.clamp(-torch.exp(0.5 * torch.randn((B, T, H, hd),
+                                                    generator=g)), min=-5.0)
+    u = 0.1 * torch.randn((H, hd), generator=g)
+    before = wkv6.launches
+    out, state = wkv6_heads(*(t.to(cuda) for t in (r, k, v, logw, u)))
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    r_out, r_state = wkv6_heads(r, k, v, logw, u)
+    assert out.shape == (B, T, H, hd) and state.shape == (B, H, hd, hd)
+    torch.testing.assert_close(out.cpu(), r_out, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(state.cpu(), r_state, rtol=1e-4, atol=1e-3)

@@ -7,7 +7,15 @@ kernels are held against the same plain versions on the card
 Tolerances: propagated values and distances are f32 sums taken in
 another order than XLA's, so they are compared with rtol = atol = 1e-5;
 exit flags and block predicates must be EQUAL (every distance of these
-inputs lies far from the threshold; asserted)."""
+inputs lies far from the threshold; asserted).
+
+Non-finite x (`test_*_nonfinite_*`): operands whose coefficients, features
+and stationary factors are small dyadic numbers, so that every product and
+sum is exact in f32 in any order; there the plain versions and the Pallas
+kernels must agree bit for bit, NaN and +-Inf included (a NaN or Inf
+behind a zero coefficient gives NaN, 0 * Inf = NaN, as the dense
+product does). These cases pin the semantics the CUDA kernels are held
+to on the card (tests/test_torch_cuda.py)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,7 +30,8 @@ from repro.kernels.spmm import spmm_block_ell as j_spmm
 from repro_torch.kernels.nap_exit import nap_exit, ref_nap_exit
 from repro_torch.kernels.nap_step import (fused_step, nap_step_fused,
                                           ref_nap_step, two_launch_step)
-from repro_torch.kernels.spmm import RB, ref_spmm_block_ell, spmm_block_ell
+from repro_torch.kernels.spmm import (CB, RB, SLAB, nonfinite_blocks,
+                                      ref_spmm_block_ell, spmm_block_ell)
 
 torch.set_num_threads(1)
 
@@ -184,3 +193,101 @@ def test_wrappers_reject_bad_operands():
     with pytest.raises(ValueError, match="c_inf"):
         nap_step_fused(*args, _t(o["c"][:12]), _t(o["s"]),
                        torch.ones((12, 1), dtype=torch.int32), 1.0)
+
+
+PLANTS = {"nan": np.nan, "+inf": np.inf, "-inf": -np.inf}
+
+
+def _nonfinite_operands(seed, behind, frac_active=0.8, n=300, deg=4, f=200,
+                        nb=32):
+    """Dyadic operands (exact f32 arithmetic) with NaN, +Inf and -Inf
+    planted in three x rows: rows that only zero coefficients name
+    (`behind="zero"`: every edge out of them has coefficient 0, so their
+    tiles stay valid), or rows that non-zero ones name ("nonzero").
+    Returns the operand dict and the planted rows."""
+    rng = np.random.default_rng(seed)
+    src, dst, _ = _random_graph(rng, n, deg)
+    coef = rng.choice(np.float32([0.25, 0.5, 1.0]), len(src))
+    rows = rng.choice(np.arange(nb, n), 3, replace=False)
+    if behind == "zero":
+        coef[np.isin(src, rows)] = 0.0
+    ell = build_block_ell(src, dst, coef, n)
+    x = pad_features(rng.integers(-3, 4, (n, f)).astype(np.float32),
+                     ell.n_pad)
+    for row, val in zip(rows, PLANTS.values()):
+        x[row, rng.choice(f, 5, replace=False)] = val
+    f_pad = x.shape[1]
+    c = rng.choice(np.float32([0.5, 1.0, 2.0]), nb)
+    s = np.pad(rng.integers(-1, 2, f).astype(np.float32), (0, f_pad - f))
+    n_rb = ell.tile_col.shape[0]
+    active = (rng.random(n_rb) < frac_active).astype(np.int32)
+    active[:nb // RB] = 1
+    nact = (rng.random(nb) < 0.8).astype(np.int32)[:, None]
+    named = np.isin(np.arange(ell.n_pad), src[coef != 0])
+    assert (named[rows] == (behind == "nonzero")).all()
+    return dict(tiles=ell.tiles, tile_col=ell.tile_col, valid=ell.valid,
+                active=active, x=x, c=c, s=s, nact=nact), rows
+
+
+@pytest.mark.parametrize("behind", ["zero", "nonzero"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_spmm_nonfinite_matches_pallas(seed, behind):
+    """The plain SpMM equals the Pallas kernel elementwise on x with NaN
+    and +-Inf, NaN in the same places, and the non-finite values reach
+    the output."""
+    o, rows = _nonfinite_operands(seed, behind)
+    keys = ("tiles", "tile_col", "valid", "active", "x")
+    want = np.asarray(j_spmm(*[jnp.asarray(o[k]) for k in keys],
+                             interpret=True))
+    args = [_t(o[k]) for k in keys]
+    got = ref_spmm_block_ell(*args).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert np.isnan(got).any() and (behind == "zero"
+                                    or np.isinf(got).any())
+    np.testing.assert_array_equal(spmm_block_ell(*args).numpy(), want)
+
+
+@pytest.mark.parametrize("behind", ["zero", "nonzero"])
+def test_nap_step_nonfinite_matches_pallas(behind):
+    """The plain fused step and the two-launch composition equal the
+    Pallas fused step on every output where x holds NaN and +-Inf: rows
+    that reach a NaN never exit."""
+    o, _ = _nonfinite_operands(2, behind)
+    keys = ("tiles", "tile_col", "valid", "active", "x", "c", "s", "nact")
+    j_f = j_fused_step(*[jnp.asarray(o[k]) for k in keys], T_S,
+                       interpret=True)
+    targs = [_t(o[k]) for k in keys]
+    ts2 = float(np.float32(T_S * T_S))
+    for got in (ref_nap_step(*targs, ts2), fused_step(*targs, T_S),
+                two_launch_step(*targs, T_S)):
+        for a, b in zip(got, j_f):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    out = np.asarray(j_f[0])[:len(o["c"])]
+    assert not np.asarray(j_f[1])[~np.isfinite(out).all(1)].any()
+
+
+@pytest.mark.parametrize("F", [128, 512, 640, 1152])
+def test_nonfinite_blocks_flags(F):
+    """One flag per (128-row block, 512-feature slab), set exactly where a
+    NaN or Inf lies; the wrappers fill `out_bad` with their output's."""
+    rng = np.random.default_rng(F)
+    x = rng.standard_normal((640, F)).astype(np.float32)
+    spots = [(3, 0, np.nan), (130, F - 1, np.inf), (600, F // 2, -np.inf)]
+    for i, j, val in spots:
+        x[i, j] = val
+    flags = nonfinite_blocks(torch.from_numpy(x)).numpy()
+    want = np.zeros((-(-F // SLAB), 640 // CB), np.uint8)
+    for i, j, _ in spots:
+        want[j // SLAB, i // CB] = 1
+    np.testing.assert_array_equal(flags, want)
+    o, _ = _nonfinite_operands(3, "zero")
+    args = [_t(o[k]) for k in ("tiles", "tile_col", "valid", "active", "x")]
+    n_rb = o["tile_col"].shape[0]
+    out_bad = torch.full((1, -(-n_rb * RB // CB)), 7, dtype=torch.uint8)
+    out = spmm_block_ell(*args, x_bad=nonfinite_blocks(args[4]),
+                         out_bad=out_bad)
+    np.testing.assert_array_equal(out_bad.numpy(),
+                                  nonfinite_blocks(out).numpy())
+    assert out_bad.any()
+    with pytest.raises(ValueError, match="x_bad"):
+        spmm_block_ell(*args, x_bad=torch.zeros((2, 1), dtype=torch.uint8))
