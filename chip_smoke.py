@@ -17,7 +17,25 @@ fails (non-zero exit, no result line) on any failed check:
    in rows that non-zero ones name (`nonfinite_phase`); then 2,000 requests
    through `NAIServingEngine(mode="compiled")` for each backend (fused,
    block_ell, segment) at pipeline depth 2, after one warm pass, held
-   against the port's host-mode engine;
+   against the port's host-mode engine; then three more NAI phases, each
+   with the launch counters zeroed before it and read after it:
+   - store: the graph saved with `save_graph_store`, `MmapStore.verify()`
+     checking every array, a copy with one flipped byte raising
+     `StoreCorruption`, and the 2,000 requests served from the
+     `MmapStore` through fused and block_ell, equal to the in-memory
+     passes exactly;
+   - scale: a 1e6-node power-law store made by `make_graph` (256
+     features, 1.02 GB) in a process of its own, 32 batches of 64
+     uniform ids served from it on fused (after a warm pass) and on
+     block_ell, which must agree exactly; generation seconds, req/s, host
+     ms per batch, B2's launches and the peak RSS beside the feature
+     bytes;
+   - cache: 1,024 Zipf(1.0) requests over the test split in batches of
+     64 through every backend with the propagated-feature cache on
+     (4,096 nodes) and off, and a no-hit control (fills off): cached ==
+     cold outside the margin, hits, fewer rows packed than sampled,
+     fused == block_ell exactly, no pack allocation in the steady pass,
+     and the same after a mutation round that stales cached entries;
 4. LM serving (`lm_phases`) at full width and depth in bf16 with random
    weights from `torch.Generator("cuda").manual_seed(0)`, with the
    rwkv mixes mu_* drawn from U(0, 1) and the attention projections
@@ -75,9 +93,13 @@ The second-to-last line is a JSON object {"kernels": [...]}, the last
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -260,6 +282,78 @@ def nonfinite_phase(torch, tiles, tile_col, valid, active, x0, c, s,
               f"distance {int(d2.isnan().sum())}, exits {int(f_ex.sum())}")
 
 
+def serve_requests(torch, eng, nodes, batches=None):
+    """Serve `nodes` through `eng` (all submitted at once, or one
+    submit-and-step per batch of `batches`), drain it, and return
+    (predictions, exit orders, wall seconds); checks that every request
+    completed, in FIFO order."""
+    t = time.perf_counter()
+    done = []
+    if batches is None:
+        eng.submit(nodes)
+        while eng.queue:
+            done += eng.step()
+    else:
+        for b in batches:
+            eng.submit(b)
+            done += eng.step()
+    done += eng.flush()
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    check([r.node_id for r in done] == list(map(int, nodes)),
+          "requests complete in FIFO order")
+    check(all(r.status == "completed" for r in done),
+          f"every request completed ({eng.stats.failed} failed: "
+          f"{next((r.error for r in done if r.error), '')})")
+    return (np.array([r.prediction for r in done]),
+            np.array([r.exit_order for r in done]), wall)
+
+
+def near_margin(cfg, nai, store, nodes, batch_size):
+    """Bool per request: does a decision-step d² of the node, in the batch
+    the engine forms it in, lie within D2_MARGIN of t_s²?"""
+    from repro_torch.gnn.nai import decision_distances
+    ts2 = float(np.float32(nai.t_s) ** 2)
+    near = np.zeros(len(nodes), bool)
+    for lo in range(0, len(nodes), batch_size):
+        chunk = nodes[lo:lo + batch_size]
+        uniq, inv = np.unique(chunk, return_inverse=True)
+        d = decision_distances(cfg, nai, store, uniq)
+        near[lo:lo + len(chunk)] = (np.abs(d ** 2 - ts2) <= D2_MARGIN * ts2
+                                    ).any(axis=1)[inv]
+    return near
+
+
+def same_outside(a, b, near) -> bool:
+    """Predictions and exit orders of two passes equal outside `near`."""
+    keep = ~near
+    return (np.array_equal(a[0][keep], b[0][keep])
+            and np.array_equal(a[1][keep], b[1][keep]))
+
+
+def zipf_requests(ids, n: int, exponent: float = 1.0, seed: int = 0):
+    """Seeded Zipf(`exponent`) request stream over `ids`: a seeded
+    permutation assigns popularity ranks, then requests are drawn i.i.d.
+    with p(rank k) ∝ k^-exponent (the draw of the JAX package's cache
+    benchmark, written here with numpy)."""
+    ids = np.asarray(ids)
+    rng = np.random.default_rng(seed)
+    ranked = rng.permutation(ids)
+    p = np.arange(1, len(ids) + 1, dtype=np.float64) ** -exponent
+    p /= p.sum()
+    return rng.choice(ranked, size=n, p=p)
+
+
+def launch_counts(kernels) -> dict:
+    return {n: k.launches for n, k in kernels.items()}
+
+
+def zero_counts(kernels) -> None:
+    for k in kernels.values():
+        k.launches = 0
+
+
 def gnn_phases(torch, dev, kernels):
     """The NAI serving path (kernels B1-B3) at the full pubmed-like size:
     returns the kernel rows, each with its launches in the measured
@@ -267,8 +361,7 @@ def gnn_phases(torch, dev, kernels):
     from repro_torch.gnn import (GNNConfig, NAIConfig, init_classifiers,
                                  load_dataset, pack_support, sample_support,
                                  step_active_blocks)
-    from repro_torch.gnn.nai import (decision_distances,
-                                     support_stationary_factors)
+    from repro_torch.gnn.nai import support_stationary_factors
     from repro_torch.gnn.packing import batch_bucket
     from repro_torch.gnn.store import as_store
     from repro_torch.kernels.nap_exit import nap_exit, ref_nap_exit
@@ -470,21 +563,7 @@ def gnn_phases(torch, dev, kernels):
     phase("serve")
 
     def serve(eng, nodes):
-        t = time.perf_counter()
-        eng.submit(nodes)
-        done = []
-        while eng.queue:
-            done += eng.step()
-        done += eng.flush()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        check([r.node_id for r in done] == list(map(int, nodes)),
-              "requests complete in FIFO order")
-        check(all(r.status == "completed" for r in done),
-              f"every request completed ({eng.stats.failed} failed: "
-              f"{next((r.error for r in done if r.error), '')})")
-        return (np.array([r.prediction for r in done]),
-                np.array([r.exit_order for r in done]), wall)
+        return serve_requests(torch, eng, nodes)
 
     engines = {impl: NAIServingEngine(cfg, nai, heads, g, device=dev,
                                       mode="compiled", spmm_impl=impl,
@@ -505,11 +584,10 @@ def gnn_phases(torch, dev, kernels):
           f"{dict(sorted(host.stats.exit_hist.items()))}")
     check(set(ho) == {1, 2, 3}, "the host path exercises every order")
 
-    for k in kernels.values():            # the main path starts here
-        k.launches = 0
+    zero_counts(kernels)                  # the main path starts here
     results, per_backend = {}, {}
     for impl, eng in engines.items():
-        before = {n: k.launches for n, k in kernels.items()}
+        before = launch_counts(kernels)
         results[impl] = serve(eng, requests)
         per_backend[impl] = {n: k.launches - before[n]
                              for n, k in kernels.items()}
@@ -525,7 +603,7 @@ def gnn_phases(torch, dev, kernels):
               f"buffers allocated "
               f"{eng.pack_stats['allocs'] - warm_packs[impl]['allocs']} "
               f"reused {eng.pack_stats['reuses'] - warm_packs[impl]['reuses']}")
-    launches = {n: k.launches for n, k in kernels.items()}
+    launches = launch_counts(kernels)
 
     # a separate traced pass per backend (after the counted ones): device
     # busy time = union of the intervals of the kernels and copies the
@@ -551,13 +629,7 @@ def gnn_phases(torch, dev, kernels):
               f"time: " + ", ".join(f"{k[:48]} {v / 1e3:.1f} ms"
                                     for k, v in top))
 
-    near = np.zeros(len(requests), bool)
-    for lo in range(0, len(requests), nai.batch_size):
-        chunk = requests[lo:lo + nai.batch_size]
-        uniq, inv = np.unique(chunk, return_inverse=True)
-        d = decision_distances(cfg, nai, g, uniq)
-        near[lo:lo + len(chunk)] = (np.abs(d ** 2 - ts2) <= D2_MARGIN * ts2
-                                    ).any(axis=1)[inv]
+    near = near_margin(cfg, nai, g, requests, nai.batch_size)
     check(near.mean() <= MAX_NEAR_SHARE, f"{near.sum()} requests within "
           f"the threshold margin")
     for impl, (pr, od, _) in results.items():
@@ -580,7 +652,282 @@ def gnn_phases(torch, dev, kernels):
         r["launches"] = launches[r["name"]]
         r["note"] = (f"over {n_batches} batches of the backend that runs it "
                      f"({r['launches'] / n_batches:g} per batch)")
+    # the serving engines' pinned pools go before the next phases'
+    del engines, host, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        store_phase(torch, dev, kernels, g, cfg, nai, heads, requests,
+                    results, tmp)
+        scale_phase(torch, dev, kernels, tmp)
+    cache_phase(torch, dev, kernels, g, cfg, heads)
     return rows
+
+
+def raises(fn, exc) -> bool:
+    """Whether fn() raises `exc` (any other exception propagates)."""
+    try:
+        fn()
+    except exc:
+        return True
+    return False
+
+
+def store_phase(torch, dev, kernels, g, cfg, nai, heads, requests, results,
+                tmp):
+    """The pubmed-like graph saved as a store directory and served from
+    it: CRC32 verification, a flipped byte caught, and the serve phase's
+    2,000 requests through `fused` and `block_ell` from the `MmapStore`,
+    equal to the in-memory passes exactly."""
+    import shutil
+    from repro_torch.gnn import MmapStore, StoreCorruption, save_graph_store
+    from repro_torch.serving import NAIServingEngine
+    phase("store")
+    t_phase = time.perf_counter()
+    path = str(Path(tmp) / "pubmed-like")
+    t = time.perf_counter()
+    save_graph_store(g, path)
+    with MmapStore(path) as st:
+        verified = st.verify()
+    print(f"saved {g.name} ({sum(f.stat().st_size for f in Path(path).iterdir())}"
+          f" bytes) in {time.perf_counter() - t:.2f} s; verify() checked "
+          f"{verified}")
+    check(verified == ["row_ptr", "col_idx", "features", "degrees",
+                       "labels"], "verify() checks every array")
+    bad = path + "-flipped"
+    shutil.copytree(path, bad)
+    feat = Path(bad) / "features.npy"
+    with open(feat, "r+b") as fh:
+        fh.seek(feat.stat().st_size // 2)
+        byte = fh.read(1)[0]
+        fh.seek(-1, 1)
+        fh.write(bytes([byte ^ 0x01]))
+    check(raises(lambda: MmapStore(bad).verify(), StoreCorruption),
+          "a flipped byte raises StoreCorruption")
+    shutil.rmtree(bad)
+    print("a copy with one flipped byte in features.npy: StoreCorruption")
+    ms = MmapStore(path)
+    zero_counts(kernels)
+    for impl in ("fused", "block_ell"):
+        eng = NAIServingEngine(cfg, nai, heads, ms, device=dev,
+                               mode="compiled", spmm_impl=impl,
+                               pipeline_depth=2, max_wait_s=10.0)
+        pr, od, wall = serve_requests(torch, eng, requests)
+        check(np.array_equal(pr, results[impl][0])
+              and np.array_equal(od, results[impl][1]),
+              f"{impl} from the MmapStore == from the InMemoryStore")
+        print(f"{impl} from the MmapStore (first pass, pools allocated): "
+              f"{len(requests) / wall:.1f} req/s; predictions and exit "
+              f"orders equal to the in-memory pass")
+        del eng
+    launches = launch_counts(kernels)
+    print(f"store phase launches {launches}")
+    check(launches["nap_step_fused"] > 0 and launches["spmm_block_ell"] > 0
+          and launches["nap_exit"] > 0, "the store phase launched B1-B3")
+    ms.close()
+    print(f"store phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def _rss_bytes() -> int:
+    """VmRSS of this process, in bytes."""
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return -1
+
+
+def _watch_rss(stop, peak, period_s: float = 0.02) -> None:
+    """Sample VmRSS until `stop` is set, keeping the highest reading in
+    peak[0] (the sandbox's /proc has no VmHWM)."""
+    while not stop.is_set():
+        peak[0] = max(peak[0], _rss_bytes())
+        stop.wait(period_s)
+
+
+def scale_phase(torch, dev, kernels, tmp, n: int = 1_000_000):
+    """The JAX serving bench's 1e6-node row: a power-law store generated
+    by `make_graph` in a process of its own, then 32 batches of 64
+    uniform ids served from the `MmapStore` on `fused` at depth 2 (after
+    one warm pass), and once on `block_ell`, which must give the same
+    predictions and exit orders."""
+    from repro_torch.gnn import (GNNConfig, MmapStore, NAIConfig,
+                                 init_classifiers)
+    from repro_torch.serving import NAIServingEngine
+    phase("scale")
+    t_phase = time.perf_counter()
+    path = str(Path(tmp) / f"powerlaw-{n}")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    t = time.perf_counter()
+    subprocess.run([sys.executable, "-c",
+                    "from repro_torch.gnn.store import _main; _main()",
+                    "--n", str(n), "--avg-deg", "16", "--alpha", "2.2", "--seed",
+                    "7", "--feat-dim", "256", "--out", path], check=True,
+                   env=env, timeout=300)
+    gen_s = time.perf_counter() - t
+    store = MmapStore(path)
+    feat_bytes = store.n * store.feat_dim * 4
+    cfg = GNNConfig("sgc", store.feat_dim, store.num_classes, k=2,
+                    hidden=32, mlp_layers=2)
+    nai = NAIConfig(t_s=6.0, t_min=1, t_max=2, batch_size=64)
+    heads = init_classifiers(cfg, torch.Generator().manual_seed(0),
+                             device=dev)
+    rng = np.random.default_rng(7)
+    batches = [np.unique(rng.integers(0, store.n, size=nai.batch_size))
+               for _ in range(32)]
+    nodes = np.concatenate(batches)
+    print(f"{store!r}: generated in {gen_s:.1f} s (a process of its own); "
+          f"features {feat_bytes} bytes; {len(batches)} batches, "
+          f"{len(nodes)} requests")
+    rss0 = _rss_bytes()
+    stop, peak = threading.Event(), [rss0]
+    watcher = threading.Thread(target=_watch_rss, args=(stop, peak),
+                               daemon=True)
+    watcher.start()
+    engines = {impl: NAIServingEngine(cfg, nai, heads, store, device=dev,
+                                      mode="compiled", spmm_impl=impl,
+                                      pipeline_depth=2, max_wait_s=10.0)
+               for impl in ("fused", "block_ell")}
+    fused = engines["fused"]
+    serve_requests(torch, fused, nodes, batches)        # warm pass
+    fused.reset_stats()
+    zero_counts(kernels)
+    res = {"fused": serve_requests(torch, fused, nodes, batches)}
+    launches = launch_counts(kernels)
+    tm = list(fused.batch_timings)
+    res["block_ell"] = serve_requests(torch, engines["block_ell"], nodes,
+                                      batches)
+    stop.set()
+    watcher.join()
+    peak = peak[0]
+    pool = sum(t.numel() * t.element_size() for d in fused._pinned.values()
+               for t in d.values())
+    check(np.array_equal(res["fused"][0], res["block_ell"][0])
+          and np.array_equal(res["fused"][1], res["block_ell"][1]),
+          "scale: fused and block_ell give identical predictions and exit "
+          "orders")
+    check(launches["nap_step_fused"] > 0, "scale: fused launched B2")
+    print(f"fused (steady pass): {len(nodes) / res['fused'][2]:.1f} req/s, "
+          f"per batch host {np.mean([b['host_s'] for b in tm]) * 1e3:.1f} "
+          f"ms dispatch {np.mean([b['dispatch_s'] for b in tm]) * 1e3:.1f} "
+          f"ms sync {np.mean([b['sync_s'] for b in tm]) * 1e3:.1f} ms, B2 "
+          f"launches {launches['nap_step_fused']}, exit histogram "
+          f"{dict(sorted(fused.stats.exit_hist.items()))}; block_ell "
+          f"(first pass) {len(nodes) / res['block_ell'][2]:.1f} req/s, "
+          f"equal predictions and exit orders")
+    print(f"RSS while serving (VmRSS sampled every 20 ms): peak {peak} "
+          f"bytes, {rss0} at the start (earlier phases' cached pinned host "
+          f"memory included), growth {peak - rss0} bytes = "
+          f"{(peak - rss0) / feat_bytes:.2f}x the feature bytes "
+          f"{feat_bytes}; pinned pack pool of the fused engine {pool} bytes")
+    for eng in engines.values():
+        eng.close()       # closes the shared store too (idempotent)
+    del engines, fused
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"scale phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def cache_phase(torch, dev, kernels, g, cfg, heads):
+    """The propagated-feature cache at the full pubmed-like size: 1,024
+    Zipf(1.0) requests over the test split, batches of 64, served with
+    the cache on (4,096 nodes) and off on every backend (and, on `fused`,
+    with fills off: a no-hit control): three warm passes, a steady pass
+    with no pack allocation, and a pass after a mutation round."""
+    from repro_torch.gnn import InMemoryStore, NAIConfig
+    from repro_torch.serving import NAIServingEngine
+    phase("cache")
+    t_phase = time.perf_counter()
+    nai = NAIConfig(t_s=20.0, t_min=1, t_max=3, batch_size=64)
+    requests = zipf_requests(g.test_idx, 1024, exponent=1.0, seed=0)
+    store = InMemoryStore(g)      # mutated below; `g` keeps its topology
+    kw = dict(device=dev, mode="compiled", pipeline_depth=2,
+              max_wait_s=10.0)
+    engines = {}
+    for impl in ("fused", "block_ell", "segment"):
+        engines[impl, "on"] = NAIServingEngine(
+            cfg, nai, heads, store, spmm_impl=impl, cache_nodes=4096, **kw)
+        engines[impl, "off"] = NAIServingEngine(cfg, nai, heads, store,
+                                                spmm_impl=impl, **kw)
+    engines["fused", "no fills"] = NAIServingEngine(
+        cfg, nai, heads, store, spmm_impl="fused", cache_nodes=4096,
+        cache_fill=False, **kw)
+    print(f"{len(requests)} requests ({len(np.unique(requests))} distinct) "
+          f"of {len(g.test_idx)} test nodes, batches of {nai.batch_size}; "
+          f"{nai}")
+
+    def run_pass(name, near):
+        out, allocs = {}, {}
+        for key, eng in engines.items():
+            a0 = eng.pack_stats["allocs"]
+            eng.reset_stats()
+            out[key] = serve_requests(torch, eng, requests)
+            allocs[key] = eng.pack_stats["allocs"] - a0
+        for impl in ("fused", "block_ell", "segment"):
+            check(same_outside(out[impl, "on"], out[impl, "off"], near),
+                  f"cache {name}: {impl} cached == cold outside the margin")
+        check(same_outside(out["fused", "no fills"], out["fused", "off"],
+                           near), f"cache {name}: the no-hit control == cold")
+        for state in ("on", "off"):
+            check(all(np.array_equal(a, b) for a, b in zip(
+                out["fused", state][:2], out["block_ell", state][:2])),
+                f"cache {name}: fused == block_ell exactly, cache {state}")
+        stats = {k: e.cache_stats for k, e in engines.items()}
+        for impl in ("fused", "block_ell", "segment"):
+            cs = stats[impl, "on"]
+            check(cs["hits"] > 0 and cs["rows_packed"] < cs["rows_support"],
+                  f"cache {name}: {impl} hits and saves rows ({cs})")
+        check(stats["fused", "no fills"]["hits"] == 0,
+              f"cache {name}: the no-hit control hits nothing")
+        cs = stats["fused", "on"]
+        rate = {k: len(requests) / o[2] for k, o in out.items()}
+        print(f"{name}: requests within the margin {int(near.sum())}; "
+              f"fused hit rate {cs['hit_rate']:.4f} ({cs['hits']} hits, "
+              f"{cs['stale']} stale, {cs['size']} cached), rows saved "
+              f"{1 - cs['rows_packed'] / cs['rows_support']:.4f} "
+              f"({cs['rows_packed']} of {cs['rows_support']} packed); req/s "
+              + ", ".join(f"{i} {s} {rate[i, s]:.1f}" for i, s in engines)
+              + f"; pack allocations {allocs}")
+        return out, allocs, stats
+
+    # the margin depends on the graph and the batches only: once per graph
+    near = near_margin(cfg, nai, store, requests, nai.batch_size)
+    check(near.mean() <= MAX_NEAR_SHARE, f"cache: {near.sum()} requests "
+          f"within the threshold margin")
+    zero_counts(kernels)
+    # three warm passes: the first fills the cache; over all three the
+    # bucket marks settle and every pooled slot of a batch bucket (three
+    # per bucket, taken in turn, so a bucket with one batch a pass reaches
+    # its third slot in the third pass) is allocated at its final shapes
+    for i in (1, 2, 3):
+        run_pass(f"pass {i} (warm)", near)
+    _, allocs, _ = run_pass("pass 4 (steady)", near)
+    check(all(a == 0 for a in allocs.values()),
+          f"cache: zero pack allocations in the steady pass ({allocs})")
+    rng = np.random.default_rng(7)
+    served = np.unique(requests)
+    src = rng.choice(served, size=8, replace=False)
+    dst = (src + 1) % store.n
+    store.add_edges(src, dst)
+    new = store.add_nodes(rng.standard_normal(
+        (2, store.feat_dim)).astype(np.float32))
+    print(f"mutation: add_edges {list(zip(src.tolist(), dst.tolist()))}, "
+          f"add_nodes {new.tolist()}; mutation clock "
+          f"{store.mutation_clock}")
+    near = near_margin(cfg, nai, store, requests, nai.batch_size)
+    check(near.mean() <= MAX_NEAR_SHARE, f"cache: {near.sum()} requests "
+          f"within the threshold margin after the mutation")
+    _, _, stats = run_pass("pass 5 (after the mutation)", near)
+    check(stats["fused", "on"]["stale"] > 0,
+          "cache: the mutation staled cached entries")
+    launches = launch_counts(kernels)
+    print(f"cache phase launches {launches}")
+    check(launches["nap_step_fused"] > 0 and launches["spmm_block_ell"] > 0
+          and launches["nap_exit"] > 0, "the cache phase launched B1-B3")
+    print(f"cache phase {time.perf_counter() - t_phase:.1f} s")
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def decode_profile(torch, step, arch, n=3):
@@ -805,8 +1152,7 @@ def lm_phases(torch, dev, kernels, arch, batch, seq, gate_seq, bf16_rel,
     n_kind = sum(kind in ("rwkv", "local") for kind in cfg.layer_kinds)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.values():
-        k.launches = 0
+    zero_counts(kernels)
     t0 = time.perf_counter()
     last, cache = M.prefill_step(cfg, model, toks)
     torch.cuda.synchronize()
@@ -819,7 +1165,7 @@ def lm_phases(torch, dev, kernels, arch, batch, seq, gate_seq, bf16_rel,
         tok = logits[:, 0].argmax(-1, keepdim=True)
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
-    launches = {n: k.launches for n, k in kernels.items()}
+    launches = launch_counts(kernels)
     row["launches"] = launches[kname]
     row["note"] = f"in one {arch} prefill of {batch} x {seq} tokens"
     peak = torch.cuda.max_memory_allocated()

@@ -5,7 +5,7 @@
 // tile is RB x CB = 8 x 128 f32 coefficients; a block of SP_THREADS = 128
 // threads covers one row block and one slab of SLAB = 512 features (a
 // float4 column per thread); the exit distance walks features in FB =
-// 128-wide blocks, one thread per feature column.
+// 128-wide blocks, one warp per node and four columns per lane.
 //
 // Bit-parity contract. A propagated value is, for each output element, the
 // chain of fmaf over the valid slots ascending, then k ascending, from
@@ -22,12 +22,14 @@
 // kernel sets the same flags for its own output (`store_slab`), which is
 // the next step's x. The result then equals the dense chain everywhere.
 //
-// `reduce_rows` is the ONLY code that sums a node's squared distance over
-// threads: the fused step and the standalone exit kernel sum the same
-// per-element terms in the same order, so their distances (and exit flags)
-// are bitwise equal. Every floating-point operation is an explicit
-// intrinsic (fmaf / __fmul_rn / __fsub_rn / __fadd_rn), so the compiler
-// cannot contract or reorder them differently per kernel.
+// `row_sum` is the ONLY code that sums a node's squared distance: the
+// fused step and the standalone exit kernel both give each node one warp,
+// whose lane l adds the terms of columns 4l .. 4l+3 of every FB-wide
+// feature block in ascending block order (`dist_terms`), and both reduce
+// the 128 column partials in `row_sum`'s tree, so their distances (and
+// exit flags) are bitwise equal. Every floating-point operation is an
+// explicit intrinsic (fmaf / __fmul_rn / __fsub_rn / __fadd_rn), so the
+// compiler cannot contract or reorder them differently per kernel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -47,6 +49,7 @@ constexpr int SLAB = 4 * SP_THREADS;       // features per slab
 constexpr int SP_BATCH = 4;                // x rows read before use
 constexpr size_t SP_SMEM = SP_CAP * (sizeof(float) + sizeof(int));
 constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int FB4 = FB / 4;               // float4 columns of a feature block
 
 // Shared-memory bookkeeping of `spmm_slab` (the entry lists live in the
 // caller's dynamic shared memory, SP_SMEM bytes).
@@ -254,37 +257,51 @@ __device__ __forceinline__ void store_slab(float* __restrict__ out,
   if (bad) out_bad[static_cast<long long>(y) * n_ob + rb / (CB / RB)] = 1;
 }
 
-// Sum each row's per-thread partials over the FB threads of the block in a
-// fixed tree order; the totals land in red[r][0]. Every thread must call it.
-__device__ __forceinline__ void reduce_rows(const float (&part)[RB],
-                                            float (*red)[FB]) {
-#pragma unroll
-  for (int r = 0; r < RB; ++r) red[r][threadIdx.x] = part[r];
-  __syncthreads();
-  for (int stride = FB / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) {
-#pragma unroll
-      for (int r = 0; r < RB; ++r)
-        red[r][threadIdx.x] = __fadd_rn(red[r][threadIdx.x], red[r][threadIdx.x + stride]);
-    }
-    __syncthreads();
-  }
+// One term of a node's squared distance per feature, added into this
+// lane's column partials: acc.j = fmaf(d, d, acc.j) with d = x.j - xi.j.
+// Chained over the FB-wide feature blocks in ascending order, each of the
+// four components is the partial of one column 4 * lane + j of the block.
+__device__ __forceinline__ float4 dist_terms(float4 x, float4 xi,
+                                             float4 acc) {
+  float d = __fsub_rn(x.x, xi.x);
+  acc.x = fmaf(d, d, acc.x);
+  d = __fsub_rn(x.y, xi.y);
+  acc.y = fmaf(d, d, acc.y);
+  d = __fsub_rn(x.z, xi.z);
+  acc.z = fmaf(d, d, acc.z);
+  d = __fsub_rn(x.w, xi.w);
+  acc.w = fmaf(d, d, acc.w);
+  return acc;
 }
 
-// Thread 0: exit flags of the block's RB nodes from their squared distances
-// in red[r][0]; returns whether any node stays active.
-__device__ __forceinline__ int decide_exits(float (*red)[FB],
-                                            const int* __restrict__ node_active,
-                                            float ts2, int row0,
-                                            int* __restrict__ exit_flag) {
-  int still = 0;
-  for (int r = 0; r < RB; ++r) {
-    const bool was_active = node_active[row0 + r] != 0;
-    const bool exits = was_active && red[r][0] < ts2;
-    exit_flag[row0 + r] = exits ? 1 : 0;
-    still |= (was_active && !exits) ? 1 : 0;
+// The sum of one node's FB = 128 column partials, held by one warp (lane
+// l holds columns 4l .. 4l+3, from `dist_terms`), in one fixed tree:
+// stride 64, 32, ..., 1, each pair added as __fadd_rn(lower column,
+// higher column). Strides 64 .. 4 pair column c = 4l + j with column c +
+// 4k, which lane l + k holds in the same component (a shuffle down by
+// k = 16 .. 1); strides 2 and 1 pair components inside lane 0. The total
+// is valid in lane 0; every lane of the warp must call it.
+__device__ __forceinline__ float row_sum(float4 p) {
+#pragma unroll
+  for (int k = 16; k > 0; k >>= 1) {
+    p.x = __fadd_rn(p.x, __shfl_down_sync(FULL_MASK, p.x, k));
+    p.y = __fadd_rn(p.y, __shfl_down_sync(FULL_MASK, p.y, k));
+    p.z = __fadd_rn(p.z, __shfl_down_sync(FULL_MASK, p.z, k));
+    p.w = __fadd_rn(p.w, __shfl_down_sync(FULL_MASK, p.w, k));
   }
-  return still;
+  return __fadd_rn(__fadd_rn(p.x, p.z), __fadd_rn(p.y, p.w));
+}
+
+// Exit flag of node `row` from its squared distance d2: writes exit_flag[
+// row] and returns whether the node stays active (was active, not exited).
+__device__ __forceinline__ int decide_exit(float d2,
+                                           const int* __restrict__ active,
+                                           float ts2, long long row,
+                                           int* __restrict__ exit_flag) {
+  const bool was_active = active[row] != 0;
+  const bool exits = was_active && d2 < ts2;
+  exit_flag[row] = exits ? 1 : 0;
+  return (was_active && !exits) ? 1 : 0;
 }
 
 }  // namespace repro_torch

@@ -20,10 +20,11 @@
 // Each slab is the SpMM's own zero-skipping `spmm_slab` (block_ell.cuh),
 // so `out` and its non-finite flags are bitwise the SpMM's. The
 // distance must equal the standalone exit kernel's bit for bit, which
-// walks features in FB = 128-wide blocks, one thread per column: so the
-// slab's (8 x 512) output is staged in shared memory (the entry lists'
-// space, free by then) and each thread adds its columns' terms in that
-// order, then `reduce_rows` sums them in nap_exit.cu's tree. The
+// gives each node one warp, lane l on columns 4l .. 4l+3 of each FB =
+// 128-wide feature block: so the slab's (8 x 512) output is staged in
+// shared memory (the entry lists' space, free by then), each warp takes
+// two rows and adds their terms in that order (`dist_terms`), and
+// `row_sum` sums them in nap_exit.cu's tree. The
 // stationary state x_inf = c * s is rebuilt in registers (never read from
 // or written to device memory).
 #include "block_ell.cuh"
@@ -39,20 +40,22 @@ __global__ void __launch_bounds__(SP_THREADS, 4) nap_step_fused_kernel(
     unsigned char* __restrict__ out_bad, int* __restrict__ exit_flag,
     int* __restrict__ blk_still, int tb, int F, int n_xb, int n_ob,
     int nb_rb) {
-  static_assert(SP_THREADS == FB, "one thread per distance column");
+  static_assert(SP_THREADS / 32 * 2 == RB, "one warp per two rows");
   extern __shared__ float4 sp_dyn[];
   float* e_val = reinterpret_cast<float*>(sp_dyn);      // kept entries
   int* e_row = reinterpret_cast<int*>(e_val + SP_CAP);  // their x rows
-  float* stage = e_val;  // a slab's (RB, SLAB) output, after the lists
+  float4* stage = sp_dyn;  // a slab's (RB, SLAB) output, after the lists
   __shared__ SlabShared sh;
-  __shared__ float red[RB][FB];
   const int rb = blockIdx.x, tid = threadIdx.x, F4 = F / 4;
+  const int lane = tid & 31, r0 = 2 * (tid >> 5);  // this warp's two rows
   const bool is_batch = rb < nb_rb;  // the same for every thread
-  float c[RB], d2[RB];
+  const float4* s4 = reinterpret_cast<const float4*>(s_inf) + lane;
+  float c[2];
+  float4 p[2];
 #pragma unroll
-  for (int r = 0; r < RB; ++r) {
-    c[r] = is_batch ? c_inf[rb * RB + r] : 0.0f;
-    d2[r] = 0.0f;
+  for (int i = 0; i < 2; ++i) {
+    c[i] = is_batch ? c_inf[rb * RB + r0 + i] : 0.0f;
+    p[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   for (int y = 0; y * SLAB < F; ++y) {
     float4 acc[RB];
@@ -62,19 +65,21 @@ __global__ void __launch_bounds__(SP_THREADS, 4) nap_step_fused_kernel(
     store_slab(out, out_bad, acc, rb, y, F4, n_ob);
     if (!is_batch) continue;
     if (y * SP_THREADS + tid < F4) {
-      float4* st4 = reinterpret_cast<float4*>(stage);
 #pragma unroll
-      for (int r = 0; r < RB; ++r) st4[r * SP_THREADS + tid] = acc[r];
+      for (int r = 0; r < RB; ++r) stage[r * SP_THREADS + tid] = acc[r];
     }
     __syncthreads();
-    // nap_exit.cu's order: feature blocks ascending, column f = fb*FB + tid
+    // nap_exit.cu's order: feature blocks ascending, lane l on columns
+    // 4l .. 4l+3 of each, x_inf = c * s rebuilt per element
     for (int j = 0; j < SLAB / FB && (y * SLAB + j * FB) < F; ++j) {
-      const float s = s_inf[y * SLAB + j * FB + tid];
+      const float4 s = s4[(y * SLAB + j * FB) / 4];
 #pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        const float diff =
-            __fsub_rn(stage[r * SLAB + j * FB + tid], __fmul_rn(c[r], s));
-        d2[r] = fmaf(diff, diff, d2[r]);
+      for (int i = 0; i < 2; ++i) {
+        const float4 xi = make_float4(
+            __fmul_rn(c[i], s.x), __fmul_rn(c[i], s.y),
+            __fmul_rn(c[i], s.z), __fmul_rn(c[i], s.w));
+        p[i] = dist_terms(stage[(r0 + i) * SP_THREADS + j * FB4 + lane], xi,
+                          p[i]);
       }
     }
     __syncthreads();  // the stage is read before the next slab's lists
@@ -83,9 +88,17 @@ __global__ void __launch_bounds__(SP_THREADS, 4) nap_step_fused_kernel(
     if (tid == 0) blk_still[rb] = 0;
     return;  // the whole block leaves together: no barrier is skipped
   }
-  reduce_rows(d2, red);
-  if (tid == 0)
-    blk_still[rb] = decide_exits(red, node_active, ts2, rb * RB, exit_flag);
+  int still = 0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float d2 = row_sum(p[i]);
+    if (lane == 0)
+      still |= decide_exit(d2, node_active, ts2,
+                           static_cast<long long>(rb) * RB + r0 + i,
+                           exit_flag);
+  }
+  still = __syncthreads_or(still);
+  if (tid == 0) blk_still[rb] = still;
 }
 
 }  // namespace repro_torch
@@ -93,8 +106,8 @@ __global__ void __launch_bounds__(SP_THREADS, 4) nap_step_fused_kernel(
 // tiles (n_rb, tb, 8, 128) f32; tile_col, valid (n_rb, tb) i32; active
 // (n_rb,) i32; x (n_x, F) f32 with n_x % 128 == 0 and F % 128 == 0; x_bad
 // (ceil(F / 512), n_x / 128) u8 the flags of x; c_inf (nb,) f32; s_inf
-// (F,) f32; node_active (nb,) i32 with nb % 8 == 0; ts2 the squared
-// threshold. Outputs: out (n_rb * 8, F) f32, out_bad (ceil(F / 512),
+// (F,) f32, 16-byte aligned; node_active (nb,) i32 with nb % 8 == 0; ts2
+// the squared threshold. Outputs: out (n_rb * 8, F) f32, out_bad (ceil(F / 512),
 // ceil(n_rb / 16)) u8 (zero on entry), exit (nb,) i32, blk_still (n_rb,)
 // i32. tiles, x and out 16-byte aligned.
 extern "C" int nap_step_fused_launch(

@@ -11,8 +11,11 @@ from repro_torch.gnn.nai import (NAIConfig, NAIResult, accuracy, infer_all,
 from repro_torch.gnn.packing import (PackedSupport, batch_bucket,
                                      next_bucket, pack_support,
                                      step_active_blocks)
+from repro_torch.gnn.propcache import PropCache
 from repro_torch.gnn.sampler import Support, sample_support
-from repro_torch.gnn.store import GraphStore, InMemoryStore, as_store
+from repro_torch.gnn.store import (GraphStore, InMemoryStore, MmapStore,
+                                   StoreCorruption, StoreError, StoreIOError,
+                                   as_store, make_graph, save_graph_store)
 
 __all__ = [
     "Graph", "propagated_series", "stationary_weights", "BACKENDS",
@@ -22,5 +25,7 @@ __all__ = [
     "NAIConfig", "NAIResult", "accuracy", "infer_all",
     "make_compiled_infer", "PackedSupport",
     "batch_bucket", "next_bucket", "pack_support", "step_active_blocks",
-    "Support", "sample_support", "GraphStore", "InMemoryStore", "as_store",
+    "PropCache", "Support", "sample_support", "GraphStore", "InMemoryStore",
+    "MmapStore", "StoreCorruption", "StoreError", "StoreIOError", "as_store",
+    "make_graph", "save_graph_store",
 ]

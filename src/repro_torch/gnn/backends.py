@@ -31,6 +31,12 @@ Backends:
 distances (csrc/block_ell.cuh), so their exit orders are identical on the
 card. On CPU tensors the kernels' plain versions run instead.
 
+Propagated-feature cache: a pack made with ``seeds=`` carries
+``seed_rows`` / ``seed_vals``; after every step the loop writes
+``seed_vals[l-1]`` over the cache-hit rows (``index_copy_``, pad ids
+dropped), so the next step reads their exact propagated values. The
+backends never see these operands.
+
 The loop keeps every per-step decision on the device: the live flag and
 the row-block predicate ``step_active[l-1] * live`` are device tensors
 handed to the kernels, and the threshold gating depends only on the host
@@ -197,6 +203,8 @@ def pack_operands(backend: PropagationBackend, packed,
         ops.update(src=packed.src, dst=packed.dst, coef=packed.coef)
     if backend.uses_factors:
         ops.update(c_inf=packed.c_inf, s_inf=packed.s_inf)
+    if packed.seed_rows is not None:
+        ops.update(seed_rows=packed.seed_rows, seed_vals=packed.seed_vals)
     return ops
 
 
@@ -217,6 +225,16 @@ def _masked_loop(backend, nai, ops, x0, n_batch, n_rows):
     tmax = nai.t_max
     ts2_on = float(np.float32(nai.t_s) ** 2)
     sa = ops.get("step_active")
+    seed_rows = ops.pop("seed_rows", None)
+    seed_vals = ops.pop("seed_vals", None)
+    if seed_rows is not None:
+        if seed_vals.shape[0] < tmax:
+            raise ValueError(f"seed_vals covers {seed_vals.shape[0]} "
+                             f"steps, loop needs {tmax}")
+        # pad ids point one past the rows: send them to batch row 0 (never
+        # seeded) with row 0's own value, so they write nothing new
+        pad = seed_rows >= n_rows
+        seed_rows = torch.where(pad, 0, seed_rows).long()
     x = x0
     series = torch.zeros((tmax + 1, n_batch, x0.shape[1]), dtype=x0.dtype,
                          device=x0.device)
@@ -237,6 +255,14 @@ def _masked_loop(backend, nai, ops, x0, n_batch, n_rows):
         exit_order = torch.where((node_active != 0) & exits,
                                  torch.full_like(exit_order, l), exit_order)
         live = (exit_order == 0).any().to(torch.int32)
+        if seed_rows is not None:
+            # cache-hit rows: their stored X^(l) over what the edge-dropped
+            # step left there (batch rows are never seeded, so exits and
+            # series are unaffected); then the flags of the new x
+            x.index_copy_(0, seed_rows,
+                          torch.where(pad[:, None], x[0], seed_vals[l - 1]))
+            if bad is not None:
+                bad = nonfinite_blocks(x)
         series[l] = x[:n_batch]
     exit_order = torch.where(exit_order == 0,
                              torch.full_like(exit_order, tmax), exit_order)
@@ -245,17 +271,21 @@ def _masked_loop(backend, nai, ops, x0, n_batch, n_rows):
 
 def run_propagation(backend: PropagationBackend, nai, operands: dict,
                     x0, n_batch: int, *, device="cuda",
-                    classify=None, classifiers=None):
+                    classify=None, classifiers=None,
+                    return_series: bool = False):
     """Run the masked NAP loop for any registered backend on `device`.
 
     ``operands`` holds the backend's packed arrays (numpy or tensors,
     moved to `device`), including the dense ``x_inf`` for backends with
-    ``uses_dense_x_inf``. Returns ``(exit_order (n_batch,), series
-    (T_max+1, n_batch, f))`` — or ``(exit_order, preds (n_batch,))``
-    when ``classify(classifiers, exit_order, series)`` is given."""
+    ``uses_dense_x_inf`` and the cache seeds of a ``seeds=`` pack.
+    Returns ``(exit_order (n_batch,), series (T_max+1, n_batch, f))`` —
+    or ``(exit_order, preds (n_batch,))`` when ``classify(classifiers,
+    exit_order, series)`` is given, and then with ``return_series=True``
+    ``(exit_order, preds, series)`` (the propagated-feature cache's fill
+    source)."""
     dev = resolve_device(device)
     ops = {k: _as_tensor(v, dev) for k, v in operands.items()}
-    for k in ("src", "dst"):
+    for k in ("src", "dst", "seed_rows"):
         if k in ops:
             ops[k] = ops[k].long()
     x0 = _as_tensor(x0, dev)
@@ -265,4 +295,7 @@ def run_propagation(backend: PropagationBackend, nai, operands: dict,
                                           x0.shape[0])
         if classify is None:
             return exit_order, series
-        return exit_order, classify(classifiers, exit_order, series)
+        preds = classify(classifiers, exit_order, series)
+        if return_series:
+            return exit_order, preds, series
+        return exit_order, preds

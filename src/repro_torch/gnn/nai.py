@@ -272,13 +272,20 @@ def infer_batch_masked(cfg: GNNConfig, nai: NAIConfig, sup_src, sup_dst,
 
 
 def make_compiled_infer(cfg: GNNConfig, nai: NAIConfig, *,
-                        spmm_impl: str = "block_ell", device="cuda"):
+                        spmm_impl: str = "block_ell", device="cuda",
+                        return_series: bool = False):
     """Masked NAP propagation + per-order classification as one callable
     ``run(classifiers, operands, x0, x_inf) -> (predictions (nb,),
     exit_order (nb,))``, device tensors, returned without synchronising.
     `operands` is keyed as `repro_torch.gnn.backends.pack_operands` builds
     it; `x_inf` is the dense stationary state (its row count is the
-    padded batch size; a zero-column placeholder for ``fused``)."""
+    padded batch size; a zero-column placeholder for ``fused``).
+
+    `return_series=True` makes it return ``(predictions, exit_order,
+    series (T_max+1, nb, f))``, the batch rows' propagation history that
+    the propagated-feature cache fills from (steps 1..T_max of a batch row
+    are exact global values: batch rows always propagate at full
+    budget)."""
     backend = get_backend(spmm_impl)
     dev = resolve_device(device)
     tmax = nai.t_max
@@ -297,9 +304,9 @@ def make_compiled_infer(cfg: GNNConfig, nai: NAIConfig, *,
         ops = dict(operands)
         if backend.uses_dense_x_inf:
             ops["x_inf"] = x_inf
-        exit_order, preds = run_propagation(
+        out = run_propagation(
             backend, nai, ops, x0, nb, device=dev, classify=classify,
-            classifiers=classifiers)
-        return preds, exit_order
+            classifiers=classifiers, return_series=return_series)
+        return (out[1], out[0], *out[2:])
 
     return run

@@ -17,7 +17,10 @@ Buckets grow geometrically ({1,2,3}·2^k). The packer also emits `hop_rb`,
 the minimum BFS hop per row block, from which the per-step NAP row-block
 predicate follows statically (`step_active_blocks`). The numpy passes are
 those of the JAX package, so a pack is array-equal to its pack of the same
-support. Sharded, halo and cache-seed packs are not ported yet.
+support. With ``seeds=`` (the propagated-feature cache) the edges into
+cache-hit rows are dropped and the hit rows' stored series are emitted as
+seed operands, which the NAP loop writes over those rows after every
+step. Sharded and halo packs are not ported yet.
 """
 from __future__ import annotations
 
@@ -76,10 +79,20 @@ class PackedSupport:
     # True when pack_support refilled a caller-provided buffer set in
     # place instead of allocating (the steady-state serving path)
     reused: bool = False
+    # propagated-feature-cache seed operands (seeds= packs only): padded
+    # row ids of cache-hit rows (pad entries point one past the row range
+    # and are dropped by the NAP loop) and their per-step series values
+    seed_rows: Optional[np.ndarray] = None   # (k_pad,) int32
+    seed_vals: Optional[np.ndarray] = None   # (L, k_pad, f_pad) f32
 
     @property
     def n_rb(self) -> int:
         return self.tiles.shape[0]
+
+    @property
+    def seed_pad(self) -> int:
+        """Bucket-padded cache-seed rows (0 = no-cache pack)."""
+        return 0 if self.seed_rows is None else self.seed_rows.shape[-1]
 
 
 def _remap_rows(sup: Support, nb_bucket: int) -> np.ndarray:
@@ -98,7 +111,9 @@ def pack_support(sup: Support, x0: np.ndarray, x_inf: np.ndarray, *,
                  build_tiles: bool = True,
                  build_edges: bool = True,
                  x_inf_factors=None,
-                 out: Optional[PackedSupport] = None) -> PackedSupport:
+                 out: Optional[PackedSupport] = None,
+                 seeds=None,
+                 k_bucket: Optional[int] = None) -> PackedSupport:
     """Pack a sampled `Support` (+ its features and per-batch-node
     stationary state) into bucket-padded block-ELL operands.
 
@@ -117,7 +132,15 @@ def pack_support(sup: Support, x0: np.ndarray, x_inf: np.ndarray, *,
     place when every bucket-padded shape matches (then the result IS
     `out`, with `reused=True`); otherwise a fresh set is allocated.
     Callers overlapping packing with device work must rotate >= 2 buffer
-    sets so an in-flight batch's operands are never overwritten."""
+    sets so an in-flight batch's operands are never overwritten.
+
+    `seeds=(hit, vals)` (the propagated-feature cache): `hit` is the
+    sampler's per-support-row hit mask, `vals` the (k_hit, L, F) cached
+    series in ``nodes[hit]`` order. Edges INTO hit rows are dropped before
+    tiling (their values are seeded after every step, not recomputed);
+    edges FROM hit rows stay. Hit rows get hop `_INF_HOP`, so row blocks
+    that the cache serves entirely are skipped. `k_bucket` is the floor of
+    the seed-row pad. Batch rows must never be hits."""
     if s_bucket and s_bucket % CB:
         raise ValueError(f"s_bucket {s_bucket} not a multiple of {CB}")
     nb, S = sup.n_batch, len(sup)
@@ -127,9 +150,27 @@ def pack_support(sup: Support, x0: np.ndarray, x_inf: np.ndarray, *,
     rows_needed = nb_bucket + (S - nb)
     n_pad = max(next_bucket(-(-rows_needed // CB), 1) * CB, s_bucket or 0)
 
+    seeds_on = seeds is not None
+    if seeds_on:
+        hit_mask, seed_series = seeds
+        if hit_mask[:nb].any():
+            raise ValueError("batch rows must not be cache hits")
+    if seeds_on and hit_mask.any():
+        # drop edges INTO hit rows (their values are seeded); edges FROM
+        # hit rows stay — miss rows read them
+        keep_e = ~hit_mask[sup.dst]
+        e_src_l, e_dst_l = sup.src[keep_e], sup.dst[keep_e]
+        e_coef = sup.coef[keep_e]
+        hop_eff = np.where(hit_mask, _INF_HOP, sup.hop)
+    else:
+        # no hits: no edge-mask copies (seed operands are still emitted,
+        # so shapes stay stable)
+        e_src_l, e_dst_l, e_coef = sup.src, sup.dst, sup.coef
+        hop_eff = sup.hop
+
     row_of = _remap_rows(sup, nb_bucket)
-    src = row_of[sup.src]
-    dst = row_of[sup.dst]
+    src = row_of[e_src_l]
+    dst = row_of[e_dst_l]
 
     # --- tile geometry (up front, so buffer reuse can be decided before
     # anything is written)
@@ -150,13 +191,19 @@ def pack_support(sup: Support, x0: np.ndarray, x_inf: np.ndarray, *,
     xi_cols = f_pad if x_inf.shape[1] else 0
     e_pad = (max(next_bucket(len(src), 1), e_bucket or 0)
              if build_edges else 0)
+    if seeds_on:
+        hit_idx = np.flatnonzero(hit_mask)
+        k_pad = max(next_bucket(max(len(hit_idx), 1), 1), k_bucket or 0)
+        sv_shape = (seed_series.shape[1], k_pad, f_pad)
 
     reuse = (out is not None
              and out.tiles.shape == (n_rb, tb, RB, CB)
              and out.x0.shape == (n_pad, f_pad)
              and out.x_inf.shape == (nb_bucket, xi_cols)
              and out.src.shape == (e_pad,)
-             and (out.c_inf is not None) == (x_inf_factors is not None))
+             and (out.c_inf is not None) == (x_inf_factors is not None)
+             and (out.seed_rows is not None) == seeds_on
+             and (not seeds_on or out.seed_vals.shape == sv_shape))
     if reuse:
         p = out
         p.tiles.fill(0.0)
@@ -179,7 +226,10 @@ def pack_support(sup: Support, x0: np.ndarray, x_inf: np.ndarray, *,
             c_inf=(np.zeros(nb_bucket, np.float32)
                    if x_inf_factors is not None else None),
             s_inf=(np.zeros(f_pad, np.float32)
-                   if x_inf_factors is not None else None))
+                   if x_inf_factors is not None else None),
+            seed_rows=(np.zeros(k_pad, np.int32) if seeds_on else None),
+            seed_vals=(np.zeros(sv_shape, np.float32)
+                       if seeds_on else None))
     p.n_batch, p.nb_real, p.n_pad, p.s_real = nb_bucket, nb, n_pad, S
     p.reused = reuse
 
@@ -191,11 +241,11 @@ def pack_support(sup: Support, x0: np.ndarray, x_inf: np.ndarray, *,
         p.tile_col[tile_rb, slot] = tile_cb
         p.valid[tile_rb, slot] = 1
         np.add.at(p.tiles, (rb, slot[inverse], dst % RB, src % CB),
-                  sup.coef)
+                  e_coef)
 
     # --- per-row hop -> per-row-block min hop
     hop_row = np.full(n_pad, _INF_HOP, np.int32)
-    hop_row[row_of] = sup.hop
+    hop_row[row_of] = hop_eff
     p.hop_rb[:] = hop_row.reshape(n_rb, RB).min(axis=1)
 
     p.x0[row_of, :x0.shape[1]] = np.asarray(x0, np.float32)
@@ -216,7 +266,16 @@ def pack_support(sup: Support, x0: np.ndarray, x_inf: np.ndarray, *,
         p.coef.fill(0.0)
         p.src[:len(src)] = src
         p.dst[:len(dst)] = dst
-        p.coef[:len(sup.coef)] = sup.coef
+        p.coef[:len(e_coef)] = e_coef
+
+    # cache-seed operands: padded row ids of hit rows and their series,
+    # padded to k_pad (pad ids point one past the row range)
+    if seeds_on:
+        p.seed_rows.fill(n_pad)
+        p.seed_vals.fill(0.0)
+        p.seed_rows[:len(hit_idx)] = row_of[hit_idx].astype(np.int32)
+        p.seed_vals[:, :len(hit_idx), :seed_series.shape[2]] = \
+            seed_series.transpose(1, 0, 2)
     return p
 
 

@@ -4,10 +4,10 @@ BFS from the batch nodes over the in-neighbor CSR up to `hops`, returning
 the supporting set partitioned into hop layers plus the induced subgraph
 (local ids, per-edge coefficients using GLOBAL degrees, per the paper).
 
-The port's copy of `repro.gnn.sampler.sample_support` without the
-propagated-feature cache: the same numpy passes in the same order, so a
-`Support` is array-equal to the JAX package's for the same store and
-batch. The sampler is store-first — it walks a `GraphStore`'s CSR views,
+The port's copy of `repro.gnn.sampler.sample_support`: the same numpy
+passes in the same order, so a `Support` (with its cache fields) is
+array-equal to the JAX package's for the same store, batch and cache
+state. The sampler is store-first — it walks a `GraphStore`'s CSR views,
 and a raw `Graph` is a TypeError (wrap it with `as_store`).
 
 Per-batch cost is O(support), not O(n): the visited-set and local-id
@@ -17,7 +17,7 @@ be duplicate-free (the serving engine dedupes per batch).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -33,6 +33,10 @@ class Support:
     dst: np.ndarray            # (Es,) LOCAL ids
     coef: np.ndarray           # (Es,) propagation coefficients
     sub_edges: int             # undirected edge count of the subgraph
+    # propagated-feature cache plumbing (None when sampled without one)
+    hit: Optional[np.ndarray] = None        # (S,) bool cache-hit mask
+    seed_vals: Optional[np.ndarray] = None  # (k_hit, t_max, F) series
+    graph_version: int = 0     # store.mutation_clock at sample time
 
     def __len__(self):
         return len(self.nodes)
@@ -81,16 +85,24 @@ def _first_occurrence(a: np.ndarray) -> np.ndarray:
     return a[np.sort(first)]
 
 
-def sample_support(store, batch: np.ndarray, hops: int, r: float
-                   ) -> Support:
+def sample_support(store, batch: np.ndarray, hops: int, r: float,
+                   *, cache=None) -> Support:
     """Vectorized frontier expansion (numpy repeat/unique, no dicts) over
-    a `GraphStore`'s CSR views."""
+    a `GraphStore`'s CSR views.
+
+    With `cache` (a `repro_torch.gnn.propcache.PropCache`) each discovered
+    layer is probed: hit nodes are marked in `Support.hit`, their stored
+    series are in `Support.seed_vals`. The BFS still expands through hit
+    nodes, since the stationary exit factors depend on the full support;
+    the saving is downstream, where `pack_support(seeds=)` drops the edges
+    into hit rows and the NAP loop seeds their values."""
     if not isinstance(store, GraphStore):
         raise TypeError(
             f"sample_support is store-first: expected a GraphStore, got "
             f"{type(store).__name__} (wrap an in-RAM Graph with "
             f"repro_torch.gnn.store.as_store)")
     row_ptr, col_idx = store.csr()
+    graph_version = store.mutation_clock
     scratch = _scratch(store)
     scratch.epoch += 1
     epoch, seen = scratch.epoch, scratch.seen_stamp
@@ -98,6 +110,8 @@ def sample_support(store, batch: np.ndarray, hops: int, r: float
     seen[batch] = epoch
     node_parts: List[np.ndarray] = [batch]
     hop_parts: List[np.ndarray] = [np.zeros(len(batch), np.int32)]
+    # batch rows are never cache-served: their series IS the output
+    hit_parts: List[np.ndarray] = [np.zeros(len(batch), bool)]
     frontier = batch
     for h in range(1, hops + 1):
         if len(frontier) == 0:
@@ -108,9 +122,13 @@ def sample_support(store, batch: np.ndarray, hops: int, r: float
         seen[new] = epoch
         node_parts.append(new)
         hop_parts.append(np.full(len(new), h, np.int32))
+        hit_parts.append(cache.probe(store, new) if cache is not None
+                         else np.zeros(len(new), bool))
         frontier = new
     nodes = np.concatenate(node_parts)
     hop = np.concatenate(hop_parts)
+    hit = np.concatenate(hit_parts) if cache is not None else None
+    seed_vals = cache.gather(nodes[hit]) if cache is not None else None
 
     # induced edges (j -> i), ordered by destination's local id then CSR
     lstamp, lid = scratch.local_stamp, scratch.local_id
@@ -127,7 +145,9 @@ def sample_support(store, batch: np.ndarray, hops: int, r: float
     # train subgraph, would undercount otherwise)
     sub_edges = (len(src) - int((src == dst).sum())) // 2
     return Support(nodes=nodes, hop=hop, n_batch=len(batch), src=src,
-                   dst=dst, coef=coef, sub_edges=max(sub_edges, 0))
+                   dst=dst, coef=coef, sub_edges=max(sub_edges, 0),
+                   hit=hit, seed_vals=seed_vals,
+                   graph_version=graph_version)
 
 
 def _edge_coefs(store: GraphStore, nodes: np.ndarray, src: np.ndarray,

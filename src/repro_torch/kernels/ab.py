@@ -1,8 +1,8 @@
-"""Time B1, B2, B4 and B5 of this checkout against another version, in
-one run.
+"""Time B1-B5 of this checkout against another version, in one run.
 
 Builds ``spmm_block_ell.cu`` (B1), ``nap_step_fused.cu`` (B2),
-``flash_attention.cu`` (B4) and ``wkv6.cu`` (B5) from this checkout and
+``nap_exit.cu`` (B3), ``flash_attention.cu`` (B4) and ``wkv6.cu`` (B5)
+from this checkout and
 from another checkout of the repository (``--against``, for example a
 parent commit unpacked with ``git archive`` into the git-ignored
 ``build/``), and times both versions on the same operands with both
@@ -17,13 +17,16 @@ shaped by them (the versions before the non-finite flags of B1/B2 and the
 strided B5 take fewer arguments).
 
 Before timing, each version is checked against its plain PyTorch
-version; B1's and B2's outputs of the two versions against each other
-bit for bit (on finite operands they run the same ``fmaf`` chain per row
-and the same distance order), B5's within the tolerance of
-``chip_smoke.py`` (f32 sums in another order).
+version; B1's, B2's and B3's outputs of the two versions against each
+other bit for bit (on finite operands they run the same ``fmaf`` chain
+per row and the same distance order), B5's within the tolerance of
+``chip_smoke.py`` (f32 sums in another order). B3, whose work is a 2 MB
+read, is also timed on the device alone: a CUDA graph of 10 calls
+replayed between events.
 
 B1 and B2 run on step 1 of the first pubmed-like batch (full size, as in
-``chip_smoke.py``); B4 on recurrentgemma-9b's ``local`` layer shape,
+``chip_smoke.py``), B3 on B1's propagated batch rows against x_inf = c *
+s; B4 on recurrentgemma-9b's ``local`` layer shape,
 q (2, 4096, 16, 256) and k, v (2, 4096, 1, 256) bf16, window 2048; B5 on
 rwkv6-3b's prefill shape, (B, T, H, hd) = (4, 2048, 40, 64) f32, each
 version in the layout it reads (a version that takes (B*H, T, hd) gets
@@ -48,9 +51,9 @@ import torch
 
 from repro_torch.kernels import build
 
-SOURCES = ("spmm_block_ell.cu", "nap_step_fused.cu", "flash_attention.cu",
-           "wkv6.cu")
-NAMES = ("spmm_block_ell_launch", "nap_step_fused_launch",
+SOURCES = ("spmm_block_ell.cu", "nap_step_fused.cu", "nap_exit.cu",
+           "flash_attention.cu", "wkv6.cu")
+NAMES = ("spmm_block_ell_launch", "nap_step_fused_launch", "nap_exit_launch",
          "flash_attention_launch", "wkv6_launch")
 REPS = 25
 
@@ -97,6 +100,33 @@ def time_ms(fn, calls: int) -> float:
     return float(np.median(times))
 
 
+def graph_ms(fn, calls: int = 10) -> float:
+    """Device time of one fn() call with no launch gaps: a CUDA graph of
+    `calls` calls replayed between events; median of REPS, per call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
 def nap_operands(dev):
     """Tiles, tile_col, valid, active, x, c_inf and s_inf of step 1 of the
     first pubmed-like batch of 500 requests, as `chip_smoke.py` builds
@@ -134,6 +164,7 @@ def main() -> int:
                     help="root of the other checkout")
     args = ap.parse_args()
     from repro_torch.kernels.flash_attention import ref_attention
+    from repro_torch.kernels.nap_exit import ref_nap_exit
     from repro_torch.kernels.nap_step import ref_nap_step
     from repro_torch.kernels.spmm import (RB, nonfinite_blocks,
                                           ref_spmm_block_ell, zero_flags)
@@ -213,7 +244,46 @@ def main() -> int:
     print(f"B2 this == other bitwise (out, exit flags, block flags): {same}")
     if not same:
         raise RuntimeError("B2: the two versions' outputs differ")
-    del b1_ref, b2_ref, outs
+    del b2_ref
+
+    # ---- B3 on B1's propagated batch rows (the block_ell backend's call)
+    xb = outs[("B1", "this")][:nb].contiguous()
+    x_inf = c[:, None] * s[None, :]
+    b3_ref = ref_nap_exit(xb, x_inf, nact, ts2)
+    for tag, lib in libs.items():
+        res = (torch.empty((nb, 1), dtype=torch.float32, device=dev),
+               torch.empty((nb, 1), dtype=torch.int32, device=dev),
+               torch.empty((nb // RB, 1), dtype=torch.int32, device=dev))
+
+        def b3(lib=lib, res=res):
+            # the current stream at call time: a CUDA graph captures on its
+            # own stream
+            build.check_launch("nap_exit", lib.nap_exit_launch(
+                xb.data_ptr(), x_inf.data_ptr(), nact.data_ptr(), ts2,
+                *[t.data_ptr() for t in res], nb, F, 0,
+                torch.cuda.current_stream().cuda_stream))
+        b3()
+        torch.cuda.synchronize()
+        err = float((res[0] - b3_ref[0]).abs().max())
+        print(f"B3 {tag}: max abs err vs plain {err:.3g}, exits "
+              f"{int(res[1].sum())} (plain {int(b3_ref[1].sum())})")
+        if not torch.allclose(res[0], b3_ref[0], rtol=1e-5, atol=1e-4):
+            raise RuntimeError(f"B3 {tag} disagrees with its plain version")
+        outs[("B3", tag)] = tuple(t.clone() for t in res)
+        calls[("B3", tag)] = b3
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(outs[("B3", "this")], outs[("B3", "other")]))
+    print(f"B3 this == other bitwise (dist2, exit flags, block flags): "
+          f"{same}")
+    if not same:
+        raise RuntimeError("B3: the two versions' outputs differ")
+    same = all(torch.equal(a, b) for a, b in zip(
+        outs[("B3", "this")][1:], (outs[("B2", "this")][1],
+                                   outs[("B2", "this")][2][:nb // RB])))
+    print(f"B3 flags == B2 flags (this version): {same}")
+    if not same:
+        raise RuntimeError("B3's flags differ from B2's")
+    del b1_ref, b3_ref, outs
 
     # ---- B4 at recurrentgemma-9b's local-layer shape
     B, S, H, KV, hd, W = 2, 4096, 16, 1, 256, 2048
@@ -224,10 +294,12 @@ def main() -> int:
     for tag, lib in libs.items():
         out = torch.empty_like(q)
 
-        def b4(lib=lib, out=out):
+        # operands and shapes bound now: B5 below reuses k, v, B, H, hd
+        def b4(lib=lib, out=out, ops=(q, k, v), shape=(B, S, H, KV, hd, W)):
+            B, S, H, KV, hd, W = shape
             build.check_launch("flash_attention", lib.flash_attention_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-                S, S, H, KV, hd, 1, W, 1.0 / hd ** 0.5, 1, 0, stream))
+                *[t.data_ptr() for t in ops], out.data_ptr(), B, S, S, H, KV,
+                hd, 1, W, 1.0 / hd ** 0.5, 1, 0, stream))
         b4()
         torch.cuda.synchronize()
         err = float((out.float() - b4_ref).abs().max())
@@ -256,7 +328,8 @@ def main() -> int:
         out = torch.empty_like(ops[0])
         state = torch.empty((B * H, hd, hd), device=dev)
 
-        def b5(lib=lib, ops=ops, out=out, state=state, strided=strided):
+        def b5(lib=lib, ops=ops, out=out, state=state, strided=strided,
+               B=B, H=H, T=T, hd=hd):
             ptrs = [t.data_ptr() for t in (*ops, out, state)]
             a = (ptrs + [B, H, T, hd, T * H * hd, H * hd, hd, 0]
                  if strided else ptrs + [B * H, T, hd])
@@ -291,7 +364,13 @@ def main() -> int:
         print(f"B5 this, {B * H1} heads (one per SM), 10 calls per event "
               f"pair: {time_ms(b5_132, 10):.4f} ms", flush=True)
 
-    for kern in ("B1", "B2", "B4", "B5"):
+    got = {"other": [], "this": []}
+    for tag in ("other", "this", "this", "other"):
+        got[tag].append(graph_ms(calls[("B3", tag)]))
+    print(f"B3, device time (CUDA graph of 10 calls): other "
+          f"{got['other'][0]:.4f} / {got['other'][1]:.4f} ms, this "
+          f"{got['this'][0]:.4f} / {got['this'][1]:.4f} ms", flush=True)
+    for kern in ("B1", "B2", "B3", "B4", "B5"):
         for n in (10, 1):
             got = {"other": [], "this": []}
             for tag in ("other", "this", "this", "other"):

@@ -26,11 +26,12 @@ def nap_exit(x: torch.Tensor, x_inf: torch.Tensor, active: torch.Tensor,
     if n % NB or F % FB or F == 0:
         raise ValueError(f"x shape {(n, F)}: rows must be a multiple of "
                          f"{NB} and features a positive multiple of {FB}")
-    check("x", x, torch.float32)
-    check("x_inf", x_inf, torch.float32, (n, F))
+    cuda = dev.type == "cuda"
+    check("x", x, torch.float32, aligned=cuda)
+    check("x_inf", x_inf, torch.float32, (n, F), aligned=cuda)
     check("active", active, torch.int32, (n, 1))
     ts2 = float(ts2)
-    if dev.type == "cpu":
+    if not cuda:
         return ref_nap_exit(x, x_inf, active, ts2)
     dist2 = torch.empty((n, 1), dtype=torch.float32, device=dev)
     exits = torch.empty((n, 1), dtype=torch.int32, device=dev)

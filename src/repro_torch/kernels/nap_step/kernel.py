@@ -53,7 +53,7 @@ def nap_step_fused(tiles: torch.Tensor, tile_col: torch.Tensor,
     check("active", active, torch.int32, (n_rb,))
     check("x", x, torch.float32, aligned=cuda)
     check("c_inf", c_inf, torch.float32)
-    check("s_inf", s_inf, torch.float32)
+    check("s_inf", s_inf, torch.float32, aligned=cuda)
     if s_inf.numel() != F:
         raise ValueError(f"s_inf has {s_inf.numel()} entries, x has {F} "
                          f"features")

@@ -39,8 +39,18 @@ Two serving modes:
 
 Compiled-mode `spmm_impl` names a registered `PropagationBackend`
 (`repro_torch.gnn.backends`): ``segment``, ``block_ell`` or ``fused``.
-The mesh, propagated-feature cache, fault injection, watchdog and retry
-of the JAX engine are not ported yet.
+
+``cache_nodes > 0`` turns on the propagated-feature cache
+(`repro_torch.gnn.propcache`): the sampler probes it, the packer drops
+the edges into hit rows and packs their stored series as seed operands
+(pooled and pinned like the rest), and the NAP loop writes them over the
+hit rows after every step. The batch rows' series is copied back with the
+results, and once the batch has passed its guard the cache is filled from
+it (``cache_fill``). Cached and cold serving give equal predictions and
+exit orders outside the threshold margin (a seeded value was summed in
+its fill batch's order), also across mutations of the store. The mesh,
+fault injection, watchdog and retry of the JAX engine are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -60,6 +70,7 @@ from repro_torch.gnn.nai import (NAIConfig, infer_batch_host,
                                  support_stationary_factors)
 from repro_torch.gnn.packing import (PackedSupport, batch_bucket,
                                      pack_support, step_active_blocks)
+from repro_torch.gnn.propcache import PropCache
 from repro_torch.gnn.sampler import sample_support
 from repro_torch.gnn.store import as_store
 
@@ -78,6 +89,9 @@ class EngineConfig:
     max_wait_s: float = 0.01         # batch former age bound
     latency_window: int = 4096       # LatencyRing capacity
     nan_guard: bool = True           # finite/range check on synced results
+    # --- propagated-feature cache (repro_torch.gnn.propcache; 0 = off) ---
+    cache_nodes: int = 0             # LRU capacity in cached nodes
+    cache_fill: bool = True          # insert batch-row series after serving
 
     def __post_init__(self):
         if self.mode not in ("host", "compiled"):
@@ -91,6 +105,13 @@ class EngineConfig:
         if self.pipeline_depth > 1 and self.mode != "compiled":
             raise ValueError("pipelining overlaps host pack with device "
                              "compute; mode='host' has no device stage")
+        if self.cache_nodes < 0:
+            raise ValueError(f"cache_nodes must be >= 0, got "
+                             f"{self.cache_nodes}")
+        if self.cache_nodes and self.mode != "compiled":
+            raise ValueError("the propagated-feature cache fills from the "
+                             "compiled runner's series output; mode='host' "
+                             "has none")
         if self.max_wait_s < 0:
             raise ValueError(f"max_wait_s must be >= 0, got "
                              f"{self.max_wait_s}")
@@ -173,11 +194,13 @@ class _Inflight:
     done: Optional[torch.cuda.Event]   # None: results already on the host
     host_s: float            # sample + pack wall time
     dispatch_s: float        # copy + launch wall time
+    series: Optional[torch.Tensor] = None   # (T_max, nb, f) steps 1..T_max
+    fill: object = None      # cache fill record (nodes, deps, gv) or None
 
 
 # PackedSupport fields that travel to the device
 _UPLOADED = ("tiles", "tile_col", "valid", "src", "dst", "coef", "c_inf",
-             "s_inf", "x0", "x_inf")
+             "s_inf", "x0", "x_inf", "seed_rows", "seed_vals")
 
 
 class NAIServingEngine:
@@ -211,12 +234,18 @@ class NAIServingEngine:
         self.nan_guard = ec.nan_guard
         self.queue: Deque[Request] = deque()
         self.stats = EngineStats(latencies=LatencyRing(ec.latency_window))
+        self.cache: Optional[PropCache] = (
+            PropCache(ec.cache_nodes, nai.t_max) if ec.cache_nodes else None)
+        self.cache_fill = ec.cache_fill
+        # support rows sampled vs rows propagated (the cache's saving)
+        self.row_stats: Dict[str, int] = {"rows_support": 0,
+                                          "rows_packed": 0}
         self.pack_stats: Dict[str, int] = {"allocs": 0, "reuses": 0}
         # per-batch stage breakdown (host/dispatch/sync seconds), bounded
         self.batch_timings: Deque[Dict[str, float]] = deque(maxlen=1024)
         # bucket high-water marks keyed by padded batch size
-        # -> (s_bucket, tb_bucket, e_bucket)
-        self._bucket_hwm: Dict[int, Tuple[int, int, int]] = {}
+        # -> (s_bucket, tb_bucket, e_bucket, k_bucket)
+        self._bucket_hwm: Dict[int, Tuple[int, int, int, int]] = {}
         self._inflight: Deque[_Inflight] = deque()
         # rotating pack-buffer pool: bucket -> pipeline_depth + 1 slots,
         # with the pinned host tensors behind each slot's arrays and the
@@ -229,16 +258,36 @@ class NAIServingEngine:
         self._runner = None
         if ec.mode == "compiled":
             self._backend = get_backend(ec.spmm_impl)
-            self._runner = make_compiled_infer(cfg, nai,
-                                               spmm_impl=ec.spmm_impl,
-                                               device=self.device)
+            self._runner = make_compiled_infer(
+                cfg, nai, spmm_impl=ec.spmm_impl, device=self.device,
+                return_series=self.cache is not None)
+
+    @property
+    def cache_stats(self) -> Dict[str, float]:
+        """The cache's counters (hits/misses/stale/fills/evictions/
+        hit_rate) with the row accounting; with the cache off only the
+        row counters (and rows_packed == rows_support)."""
+        d: Dict[str, float] = dict(self.row_stats)
+        if self.cache is not None:
+            d.update(self.cache.stats())
+        return d
 
     def reset_stats(self) -> None:
-        """Zero the request counters and timings; serving state (pools,
-        high-water marks, pack counters) survives."""
+        """Zero the request counters, timings, row accounting and the
+        cache's counters; serving state (cache contents, pools, high-water
+        marks, pack counters) survives."""
         self.stats = EngineStats(
             latencies=LatencyRing(self.config.latency_window))
         self.batch_timings.clear()
+        self.row_stats = {"rows_support": 0, "rows_packed": 0}
+        if self.cache is not None:
+            self.cache.reset_stats()
+
+    def close(self) -> None:
+        """Complete in-flight work, then release the store's OS resources
+        (the file descriptor and maps of an `MmapStore`). Idempotent."""
+        self.flush()
+        self.store.close()
 
     # ------------------------------------------------------- host stage
     def _pin(self, packed: PackedSupport) -> Dict[str, torch.Tensor]:
@@ -258,12 +307,17 @@ class NAIServingEngine:
     def _host_stage(self, nodes: np.ndarray):
         """Sample the support and pack it into a pooled buffer set, plus
         the static per-step row-block predicate for the tile backends.
-        `nodes` must be duplicate-free. Returns (packed, step_active,
-        slot)."""
+        `nodes` must be duplicate-free. Returns (packed, step_active, slot,
+        fill): `fill` is the cache's fill record (batch nodes, support
+        nodes, mutation clock at sample time), or None."""
         store, cfg, nai = self.store, self.cfg, self.nai
         be = self._backend
-        sup = sample_support(store, nodes, nai.t_max, cfg.r)
+        sup = sample_support(store, nodes, nai.t_max, cfg.r,
+                             cache=self.cache)
         nb = sup.n_batch
+        n_hit = int(sup.hit.sum()) if sup.hit is not None else 0
+        self.row_stats["rows_support"] += len(sup)
+        self.row_stats["rows_packed"] += len(sup) - n_hit
         x0 = store.gather_features(sup.nodes).astype(np.float32)
         # the dense x_inf is built from the f32 factors, so the fused
         # kernel (which multiplies the factors in f32) sees the same
@@ -277,7 +331,7 @@ class NAIServingEngine:
             x_inf = np.zeros((nb, 0), np.float32)
 
         nb_bucket = batch_bucket(nb)
-        hwm = self._bucket_hwm.get(nb_bucket, (0, 0, 0))
+        hwm = self._bucket_hwm.get(nb_bucket, (0, 0, 0, 0))
         slots = self._pack_pool.setdefault(
             nb_bucket, [None] * (self.pipeline_depth + 1))
         idx = self._pool_idx.get(nb_bucket, 0)
@@ -292,7 +346,10 @@ class NAIServingEngine:
                               build_edges=be.uses_edges,
                               x_inf_factors=(c_inf, s_inf)
                               if be.uses_factors else None,
-                              out=slots[idx])
+                              out=slots[idx],
+                              seeds=(sup.hit, sup.seed_vals)
+                              if self.cache is not None else None,
+                              k_bucket=hwm[3])
         slots[idx] = packed
         self._pool_idx[nb_bucket] = (idx + 1) % len(slots)
         self.pack_stats["reuses" if packed.reused else "allocs"] += 1
@@ -300,19 +357,25 @@ class NAIServingEngine:
             self._pinned[slot] = self._pin(packed)
         self._bucket_hwm[nb_bucket] = (
             max(hwm[0], packed.n_pad), max(hwm[1], packed.tiles.shape[1]),
-            max(hwm[2], packed.src.shape[-1]))
+            max(hwm[2], packed.src.shape[-1]), max(hwm[3], packed.seed_pad))
         step_active = (step_active_blocks(packed.hop_rb, nai.t_max)
                        if be.uses_tiles else None)
-        return packed, step_active, slot
+        fill = None
+        if self.cache is not None and self.cache_fill:
+            # the whole support is the conservative dependency cone of
+            # every batch row's series (see PropCache.fill)
+            fill = (nodes, sup.nodes, sup.graph_version)
+        return packed, step_active, slot, fill
 
     # ----------------------------------------------------- device stage
     def _device_stage(self, packed: PackedSupport,
                       step_active: Optional[np.ndarray], slot):
         """Copy the operands to the device, launch the masked NAP loop and
         the classifiers, and start copying the results back. Returns
-        (preds, orders, done) without waiting for the card: `preds` and
-        `orders` are host tensors valid once the CUDA event `done` has
-        fired (None on the CPU, where they are ready on return)."""
+        (preds, orders, series, done) without waiting for the card: host
+        tensors valid once the CUDA event `done` has fired (None on the
+        CPU, where they are ready on return); `series` is the batch rows'
+        steps 1..T_max with the cache on, else None."""
         dev = self.device
         arrays = pack_operands(self._backend, packed, step_active)
         arrays.update(x0=packed.x0, x_inf=packed.x_inf)
@@ -328,18 +391,23 @@ class NAIServingEngine:
             copied.record()
             self._copied[slot] = copied
         x0, x_inf = on_dev.pop("x0"), on_dev.pop("x_inf")
-        preds, orders = self._runner(self.classifiers, on_dev, x0, x_inf)
+        out = self._runner(self.classifiers, on_dev, x0, x_inf)
+        if self.cache is not None:
+            out = (*out[:2], out[2][1:])
+        else:
+            out = (*out, None)
         if dev.type != "cuda":
-            return preds, orders, None
-        preds_h = torch.empty(preds.shape, dtype=preds.dtype,
-                              pin_memory=True)
-        orders_h = torch.empty(orders.shape, dtype=orders.dtype,
-                               pin_memory=True)
-        preds_h.copy_(preds, non_blocking=True)
-        orders_h.copy_(orders, non_blocking=True)
+            return (*out, None)
+        host = []
+        for t in out:
+            if t is not None:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                t = h
+            host.append(t)
         done = torch.cuda.Event()
         done.record()
-        return preds_h, orders_h, done
+        return (*host, done)
 
     def _guard_results(self, preds: np.ndarray, orders: np.ndarray,
                        nb_real: int) -> None:
@@ -392,6 +460,14 @@ class NAIServingEngine:
             self._guard_results(preds_a, orders_a, fl.nb_real)
         except Exception as e:   # noqa: BLE001 — batch-level isolation
             return self._fail_batch(fl.requests, e)
+        if fl.fill is not None:
+            # only after the guard: a poisoned batch must not seed later
+            # ones. Steps 1..T_max of a batch row are exact global values.
+            batch_nodes, dep_nodes, gv = fl.fill
+            self.cache.fill(
+                self.store, batch_nodes,
+                fl.series.numpy()[:, :fl.nb_real].transpose(1, 0, 2),
+                dep_nodes, gv)
         preds = preds_a[:fl.nb_real][fl.inv]
         orders = orders_a[:fl.nb_real][fl.inv]
         done = time.perf_counter()
@@ -482,16 +558,17 @@ class NAIServingEngine:
             return batch
         t0 = time.perf_counter()
         try:
-            packed, step_active, slot = self._host_stage(uniq)
+            packed, step_active, slot, fill = self._host_stage(uniq)
             t1 = time.perf_counter()
-            preds, orders, ev = self._device_stage(packed, step_active,
-                                                   slot)
+            preds, orders, series, ev = self._device_stage(
+                packed, step_active, slot)
         except Exception as e:   # noqa: BLE001 — batch-level isolation
             return self._fail_batch(batch, e) + self._advance()
         t2 = time.perf_counter()
         self._inflight.append(
             _Inflight(batch, inv, packed.nb_real, preds, orders, ev,
-                      host_s=t1 - t0, dispatch_s=t2 - t1))
+                      host_s=t1 - t0, dispatch_s=t2 - t1, series=series,
+                      fill=fill))
         done: List[Request] = []
         while len(self._inflight) >= self.pipeline_depth:
             done += self._finalize_oldest()

@@ -164,6 +164,48 @@ def test_nap_exit_kernel_matches_plain(cuda):
     _exits_match(exits, r_exits, r_d2, ts2)
 
 
+@pytest.mark.parametrize("n", [8, 512, 16384])
+@pytest.mark.parametrize("F", [128, 512, 640])
+def test_nap_exit_kernel_by_shape(cuda, n, F):
+    """B3 (one warp per node, float4 loads) against its plain version
+    from one 8-node group to a full support's rows, at one, four and five
+    feature blocks."""
+    g = torch.Generator().manual_seed(n + F)
+    x = torch.randn((n, F), generator=g)
+    x_inf = torch.rand(n, generator=g)[:, None] * torch.randn(F, generator=g)
+    nact = (torch.rand((n, 1), generator=g) < 0.8).to(torch.int32)
+    x, x_inf, nact = x.to(cuda), x_inf.to(cuda), nact.to(cuda)
+    ts2 = float(((x - x_inf) ** 2).sum(1).median())
+    before = nap_exit.launches
+    d2, exits, blk = nap_exit(x, x_inf, nact, ts2)
+    r_d2, r_exits, r_blk = ref_nap_exit(x, x_inf, nact, ts2)
+    torch.cuda.synchronize()
+    assert nap_exit.launches == before + 1
+    torch.testing.assert_close(d2, r_d2, **TOL)
+    _exits_match(exits, r_exits, r_d2, ts2)
+    far = ((r_d2 - ts2).abs() > 1e-4 * ts2).reshape(-1, RB).all(1)
+    assert torch.equal(blk[far], r_blk[far])
+
+
+@pytest.mark.parametrize("F", [128, 512, 640])
+def test_nap_exit_bitwise_equals_fused_step(cuda, F):
+    """B3 on B2's propagated batch rows and x_inf = c * s: the same exit
+    and block flags bit for bit (one `dist_terms` chain and one `row_sum`
+    tree in block_ell.cuh), also over two 512-feature slabs."""
+    ops = _operands(cuda, 7, F=F)
+    tiles, tile_col, valid, active, x, c, s, nact = ops
+    out_b1 = spmm_block_ell(tiles, tile_col, valid, active, x)
+    ts2 = _threshold(out_b1, c, s, nact)
+    out, f_exits, f_blk = nap_step_fused(*ops, ts2)
+    nb = c.numel()
+    d2, exits, blk = nap_exit(out[:nb], c[:, None] * s[None, :], nact, ts2)
+    torch.cuda.synchronize()
+    assert 0 < int(exits.sum()) < int(nact.sum())
+    assert torch.equal(exits, f_exits)
+    assert torch.equal(blk, f_blk[:nb // RB])
+    assert not f_blk[nb // RB:].any()
+
+
 def test_kernels_refuse_bad_operands_on_cuda(cuda):
     tiles, tile_col, valid, active, x, *_ = _operands(cuda, 4)
     with pytest.raises(ValueError, match="tile_col"):
@@ -205,6 +247,81 @@ def test_engine_on_card(cuda):
     for impl, (p, o) in res.items():
         assert_orders_match(p, o, *host, near)
     assert set(host[1]) == {1, 2, 3}
+
+
+def _serve_all(eng, nodes):
+    eng.submit(nodes)
+    done = []
+    while eng.queue:
+        done += eng.step()
+    done += eng.flush()
+    assert [r.status for r in done] == ["completed"] * len(nodes)
+    return (np.array([r.prediction for r in done]),
+            np.array([r.exit_order for r in done]))
+
+
+def test_cached_engine_on_card(cuda):
+    """The propagated-feature cache on the card: cached == cold for every
+    backend, also after a mutation round, outside the threshold margin
+    (a seeded value was summed in its fill batch's tile order, so it may
+    differ from the cold path's in the last bits)."""
+    from repro_torch.gnn.store import InMemoryStore
+    g = load_dataset("pubmed-like", scale=0.1, seed=0)
+    cfg = GNNConfig("sgc", g.features.shape[1], g.num_classes, k=4,
+                    hidden=64, mlp_layers=2)
+    nai = NAIConfig(t_s=20.0, t_min=1, t_max=3, batch_size=64)
+    heads = init_classifiers(cfg, torch.Generator().manual_seed(0),
+                             device=cuda)
+    rng = np.random.default_rng(3)
+    pool = rng.choice(g.test_idx, size=128, replace=False)
+    stream = [rng.choice(pool, size=64, replace=False) for _ in range(6)]
+    for impl in ("fused", "block_ell", "segment"):
+        stores = InMemoryStore(g), InMemoryStore(g)
+        hot, cold = (NAIServingEngine(cfg, nai, heads, st, device=cuda,
+                                      max_wait_s=10.0, mode="compiled",
+                                      spmm_impl=impl, pipeline_depth=2,
+                                      **kw)
+                     for st, kw in zip(stores, ({"cache_nodes": 4096}, {})))
+        for rnd in range(2):
+            if rnd:
+                served = np.unique(np.concatenate(stream))
+                src = rng.choice(served, size=8, replace=False)
+                for st in stores:
+                    st.add_edges(src, (src + 1) % g.n)
+                    st.add_nodes(np.ones((2, g.features.shape[1]),
+                                         np.float32))
+            for nodes in stream:
+                ph, oh = _serve_all(hot, nodes)
+                pc, oc = _serve_all(cold, nodes)
+                near = near_threshold(decision_distances, cfg, nai,
+                                      stores[1], nodes, 64)
+                assert_orders_match(ph, oh, pc, oc, near)
+        cs = hot.cache_stats
+        assert cs["hits"] > 0 and cs["stale"] > 0, cs
+        assert cs["rows_packed"] < cs["rows_support"], cs
+
+
+def test_mmap_store_engine_on_card(cuda, tmp_path):
+    """An engine over an MmapStore gives exactly what one over the
+    InMemoryStore of the same graph gives."""
+    from repro_torch.gnn.store import MmapStore, save_graph_store
+    g = load_dataset("pubmed-like", scale=0.1, seed=0)
+    cfg = GNNConfig("sgc", g.features.shape[1], g.num_classes, k=4,
+                    hidden=64, mlp_layers=2)
+    nai = NAIConfig(t_s=20.0, t_min=1, t_max=3, batch_size=100)
+    heads = init_classifiers(cfg, torch.Generator().manual_seed(0),
+                             device=cuda)
+    nodes = np.random.default_rng(0).choice(g.test_idx, size=300,
+                                            replace=False)
+    with MmapStore(save_graph_store(g, str(tmp_path / "s"))) as ms:
+        assert ms.verify()
+        for impl in ("fused", "block_ell"):
+            res = [_serve_all(NAIServingEngine(
+                cfg, nai, heads, st, device=cuda, max_wait_s=10.0,
+                mode="compiled", spmm_impl=impl, pipeline_depth=2), nodes)
+                for st in (g, ms)]
+            for a, b in zip(*res):
+                np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("hd,T", [(16, 48), (32, 64), (64, 128)])

@@ -43,8 +43,25 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 def test_import_scan_sees_the_whole_port():
     names = {p.name for p in PORT_FILES}
-    assert {"engine.py", "backends.py", "chip_smoke.py",
-            "kernel.py"} <= names
+    assert {"engine.py", "backends.py", "chip_smoke.py", "kernel.py",
+            "store.py", "propcache.py", "ops.py"} <= names
+
+
+def test_port_modules_load_no_jax_at_run_time():
+    """Imported in a fresh interpreter, the serving path (store, cache,
+    sampler, packing, loop, engine, kernel wrappers) and the store's
+    generator program pull in no module of JAX or of the JAX package."""
+    import subprocess
+    import sys
+    code = ("import sys; import repro_torch.gnn, repro_torch.serving, "
+            "repro_torch.gnn.store, repro_torch.gnn.propcache, "
+            "repro_torch.kernels.nap_exit.ops; "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "assert not bad, bad")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)
 
 
 def _no_cuda(monkeypatch):
@@ -87,6 +104,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
             cfg, nai, heads, g, **kw),
         "NAIServingEngine(compiled)": lambda **kw: NAIServingEngine(
             cfg, nai, heads, g, mode="compiled", spmm_impl="fused", **kw),
+        "NAIServingEngine(cached)": lambda **kw: NAIServingEngine(
+            cfg, nai, heads, g, mode="compiled", cache_nodes=64, **kw),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -94,7 +113,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
     # the same entry points build on the CPU when asked to
     for name in ("init_classifiers", "params_from_numpy",
                  "make_compiled_infer", "NAIServingEngine(host)",
-                 "NAIServingEngine(compiled)"):
+                 "NAIServingEngine(compiled)", "NAIServingEngine(cached)"):
         calls[name](device="cpu")
 
 
