@@ -53,7 +53,28 @@ fails (non-zero exit, no result line) on any failed check:
    prefill's cache, against decoding the same prompts token by token in
    f32 (a path with no kernel), for the f32 and for the bf16 prefill;
    with the bf16-against-f32 error of the last logits after 1, 2, 4, 8,
-   16 and all layers.
+   16 and all layers;
+5. train (`train_phase`, last, so that nothing it leaves behind runs
+   beside the LM timings): the paper's training procedure (`train_nai`,
+   Inception Distillation, `DistillConfig()`'s 300/200/200 epochs) on the
+   card on phase 3's graph with `serve_gnn`'s config (dropout 0.1): (a)
+   50 AdamW steps of the base loss at dropout 0 on the card and on the
+   CPU from the same heads (every step's loss within 1e-3 relative, >=
+   99% of test predictions equal), then 10 more card steps under the
+   profiler (wall against device busy time per step); (b) `train_nai`
+   with its stage seconds and steps/s, the `info` losses (finite) and
+   every order's test accuracy (above 1.5/C); (c) the trained heads
+   through host mode, fused, block_ell and segment on the 2,000
+   requests, under the serve phase's gates, with accuracy, req/s and
+   B1-B3's launches (counters zeroed before each backend's pass); (d) T_s
+   at 0, the 25th and 75th percentiles of the order-1 distances and above
+   all of them (T_max 3): accuracy, exit histogram, the host path's
+   propagation MACs per node, fused req/s in three rounds over all T_s
+   (median and spread), fused == host outside the margin; (e) `python -m
+   repro_torch.launch.serve --gnn pubmed-like` and `... launch.train
+   --gnn pubmed-like` at their defaults as subprocesses (exit 0 and their
+   lines), then the four Table 3 baselines (GLNN, TinyGNN, INT8, vanilla)
+   from the trained teacher.
 
 The launch counters of the kernels are zeroed just before each main path
 (the measured serving passes; each prefill and its decode) and read just
@@ -310,19 +331,32 @@ def serve_requests(torch, eng, nodes, batches=None):
             np.array([r.exit_order for r in done]), wall)
 
 
-def near_margin(cfg, nai, store, nodes, batch_size):
-    """Bool per request: does a decision-step d² of the node, in the batch
-    the engine forms it in, lie within D2_MARGIN of t_s²?"""
+def request_distances(cfg, nai, store, nodes, batch_size):
+    """(len(nodes), t_max - t_min) float64: each request's decision-step
+    distances in the batch the engine forms it in (they depend on the
+    graph, the batching and t_min/t_max, not on t_s or the heads)."""
     from repro_torch.gnn.nai import decision_distances
-    ts2 = float(np.float32(nai.t_s) ** 2)
-    near = np.zeros(len(nodes), bool)
+    out = np.zeros((len(nodes), nai.t_max - nai.t_min))
     for lo in range(0, len(nodes), batch_size):
         chunk = nodes[lo:lo + batch_size]
         uniq, inv = np.unique(chunk, return_inverse=True)
-        d = decision_distances(cfg, nai, store, uniq)
-        near[lo:lo + len(chunk)] = (np.abs(d ** 2 - ts2) <= D2_MARGIN * ts2
-                                    ).any(axis=1)[inv]
-    return near
+        out[lo:lo + len(chunk)] = decision_distances(cfg, nai, store,
+                                                     uniq)[inv]
+    return out
+
+
+def within_margin(d, t_s):
+    """Bool per request: does a decision-step d² lie within D2_MARGIN of
+    t_s²?"""
+    ts2 = float(np.float32(t_s) ** 2)
+    return (np.abs(d ** 2 - ts2) <= D2_MARGIN * ts2).any(axis=1)
+
+
+def near_margin(cfg, nai, store, nodes, batch_size):
+    """Bool per request: does a decision-step d² of the node, in the batch
+    the engine forms it in, lie within D2_MARGIN of t_s²?"""
+    return within_margin(request_distances(cfg, nai, store, nodes,
+                                           batch_size), nai.t_s)
 
 
 def same_outside(a, b, near) -> bool:
@@ -357,7 +391,8 @@ def zero_counts(kernels) -> None:
 def gnn_phases(torch, dev, kernels):
     """The NAI serving path (kernels B1-B3) at the full pubmed-like size:
     returns the kernel rows, each with its launches in the measured
-    serving passes."""
+    serving passes, and the train phase on the same graph and requests,
+    for the caller to run later."""
     from repro_torch.gnn import (GNNConfig, NAIConfig, init_classifiers,
                                  load_dataset, pack_support, sample_support,
                                  step_active_blocks)
@@ -629,7 +664,8 @@ def gnn_phases(torch, dev, kernels):
               f"time: " + ", ".join(f"{k[:48]} {v / 1e3:.1f} ms"
                                     for k, v in top))
 
-    near = near_margin(cfg, nai, g, requests, nai.batch_size)
+    dist = request_distances(cfg, nai, g, requests, nai.batch_size)
+    near = within_margin(dist, nai.t_s)
     check(near.mean() <= MAX_NEAR_SHARE, f"{near.sum()} requests within "
           f"the threshold margin")
     for impl, (pr, od, _) in results.items():
@@ -661,7 +697,9 @@ def gnn_phases(torch, dev, kernels):
                     results, tmp)
         scale_phase(torch, dev, kernels, tmp)
     cache_phase(torch, dev, kernels, g, cfg, heads)
-    return rows
+    return rows, lambda: train_phase(
+        torch, dev, kernels, g, dataclasses.replace(cfg, dropout=0.1), nai,
+        requests, dist)
 
 
 def raises(fn, exc) -> bool:
@@ -929,11 +967,227 @@ def cache_phase(torch, dev, kernels, g, cfg, heads):
     gc.collect()
     torch.cuda.empty_cache()
 
+def train_phase(torch, dev, kernels, g, cfg, nai, requests, dist):
+    """Inception Distillation on the card at the serve phase's size, then
+    the trained heads served (the serve phase's requests and batching, so
+    its decision distances `dist` give every margin): (a) the card's
+    `_fit` against the CPU's from the same heads, (b) `train_nai` with its
+    stage times, (c) the trained heads through host mode, fused,
+    block_ell and segment under the serve phase's gates, (d) accuracy,
+    exit histogram, propagation MACs and fused req/s across T_s, (e) both
+    GNN launchers at their defaults and the four Table 3 baselines."""
+    from repro_torch.core.inception_distill import hard_ce
+    from repro_torch.gnn import (DistillConfig, evaluate_classifier,
+                                 infer_all, init_classifiers,
+                                 order_distribution, train_nai)
+    from repro_torch.gnn.baselines import (run_glnn, run_quantized,
+                                           run_tinygnn, run_vanilla)
+    from repro_torch.gnn.distill import _fit, _tc
+    from repro_torch.gnn.graph import propagated_series
+    from repro_torch.serving import NAIServingEngine
 
-def decode_profile(torch, step, arch, n=3):
-    """Where one decode step's time goes: the profiler over `n` steps,
-    host time per step against device busy time, and the ops that cost
-    the host most."""
+    phase("train")
+    t_phase = time.perf_counter()
+    dc = DistillConfig()
+    fit_steps = 50
+    labels = g.labels[requests]
+
+    # ---------------------------------------------- (a) card against CPU
+    series = np.stack(propagated_series(g.train_subgraph(), g.features,
+                                        cfg.k, cfg.r))
+    fv, y = series[:, g.train_idx], g.labels[g.train_idx]
+    fit_cfg = dataclasses.replace(cfg, dropout=0.0)
+    full = np.stack(propagated_series(g, g.features, cfg.k, cfg.r))
+    runs = {}
+    for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        head = init_classifiers(fit_cfg, torch.Generator().manual_seed(0),
+                                device=d).head(cfg.k)
+        fd = torch.from_numpy(fv).to(d)
+        yd = torch.from_numpy(y).long().to(d)
+        hist = []
+
+        def loss_fn(h, rng):
+            loss = hard_ce(h(fd, generator=rng), yd)
+            hist.append(loss.detach())
+            return loss
+
+        t0 = time.perf_counter()
+        _fit(loss_fn, head, fit_steps, _tc(dc),
+             torch.Generator(d).manual_seed(0))
+        losses = np.array([float(v) for v in hist])
+        secs = time.perf_counter() - t0
+        with torch.inference_mode():
+            pred = head(torch.from_numpy(full[:, g.test_idx]).to(d)
+                        ).argmax(-1).cpu().numpy()
+        runs[name] = (head, losses, secs, pred)
+    (hc, lc, sc, pc), (hd, ld, sd, pd) = runs["cpu"], runs["card"]
+    gap = float(np.max(np.abs(ld - lc) / np.abs(lc)))
+    agree = float((pc == pd).mean())
+    wgap = max(float((a.detach().cpu() - b.detach()).abs().max())
+               for a, b in zip(hd.parameters(), hc.parameters()))
+    print(f"(a) _fit, base loss, dropout 0, {fit_steps} steps from the same "
+          f"heads: card {sd:.3f} s, CPU {sc:.3f} s; loss {ld[0]:.6g} -> "
+          f"{ld[-1]:.6g}; largest relative loss gap {gap:.3g}; test "
+          f"predictions equal {agree:.4f}; largest parameter gap {wgap:.3g}")
+    check(gap <= 1e-3, f"card and CPU losses within 1e-3 relative ({gap})")
+    check(agree >= 0.99, f"card and CPU heads agree on >= 99% ({agree})")
+    # where a training step's time goes: 10 more base-loss steps, traced
+    fd = torch.from_numpy(fv).to(dev)
+    yd = torch.from_numpy(y).long().to(dev)
+    step_profile(torch, lambda: _fit(
+        lambda h, rng: hard_ce(h(fd, generator=rng), yd), hd, 10, _tc(dc),
+        torch.Generator(dev).manual_seed(0)), "(a) train base step", n=1,
+        per_call=10)
+    del runs, hc, hd, fd, yd
+
+    # -------------------------------------------- (b) training on the card
+    timings = {}
+    t0 = time.perf_counter()
+    model, info = train_nai(cfg, g, dc, device=dev, timings=timings)
+    t_train = time.perf_counter() - t0
+    steps = {"base": dc.epochs_base,
+             "offline": (cfg.k - 1) * dc.epochs_offline,
+             "online": dc.epochs_online}
+    print(f"(b) train_nai on {dev}: {t_train:.2f} s; host series and copy "
+          f"{timings['series']:.3f} s; " + "; ".join(
+              f"{k} {steps[k]} steps {timings[k]:.3f} s "
+              f"({steps[k] / timings[k]:.1f} steps/s)" for k in steps))
+    print(f"(b) info {info}")
+    accs = {l: evaluate_classifier(cfg, model, full, g.labels, g.test_idx, l)
+            for l in range(1, cfg.k + 1)}
+    print(f"(b) test accuracy per order (the full graph's series, "
+          f"{len(g.test_idx)} test nodes): {accs}")
+    check(all(np.isfinite(v) for v in info.values()), "finite losses")
+    check(all(a > 1.5 / cfg.num_classes for a in accs.values()),
+          f"every order above 1.5/C ({accs})")
+    del full
+
+    # ----------------------------------------- (c) serving trained heads
+    near = within_margin(dist, nai.t_s)
+    check(near.mean() <= MAX_NEAR_SHARE, f"{near.sum()} requests within "
+          f"the threshold margin")
+    host = NAIServingEngine(cfg, nai, model, g, device=dev, mode="host",
+                            max_wait_s=10.0)
+    hp, ho, h_wall = serve_requests(torch, host, requests)
+    print(f"(c) host: {len(requests) / h_wall:.1f} req/s, accuracy "
+          f"{(hp == labels).mean():.4f}, exit histogram "
+          f"{dict(sorted(host.stats.exit_hist.items()))}")
+    res = {}
+    for impl in ("fused", "block_ell", "segment"):
+        eng = NAIServingEngine(cfg, nai, model, g, device=dev,
+                               mode="compiled", spmm_impl=impl,
+                               pipeline_depth=2, max_wait_s=10.0)
+        serve_requests(torch, eng, requests)          # sizes the pool
+        eng.reset_stats()
+        zero_counts(kernels)                     # a main path starts here
+        res[impl] = serve_requests(torch, eng, requests)
+        counts = launch_counts(kernels)
+        pr, od, wall = res[impl]
+        print(f"(c) {impl}: {len(requests) / wall:.1f} req/s, accuracy "
+              f"{(pr == labels).mean():.4f}, exit histogram "
+              f"{dict(sorted(eng.stats.exit_hist.items()))}, launches "
+              f"{counts}")
+        check(same_outside((pr, od), (hp, ho), near),
+              f"{impl} on trained heads matches the host path outside the "
+              f"margin")
+        if impl == "fused":
+            check(counts["nap_step_fused"] > 0, "fused launched B2")
+        elif impl == "block_ell":
+            check(counts["spmm_block_ell"] > 0 and counts["nap_exit"] > 0,
+                  "block_ell launched B1 and B3")
+        del eng
+    check(np.array_equal(res["fused"][0], res["block_ell"][0])
+          and np.array_equal(res["fused"][1], res["block_ell"][1]),
+          "fused and block_ell give identical predictions and exit orders "
+          "on trained heads")
+    print(f"(c) requests within the threshold margin: {int(near.sum())}")
+    del host, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------- (d) the trade-off
+    d1 = dist[:, 0]
+    sweep = [0.0, float(np.percentile(d1, 25)), float(np.percentile(d1, 75)),
+             float(d1.max()) * 1.001 + 1e-3]
+    print(f"(d) T_s sweep {[round(t, 4) for t in sweep]} (T_min "
+          f"{nai.t_min}, T_max {nai.t_max}; order-1 distances "
+          f"{d1.min():.4f} .. {d1.max():.4f})")
+    # fused req/s of every T_s in each of three rounds, so that the host's
+    # drift during the sweep shows as spread, not as a trend over T_s
+    engs, rates = {}, {t_s: [] for t_s in sweep}
+    for t_s in sweep:
+        engs[t_s] = NAIServingEngine(
+            cfg, dataclasses.replace(nai, t_s=t_s), model, g, device=dev,
+            mode="compiled", spmm_impl="fused", pipeline_depth=2,
+            max_wait_s=10.0)
+        serve_requests(torch, engs[t_s], requests)    # sizes the pool
+    for _ in range(3):
+        for t_s in sweep:
+            fp, fo, wall = serve_requests(torch, engs[t_s], requests)
+            rates[t_s].append(len(requests) / wall)
+    for t_s in sweep:
+        r = infer_all(cfg, dataclasses.replace(nai, t_s=t_s), model, g,
+                      nodes=requests)
+        near_t = within_margin(dist, t_s)
+        q = rates[t_s]
+        print(f"(d) T_s {t_s:.4f}: accuracy "
+              f"{(r.predictions == labels).mean():.4f}, exit histogram "
+              f"{order_distribution(r, nai.t_max).tolist()}, host "
+              f"propagation MACs/node {r.macs['propagation']:.1f} (feature "
+              f"processing {r.fp_macs:.1f}), fused req/s in three rounds "
+              f"{[round(v, 1) for v in q]} (median {np.median(q):.1f}, "
+              f"spread {(max(q) - min(q)) / np.median(q):.1%}), within the "
+              f"margin {int(near_t.sum())}")
+        fp, fo, _ = serve_requests(torch, engs[t_s], requests)
+        check(near_t.mean() <= MAX_NEAR_SHARE
+              and same_outside((fp, fo), (r.predictions, r.orders), near_t),
+              f"fused matches the host path at T_s {t_s}")
+    del engs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------ (e) entry points and baselines
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    expect = {"serve": ("[serve-gnn] served=", "p50=", "exit histogram"),
+              "train": ("[train-gnn] done in", "NAI acc=")}
+    t0 = time.perf_counter()
+    procs = {m: subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.launch.{m}", "--gnn",
+         "pubmed-like"], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for m in expect}
+    try:
+        outs = {m: p.communicate(timeout=300) for m, p in procs.items()}
+    finally:
+        for p in procs.values():
+            p.kill()
+    for m, (out, err) in outs.items():
+        for line in out.splitlines():
+            print(f"(e) {m}: {line}")
+        check(procs[m].returncode == 0
+              and all(e in out for e in expect[m]),
+              f"launch.{m} --gnn pubmed-like exits 0 and prints its lines "
+              f"(exit {procs[m].returncode}; {err[-1500:]})")
+    print(f"(e) both launchers, side by side: "
+          f"{time.perf_counter() - t0:.1f} s")
+    base = {"glnn": lambda: run_glnn(cfg, g, model.head(cfg.k)),
+            "tinygnn": lambda: run_tinygnn(cfg, g, model.head(cfg.k)),
+            "quantized": lambda: run_quantized(cfg, g, model),
+            "vanilla": lambda: run_vanilla(cfg, g, model)}
+    for name, run in base.items():
+        t0 = time.perf_counter()
+        r = run()
+        print(f"(e) {name}: acc {r.acc:.4f}, MACs/node {r.macs:.1f} "
+              f"(feature processing {r.fp_macs:.1f}), inference "
+              f"{r.time_s:.4f} s (feature processing {r.fp_time_s:.4f} s); "
+              f"{time.perf_counter() - t0:.1f} s in all")
+        check(np.isfinite(r.acc) and r.macs > 0, f"{name} ran")
+    print(f"train phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def step_profile(torch, step, label, n=3, per_call=1):
+    """Where one step's time goes: the profiler over `n` calls of `step`,
+    each of `per_call` steps, host time per step against device busy
+    time, and the ops that cost the host most."""
     from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
@@ -948,7 +1202,8 @@ def decode_profile(torch, step, arch, n=3):
     dev_us = sum(e.self_device_time_total for e in ev)
     n_launch = sum(e.count for e in ev if e.self_device_time_total > 0)
     top = sorted(ev, key=lambda e: -e.self_cpu_time_total)[:6]
-    print(f"{arch} decode profile (traced, {n} steps): {wall / n * 1e3:.1f} "
+    n *= per_call
+    print(f"{label} profile (traced, {n} steps): {wall / n * 1e3:.1f} "
           f"ms wall per step, device busy {dev_us / n / 1e3:.2f} ms per step,"
           f" ~{n_launch // n} device ops per step; most host time: "
           + ", ".join(f"{e.key} {e.self_cpu_time_total / n / 1e3:.2f} ms"
@@ -1183,8 +1438,8 @@ def lm_phases(torch, dev, kernels, arch, batch, seq, gate_seq, bf16_rel,
     print(f"{arch} decode {n_dec} tokens x {batch}: {t_decode:.3f} s, "
           f"{rates['decode']:.1f} tokens/s ({1e3 * t_decode / n_dec:.2f} "
           f"ms per step); peak memory {peak} bytes")
-    decode_profile(torch, lambda: M.decode_step(cfg, model, cache, tok,
-                                                seq + n_dec), arch)
+    step_profile(torch, lambda: M.decode_step(cfg, model, cache, tok,
+                                              seq + n_dec), f"{arch} decode")
     del cache, logits
     torch.cuda.empty_cache()
 
@@ -1305,7 +1560,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
 
-    rows = gnn_phases(torch, dev, kernels)
+    rows, train = gnn_phases(torch, dev, kernels)
     torch.cuda.empty_cache()
     # bf16 limits: about twice the error measured on an H100 (0.523 and
     # 0.0114), rwkv6-3b's kept below the 1.41 of unrelated logits
@@ -1313,6 +1568,10 @@ def main() -> int:
                           1.0, smi_line))
     rows.append(lm_phases(torch, dev, kernels, "recurrentgemma-9b", 2, 4096,
                           2200, 0.03, smi_line))
+    # training last, so that nothing it leaves behind (pinned pools, its
+    # subprocesses) runs beside the LM phases' timings
+    torch.cuda.empty_cache()
+    train()
 
     phase("kernel summary")
     line = {"kernels": []}

@@ -1,5 +1,6 @@
 from repro_torch.common.types import (AdaptiveDepthConfig, INPUT_SHAPES,
-                                      LAYER_KINDS, ModelConfig, ShapeConfig)
+                                      LAYER_KINDS, ModelConfig, ShapeConfig,
+                                      TrainConfig)
 
 __all__ = ["AdaptiveDepthConfig", "INPUT_SHAPES", "LAYER_KINDS",
-           "ModelConfig", "ShapeConfig"]
+           "ModelConfig", "ShapeConfig", "TrainConfig"]

@@ -1,8 +1,9 @@
-"""Config dataclasses of the LM substrate (the port of `repro.common.types`).
+"""Config dataclasses of the LM substrate and the trainer (the port of
+`repro.common.types`).
 
 Frozen dataclasses, so configs are hashable and compare by value. The
-mesh, training and TPU hardware configs of the JAX package wait for the
-sharding and training slices (ROADMAP A9/A11).
+mesh and TPU hardware configs of the JAX package wait for the sharding
+and tooling slices (ROADMAP A7/A11).
 """
 from __future__ import annotations
 
@@ -149,3 +150,20 @@ INPUT_SHAPES = {
     "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
     "long_500k":   ShapeConfig("long_500k",  524_288,    1, "decode"),
 }
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer settings of `repro_torch.optim` (the reference's
+    defaults: note beta2 = 0.95, not torch's 0.999)."""
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    schedule: str = "cosine"             # cosine | linear | constant
+    remat: bool = True
+    moment_dtype: str = "float32"        # bf16 for the >100B dry-runs

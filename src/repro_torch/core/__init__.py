@@ -1,0 +1,6 @@
+from repro_torch.core.inception_distill import (ensemble_teacher, hard_ce,
+                                                offline_loss, online_loss,
+                                                soft_ce)
+
+__all__ = ["ensemble_teacher", "hard_ce", "offline_loss", "online_loss",
+           "soft_ce"]

@@ -1,0 +1,71 @@
+"""Inception Distillation (paper §3.2), the GNN half of the port of
+`repro.core.inception_distill`.
+
+Primitives implement Eqs. (2)-(6) of the paper:
+  * soft-CE knowledge distillation at temperature T        (Eq. 3)
+  * offline loss  (1-λ)·CE + λ·T²·KD(student, teacher)     (Eq. 4)
+  * self-attention ensemble teacher over the top-r exits   (Eq. 5)
+  * online loss   (1-λ)·CE + λ·T²·KD(student, ensemble)    (Eq. 6)
+
+Used by `repro_torch.gnn.distill`. The transformer flavour
+(`transformer_inception_loss`) waits for the LM exit heads (ROADMAP
+A10.3).
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+
+def soft_ce(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
+            temperature: float) -> torch.Tensor:
+    """KD loss: CE(softmax(t/T), log softmax(s/T)); mean over rows. (Eq. 3)"""
+    t = torch.softmax(teacher_logits.float() / temperature, dim=-1)
+    ls = torch.log_softmax(student_logits.float() / temperature, dim=-1)
+    return -torch.mean(torch.sum(t * ls, dim=-1))
+
+
+def hard_ce(logits: torch.Tensor, labels: torch.Tensor,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cross-entropy against integer labels; with `mask`, the mean over
+    the rows it marks (at least one row's weight in the denominator)."""
+    lf = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.take_along_dim(lf, labels.long()[..., None], dim=-1)[..., 0]
+    if mask is None:
+        return -torch.mean(ll)
+    m = mask.float()
+    return -torch.sum(ll * m) / torch.clamp(torch.sum(m), min=1.0)
+
+
+def offline_loss(student_logits, teacher_logits, labels, *, temperature,
+                 lam, label_mask=None) -> torch.Tensor:
+    """(Eq. 4). The teacher is detached (pure offline distillation)."""
+    kd = soft_ce(student_logits, teacher_logits.detach(), temperature)
+    ce = hard_ce(student_logits, labels, label_mask)
+    return (1.0 - lam) * ce + lam * temperature ** 2 * kd
+
+
+def ensemble_teacher(exit_logits: Sequence[torch.Tensor],
+                     s: torch.Tensor) -> torch.Tensor:
+    """Self-attention ensemble over exit predictions (Eq. 5).
+
+    exit_logits: list of (N, C) logits (the top-r classifiers).
+    s: (C, 1) learned projection.
+    Returns ensemble logits z̄ (N, C), to be temperature-softmaxed by Eq. 6.
+    """
+    probs = [torch.softmax(z.float(), dim=-1) for z in exit_logits]
+    scores = [torch.relu(p @ s.float())[..., 0] for p in probs]
+    w = torch.softmax(torch.stack(scores, dim=-1), dim=-1)      # (N, r)
+    stacked = torch.stack(probs, dim=-1)                        # (N, C, r)
+    mix = torch.einsum("ncr,nr->nc", stacked, w)
+    return torch.log(mix + 1e-9)                        # back to logit space
+
+
+def online_loss(student_logits, ens_logits, labels, *, temperature, lam,
+                label_mask=None) -> torch.Tensor:
+    """(Eq. 6). The ensemble teacher is NOT detached: teacher and students
+    update together, per the paper."""
+    kd = soft_ce(student_logits, ens_logits, temperature)
+    ce = hard_ce(student_logits, labels, label_mask)
+    return (1.0 - lam) * ce + lam * temperature ** 2 * kd

@@ -1,4 +1,5 @@
-"""Load the JAX package's classifier parameters into the port's heads."""
+"""Carry classifier parameters between the JAX package's trees and the
+port's heads, both ways."""
 from __future__ import annotations
 
 from typing import Dict, Mapping
@@ -35,3 +36,27 @@ def params_from_numpy(cfg: GNNConfig, tree: Mapping[int, Dict[str, np.ndarray]],
                 head.att_v.copy_(torch.tensor(
                     np.asarray(p["att_v"], np.float32)))
     return cls.to(dev).eval()
+
+
+def params_to_numpy(classifiers: Classifiers) -> Dict:
+    """The heads as the JAX package's params: ``{"cls": {l: {"w0": (in,
+    out), "b0": (out,), ...}}}``, each ``w{i}`` transposed back, plus
+    ``"ens_s"`` (C, 1) once training has set it; ``["cls"]`` is what
+    `params_from_numpy` takes. The JAX engine and `infer_all` take the
+    result as it is."""
+    cfg = classifiers.cfg
+    cls = {}
+    for l in range(1, cfg.k + 1):
+        head = classifiers.head(l)
+        p = {}
+        for i, lin in enumerate(head.layers):
+            p[f"w{i}"] = lin.weight.detach().cpu().numpy().T.copy()
+            p[f"b{i}"] = lin.bias.detach().cpu().numpy().copy()
+        if cfg.base_model == "gamlp":
+            p["att_w"] = head.att_w.detach().cpu().numpy().copy()
+            p["att_v"] = head.att_v.detach().cpu().numpy().copy()
+        cls[l] = p
+    out = {"cls": cls}
+    if classifiers.ens_s is not None:
+        out["ens_s"] = classifiers.ens_s.detach().cpu().numpy().copy()
+    return out

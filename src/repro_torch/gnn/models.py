@@ -7,8 +7,9 @@ model decides what f^(l) consumes:
     SIGN  : concat(X^(0)..X^(l)) -> MLP
     GAMLP : node-wise attention over X^(0)..X^(l) -> MLP  (JK-attention form)
 
-The port of `repro.gnn.models` for inference: each head is an `nn.Module`
-taking the stacked series (l+1, N, f) like the JAX `apply_classifier`.
+The port of `repro.gnn.models`: each head is an `nn.Module` taking the
+stacked series (l+1, N, f) like the JAX `apply_classifier`, with
+training dropout drawn from an explicit generator.
 Initialization follows `repro.nn.params` (fan-in normal weights, zero
 biases, 0.02-scaled attention) drawn from an explicit `torch.Generator`;
 `repro_torch.gnn.convert.params_from_numpy` loads the JAX package's
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List
+from typing import List, Optional
 
 import torch
 from torch import nn
@@ -35,7 +36,7 @@ class GNNConfig:
     r: float = 0.5             # convolution coefficient (Eq. 1)
     hidden: int = 128
     mlp_layers: int = 2        # P in Table 1
-    dropout: float = 0.2       # training only; the heads here infer
+    dropout: float = 0.2       # training only (forward's `generator`)
     att_dim: int = 32          # GAMLP attention projection
 
     def input_dim(self, l: int) -> int:
@@ -78,10 +79,19 @@ class OrderClassifier(nn.Module):
                           dim=0)
         return torch.einsum("ln,lnf->nf", w, sub)
 
-    def forward(self, feats: torch.Tensor) -> torch.Tensor:
-        """Logits (N, num_classes) of f^(l) on the series feats."""
+    def forward(self, feats: torch.Tensor, *,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Logits (N, num_classes) of f^(l) on the series feats. With a
+        `generator` (training), inverted dropout at rate ``cfg.dropout``
+        before every layer, the first included, its masks drawn from that
+        generator (which must live on feats' device)."""
         x = self.combine(feats)
+        p = self.cfg.dropout
         for i, layer in enumerate(self.layers):
+            if generator is not None and p > 0:
+                keep = torch.rand(x.shape, generator=generator,
+                                  device=x.device) < 1 - p
+                x = torch.where(keep, x / (1 - p), 0.0)
             x = layer(x)
             if i < len(self.layers) - 1:
                 x = torch.relu(x)
@@ -89,13 +99,17 @@ class OrderClassifier(nn.Module):
 
 
 class Classifiers(nn.Module):
-    """The per-order heads f^(1..k); `head(l)` is f^(l)."""
+    """The per-order heads f^(1..k); `head(l)` is f^(l). `ens_s` is the
+    (C, 1) projection s of the self-attention ensemble (Eq. 5): None until
+    `train_nai`'s online stage trains it beside the heads; inference does
+    not use it."""
 
     def __init__(self, cfg: GNNConfig):
         super().__init__()
         self.cfg = cfg
         self.heads = nn.ModuleList(OrderClassifier(cfg, l)
                                    for l in range(1, cfg.k + 1))
+        self.register_parameter("ens_s", None)
 
     def head(self, l: int) -> OrderClassifier:
         return self.heads[l - 1]

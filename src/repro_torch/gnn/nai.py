@@ -218,6 +218,11 @@ def accuracy(result: NAIResult, g: Graph,
     return float((result.predictions == g.labels[nodes]).mean())
 
 
+def order_distribution(result: NAIResult, k: int) -> np.ndarray:
+    """Node count per exit order 1..k (paper Table 4)."""
+    return np.bincount(result.orders, minlength=k + 1)[1:k + 1]
+
+
 def decision_distances(cfg: GNNConfig, nai: NAIConfig, g,
                        batch_nodes: np.ndarray) -> np.ndarray:
     """(n_batch, t_max - t_min) float64: each batch node's distance to the

@@ -1,11 +1,18 @@
-"""Serving launcher of the port, LM mode: prefill a batch of synthetic
-prompts, then decode greedily, through `repro_torch.models.decoder_lm`
-(the full-sequence layers run kernels B4/B5 on the card).
+"""Serving launcher of the port (`repro.launch.serve`).
 
+  * GNN mode (the paper's scenario): train the NAI heads
+    (`repro_torch.gnn.train_nai`), then serve a stream of unseen-node
+    requests through `repro_torch.serving.NAIServingEngine`.
+  * LM mode: prefill a batch of synthetic prompts, then decode greedily,
+    through `repro_torch.models.decoder_lm` (the full-sequence layers run
+    kernels B4/B5 on the card).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --gnn pubmed-like
+    PYTHONPATH=src python -m repro_torch.launch.serve --gnn pubmed-like --requests 200 --epochs 20 --k 2 --scale 0.03 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b --tokens 64
 
-GNN mode (`--gnn`) needs the NAI trainer and waits for ROADMAP A9.
+Both modes run on ``--device cuda`` unless told otherwise.
 """
 from __future__ import annotations
 
@@ -19,6 +26,37 @@ from repro_torch.configs import ARCHS, get_config, smoke
 from repro_torch.data.tokens import synthetic_lm_batch
 from repro_torch.device import resolve_device
 from repro_torch.models import decoder_lm as M
+
+
+def serve_gnn(args) -> None:
+    from repro_torch.gnn import (DistillConfig, GNNConfig, NAIConfig,
+                                 load_dataset, train_nai)
+    from repro_torch.serving import NAIServingEngine
+    dev = resolve_device(args.device)
+    g = load_dataset(args.gnn, scale=args.scale, seed=args.seed)
+    cfg = GNNConfig("sgc", g.features.shape[1], g.num_classes, k=args.k,
+                    hidden=64, mlp_layers=2, dropout=0.1)
+    dc = DistillConfig(epochs_base=args.epochs, epochs_offline=args.epochs // 2,
+                       epochs_online=args.epochs // 2)
+    print(f"[serve-gnn] training NAI model on {args.gnn} (n={g.n})...")
+    model, _ = train_nai(cfg, g, dc, device=dev)
+    nai = NAIConfig(t_s=args.t_s, t_min=1, t_max=args.k // 2 + 1,
+                    batch_size=args.batch)
+    engine = NAIServingEngine(cfg, nai, model, g, device=dev)
+
+    rng = np.random.default_rng(args.seed)
+    n_req = min(args.requests, len(g.test_idx))
+    reqs = rng.choice(g.test_idx, size=n_req, replace=False)
+    t0 = time.perf_counter()
+    engine.submit(reqs)
+    stats = engine.run_until_drained()
+    dt = time.perf_counter() - t0
+    s = stats.summary()
+    print(f"[serve-gnn] served={s['served']} batches={s['batches']} "
+          f"in {dt:.2f}s ({1e3 * dt / max(s['served'], 1):.2f} ms/req)")
+    print(f"[serve-gnn] p50={s['p50_ms']:.1f}ms p95={s['p95_ms']:.1f}ms "
+          f"p99={s['p99_ms']:.1f}ms mean_exit_order={s['mean_exit_order']:.2f}")
+    print(f"[serve-gnn] exit histogram: {dict(sorted(stats.exit_hist.items()))}")
 
 
 def serve_lm(args) -> dict:
@@ -67,13 +105,25 @@ def serve_lm(args) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
+    ap.add_argument("--gnn", default=None)
+    ap.add_argument("--arch", default=None, choices=sorted(ARCHS))
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=1000)
     ap.add_argument("--tokens", type=int, default=32)
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--epochs", type=int, default=100)
+    ap.add_argument("--k", type=int, default=4)
+    ap.add_argument("--scale", type=float, default=0.1)
+    ap.add_argument("--t-s", type=float, default=16.0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
-    serve_lm(ap.parse_args(argv))
+    args = ap.parse_args(argv)
+    if args.gnn:
+        serve_gnn(args)
+    elif args.arch:
+        serve_lm(args)
+    else:
+        ap.error("need --gnn or --arch")
 
 
 if __name__ == "__main__":

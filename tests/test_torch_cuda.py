@@ -1,5 +1,7 @@
 """The CUDA kernels B1-B5 on the card, against their plain PyTorch
-versions, and the port's engine end to end on the card. Marked `cuda`;
+versions, the port's engine end to end on the card, and training on the
+card (AdamW steps against the CPU's at rtol 1e-4, TF32 off; `train_nai`
+with CUDA-generator dropout, its heads served). Marked `cuda`;
 each test skips (from its fixture) where no GPU is present. Run on a GPU
 machine with
 
@@ -530,3 +532,91 @@ def test_wkv6_heads_unpadded_on_card(cuda, T):
     assert out.shape == (B, T, H, hd) and state.shape == (B, H, hd, hd)
     torch.testing.assert_close(out.cpu(), r_out, rtol=1e-4, atol=1e-3)
     torch.testing.assert_close(state.cpu(), r_state, rtol=1e-4, atol=1e-3)
+
+
+def test_training_steps_on_card_match_cpu(cuda):
+    """20 AdamW steps of the base loss (dropout 0) on the card and on the
+    CPU from the same heads: losses within 1e-4 relative (TF32 off), test
+    predictions equal on >= 99% of nodes."""
+    from repro_torch.core.inception_distill import hard_ce
+    from repro_torch.gnn.distill import DistillConfig, _fit, _tc
+    from repro_torch.gnn.graph import propagated_series
+    g = load_dataset("pubmed-like", scale=0.1, seed=0)
+    cfg = GNNConfig("sgc", g.features.shape[1], g.num_classes, k=4,
+                    hidden=64, mlp_layers=2, dropout=0.0)
+    series = np.stack(propagated_series(g.train_subgraph(), g.features,
+                                        cfg.k))
+    full = torch.from_numpy(np.stack(propagated_series(g, g.features,
+                                                       cfg.k))[:, g.test_idx])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        head = init_classifiers(cfg, torch.Generator().manual_seed(0),
+                                device=dev).head(cfg.k)
+        fv = torch.from_numpy(series[:, g.train_idx]).to(dev)
+        y = torch.from_numpy(g.labels[g.train_idx]).long().to(dev)
+        hist = []
+
+        def loss_fn(h, rng):
+            loss = hard_ce(h(fv, generator=rng), y)
+            hist.append(loss.detach())
+            return loss
+
+        _fit(loss_fn, head, 20, _tc(DistillConfig()),
+             torch.Generator(dev).manual_seed(0))
+        with torch.no_grad():
+            pred = head(full.to(dev)).argmax(-1).cpu().numpy()
+        out[dev.type] = (np.array([float(v) for v in hist]), pred)
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    assert (out["cuda"][1] == out["cpu"][1]).mean() >= 0.99
+
+
+def test_train_nai_on_card(cuda):
+    """train_nai on the card, with dropout masks from a CUDA generator:
+    finite losses, every order far above chance, and the trained heads
+    serve through the compiled engine."""
+    from repro_torch.gnn import (DistillConfig, evaluate_classifier,
+                                 train_nai)
+    from repro_torch.gnn.graph import propagated_series
+    g = load_dataset("pubmed-like", scale=0.1, seed=0)
+    cfg = GNNConfig("sgc", g.features.shape[1], g.num_classes, k=4,
+                    hidden=64, mlp_layers=2, dropout=0.1)
+    model, info = train_nai(cfg, g, DistillConfig(
+        epochs_base=60, epochs_offline=30, epochs_online=30), device=cuda)
+    assert next(model.parameters()).device.type == "cuda"
+    assert all(np.isfinite(v) for v in info.values())
+    series = np.stack(propagated_series(g, g.features, cfg.k))
+    for l in range(1, cfg.k + 1):
+        acc = evaluate_classifier(cfg, model, series, g.labels, g.test_idx,
+                                  l)
+        assert acc > 1.5 / cfg.num_classes, (l, acc)
+    nai = NAIConfig(t_s=20.0, t_min=1, t_max=3, batch_size=100)
+    eng = NAIServingEngine(cfg, nai, model, g, device=cuda, mode="compiled",
+                           spmm_impl="fused", max_wait_s=10.0)
+    eng.submit(g.test_idx[:200])
+    stats = eng.run_until_drained()
+    assert stats.served == 200 and stats.failed == 0
+
+
+def test_spmm_ops_on_card(cuda):
+    """`kernels/spmm/ops.spmm` launches B1 on CUDA tensors and equals its
+    plain version on the CPU."""
+    from repro_torch.kernels.spmm import (active_blocks_from_nodes,
+                                          build_block_ell, pad_features,
+                                          spmm)
+    rng = np.random.default_rng(0)
+    n, E = 700, 4000
+    src = rng.integers(0, n, E).astype(np.int32)
+    dst = rng.integers(0, n, E).astype(np.int32)
+    uk = np.unique(dst.astype(np.int64) * n + src)
+    dst, src = (uk // n).astype(np.int32), (uk % n).astype(np.int32)
+    ell = build_block_ell(src, dst, rng.random(len(src)).astype(np.float32),
+                          n)
+    x = torch.from_numpy(pad_features(
+        rng.standard_normal((n, 300)).astype(np.float32), ell.n_pad))
+    active = active_blocks_from_nodes(torch.from_numpy(rng.random(n) < 0.5),
+                                      ell.n_pad)
+    before = spmm_block_ell.launches
+    got = spmm(ell, x.to(cuda), active.to(cuda))
+    assert spmm_block_ell.launches == before + 1
+    torch.testing.assert_close(got.cpu(), spmm(ell, x, active), **TOL)

@@ -24,13 +24,15 @@ import torch
 from repro.kernels.nap_exit import nap_exit as j_nap_exit
 from repro.kernels.nap_step import fused_step as j_fused_step
 from repro.kernels.nap_step import two_launch_step as j_two_launch
-from repro.kernels.spmm import build_block_ell, pad_features
+from repro.kernels.spmm import build_block_ell as j_build_block_ell
+from repro.kernels.spmm import pad_features as j_pad_features
 from repro.kernels.spmm import spmm_block_ell as j_spmm
 
 from repro_torch.kernels.nap_exit import nap_exit, ref_nap_exit
 from repro_torch.kernels.nap_step import (fused_step, nap_step_fused,
                                           ref_nap_step, two_launch_step)
-from repro_torch.kernels.spmm import (CB, RB, SLAB, nonfinite_blocks,
+from repro_torch.kernels.spmm import (CB, RB, SLAB, build_block_ell,
+                                      nonfinite_blocks, pad_features,
                                       ref_spmm_block_ell, spmm_block_ell)
 
 torch.set_num_threads(1)
@@ -50,14 +52,31 @@ def _random_graph(rng, n, deg):
     return src, dst, rng.random(len(src)).astype(np.float32)
 
 
+def _convert(src, dst, coef, n, x):
+    """Block-ELL operands of the edge list and the padded x, from the
+    port's converter (the port's side) and from the JAX package's (the
+    oracle's side, with x under "x"; the port's x under "x_port")."""
+    ell, jell = (build_block_ell(src, dst, coef, n),
+                 j_build_block_ell(src, dst, coef, n))
+    return ell, dict(tiles=jell.tiles, tile_col=jell.tile_col,
+                     valid=jell.valid, x=j_pad_features(x, jell.n_pad),
+                     x_port=pad_features(x, ell.n_pad))
+
+
+def _jax(o, keys):
+    """The JAX side's operands: its own converter's arrays where it has
+    them, the shared ones otherwise."""
+    return [jnp.asarray(o["jax"].get(k, o[k])) for k in keys]
+
+
 def _operands(seed, frac_active, frac_nodes, n=192, deg=5, f=200, nb=32):
     """Numpy operands shared by both packages: block-ELL tiles of a
     random graph, two feature blocks, rank-1 factors, masks."""
     rng = np.random.default_rng(seed)
     src, dst, coef = _random_graph(rng, n, deg)
-    ell = build_block_ell(src, dst, coef, n)
-    x = pad_features(rng.standard_normal((n, f)).astype(np.float32),
-                     ell.n_pad)
+    ell, jax_ops = _convert(src, dst, coef, n,
+                            rng.standard_normal((n, f)).astype(np.float32))
+    x = jax_ops.pop("x_port")
     f_pad = x.shape[1]
     c = rng.random(nb).astype(np.float32) + 0.1
     s = np.pad(rng.standard_normal(f).astype(np.float32), (0, f_pad - f))
@@ -66,7 +85,7 @@ def _operands(seed, frac_active, frac_nodes, n=192, deg=5, f=200, nb=32):
     active[:nb // RB] = 1
     nact = (rng.random(nb) < frac_nodes).astype(np.int32)[:, None]
     return dict(tiles=ell.tiles, tile_col=ell.tile_col, valid=ell.valid,
-                active=active, x=x, c=c, s=s, nact=nact)
+                active=active, x=x, c=c, s=s, nact=nact, jax=jax_ops)
 
 
 CASES = [(0, 1.0, 1.0), (1, 0.6, 0.5), (2, 1.0, 0.0), (3, 0.3, 1.0)]
@@ -83,11 +102,8 @@ def _far_from_threshold(dist2, ts2):
 @pytest.mark.parametrize("seed,frac_active,frac_nodes", CASES)
 def test_spmm_plain_matches_pallas(seed, frac_active, frac_nodes):
     o = _operands(seed, frac_active, frac_nodes)
-    want = np.asarray(j_spmm(jnp.asarray(o["tiles"]),
-                             jnp.asarray(o["tile_col"]),
-                             jnp.asarray(o["valid"]),
-                             jnp.asarray(o["active"]), jnp.asarray(o["x"]),
-                             interpret=True))
+    want = np.asarray(j_spmm(*_jax(o, ("tiles", "tile_col", "valid",
+                                       "active", "x")), interpret=True))
     args = [_t(o[k]) for k in ("tiles", "tile_col", "valid", "active", "x")]
     got = spmm_block_ell(*args)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
@@ -104,7 +120,8 @@ def test_nap_exit_plain_matches_pallas(seed, frac_nodes):
     nb = len(o["c"])
     x = o["x"][:nb]
     x_inf = o["c"][:, None] * o["s"][None, :]
-    jd, je, jb = j_nap_exit(jnp.asarray(x), jnp.asarray(x_inf),
+    jd, je, jb = j_nap_exit(jnp.asarray(o["jax"]["x"][:nb]),
+                            jnp.asarray(x_inf),
                             jnp.asarray(o["nact"]), T_S, interpret=True)
     ts2 = float(np.float32(T_S * T_S))
     td, te, tb = nap_exit(_t(x), _t(x_inf), _t(o["nact"]), ts2)
@@ -123,7 +140,7 @@ def test_nap_step_plain_matches_pallas(seed, frac_active, frac_nodes):
     four agree on every output, flags exactly."""
     o = _operands(seed, frac_active, frac_nodes)
     keys = ("tiles", "tile_col", "valid", "active", "x", "c", "s", "nact")
-    jargs = [jnp.asarray(o[k]) for k in keys]
+    jargs = _jax(o, keys)
     targs = [_t(o[k]) for k in keys]
     j_f = j_fused_step(*jargs, T_S, interpret=True)
     j_t = j_two_launch(*jargs, T_S, interpret=True)
@@ -211,11 +228,12 @@ def _nonfinite_operands(seed, behind, frac_active=0.8, n=300, deg=4, f=200,
     rows = rng.choice(np.arange(nb, n), 3, replace=False)
     if behind == "zero":
         coef[np.isin(src, rows)] = 0.0
-    ell = build_block_ell(src, dst, coef, n)
-    x = pad_features(rng.integers(-3, 4, (n, f)).astype(np.float32),
-                     ell.n_pad)
+    ell, jax_ops = _convert(src, dst, coef, n,
+                            rng.integers(-3, 4, (n, f)).astype(np.float32))
+    x = jax_ops.pop("x_port")
     for row, val in zip(rows, PLANTS.values()):
-        x[row, rng.choice(f, 5, replace=False)] = val
+        cols = rng.choice(f, 5, replace=False)
+        x[row, cols] = jax_ops["x"][row, cols] = val
     f_pad = x.shape[1]
     c = rng.choice(np.float32([0.5, 1.0, 2.0]), nb)
     s = np.pad(rng.integers(-1, 2, f).astype(np.float32), (0, f_pad - f))
@@ -226,7 +244,7 @@ def _nonfinite_operands(seed, behind, frac_active=0.8, n=300, deg=4, f=200,
     named = np.isin(np.arange(ell.n_pad), src[coef != 0])
     assert (named[rows] == (behind == "nonzero")).all()
     return dict(tiles=ell.tiles, tile_col=ell.tile_col, valid=ell.valid,
-                active=active, x=x, c=c, s=s, nact=nact), rows
+                active=active, x=x, c=c, s=s, nact=nact, jax=jax_ops), rows
 
 
 @pytest.mark.parametrize("behind", ["zero", "nonzero"])
@@ -237,8 +255,7 @@ def test_spmm_nonfinite_matches_pallas(seed, behind):
     the output."""
     o, rows = _nonfinite_operands(seed, behind)
     keys = ("tiles", "tile_col", "valid", "active", "x")
-    want = np.asarray(j_spmm(*[jnp.asarray(o[k]) for k in keys],
-                             interpret=True))
+    want = np.asarray(j_spmm(*_jax(o, keys), interpret=True))
     args = [_t(o[k]) for k in keys]
     got = ref_spmm_block_ell(*args).numpy()
     np.testing.assert_array_equal(got, want)
@@ -254,8 +271,7 @@ def test_nap_step_nonfinite_matches_pallas(behind):
     that reach a NaN never exit."""
     o, _ = _nonfinite_operands(2, behind)
     keys = ("tiles", "tile_col", "valid", "active", "x", "c", "s", "nact")
-    j_f = j_fused_step(*[jnp.asarray(o[k]) for k in keys], T_S,
-                       interpret=True)
+    j_f = j_fused_step(*_jax(o, keys), T_S, interpret=True)
     targs = [_t(o[k]) for k in keys]
     ts2 = float(np.float32(T_S * T_S))
     for got in (ref_nap_step(*targs, ts2), fused_step(*targs, T_S),

@@ -1,0 +1,40 @@
+"""The port's GNN launchers run end to end on the CPU (`--device cpu`) in
+a fresh interpreter at a tiny size, as tests/test_launchers.py runs the
+JAX package's, and print the reference's lines."""
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(args, timeout=300):
+    env = dict(os.environ, PYTHONPATH="src", OMP_NUM_THREADS="2")
+    return subprocess.run([sys.executable, "-m"] + args, cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_train_gnn_cli():
+    out = _run(["repro_torch.launch.train", "--gnn", "pubmed-like", "--k",
+                "2", "--scale", "0.03", "--epochs", "20", "--device", "cpu"])
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("[train-gnn] pubmed-like n=591 ")
+    assert "'base_loss'" in lines[1] and "'online_loss'" in lines[1]
+    assert "NAI acc=" in lines[2] and "fp_macs/node=" in lines[2]
+
+
+def test_serve_gnn_cli():
+    out = _run(["repro_torch.launch.serve", "--gnn", "pubmed-like",
+                "--requests", "200", "--epochs", "20", "--k", "2",
+                "--scale", "0.03", "--device", "cpu"])
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "[serve-gnn] training NAI model on pubmed-like" in out.stdout
+    assert "served=118 " in out.stdout       # the 118 test nodes at 0.03
+    assert "p50=" in out.stdout and "exit histogram" in out.stdout
+
+
+def test_train_lm_waits_for_a10_5():
+    out = _run(["repro_torch.launch.train", "--arch", "rwkv6-3b"])
+    assert out.returncode != 0
+    assert "NotImplementedError" in out.stderr and "A10.5" in out.stderr

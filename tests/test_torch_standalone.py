@@ -11,9 +11,9 @@ import pytest
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.gnn import (GNNConfig, NAIConfig, init_classifiers,
-                             load_dataset, make_compiled_infer,
-                             run_propagation)
+from repro_torch.gnn import (DistillConfig, GNNConfig, NAIConfig,
+                             init_classifiers, load_dataset,
+                             make_compiled_infer, run_propagation, train_nai)
 from repro_torch.gnn.backends import get_backend
 from repro_torch.gnn.convert import params_from_numpy
 from repro_torch.serving import NAIServingEngine
@@ -44,18 +44,25 @@ def test_port_imports_neither_jax_nor_repro(path):
 def test_import_scan_sees_the_whole_port():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "backends.py", "chip_smoke.py", "kernel.py",
-            "store.py", "propcache.py", "ops.py"} <= names
+            "store.py", "propcache.py", "ops.py", "distill.py",
+            "baselines.py", "adamw.py", "inception_distill.py",
+            "train.py"} <= names
 
 
 def test_port_modules_load_no_jax_at_run_time():
     """Imported in a fresh interpreter, the serving path (store, cache,
-    sampler, packing, loop, engine, kernel wrappers) and the store's
-    generator program pull in no module of JAX or of the JAX package."""
+    sampler, packing, loop, engine, kernel wrappers), the store's
+    generator program, the trainer (optimizer, losses, distillation,
+    baselines) and both launchers pull in no module of JAX or of the JAX
+    package."""
     import subprocess
     import sys
     code = ("import sys; import repro_torch.gnn, repro_torch.serving, "
             "repro_torch.gnn.store, repro_torch.gnn.propcache, "
-            "repro_torch.kernels.nap_exit.ops; "
+            "repro_torch.kernels.nap_exit.ops, repro_torch.optim, "
+            "repro_torch.core.inception_distill, repro_torch.gnn.distill, "
+            "repro_torch.gnn.baselines, repro_torch.kernels.spmm.ops, "
+            "repro_torch.launch.serve, repro_torch.launch.train; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
@@ -106,6 +113,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
             cfg, nai, heads, g, mode="compiled", spmm_impl="fused", **kw),
         "NAIServingEngine(cached)": lambda **kw: NAIServingEngine(
             cfg, nai, heads, g, mode="compiled", cache_nodes=64, **kw),
+        "train_nai": lambda **kw: train_nai(cfg, g, DistillConfig(
+            epochs_base=1, epochs_offline=1, epochs_online=1), **kw),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -113,7 +122,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
     # the same entry points build on the CPU when asked to
     for name in ("init_classifiers", "params_from_numpy",
                  "make_compiled_infer", "NAIServingEngine(host)",
-                 "NAIServingEngine(compiled)", "NAIServingEngine(cached)"):
+                 "NAIServingEngine(compiled)", "NAIServingEngine(cached)",
+                 "train_nai"):
         calls[name](device="cpu")
 
 
@@ -126,9 +136,10 @@ def test_kernel_wrappers_refuse_mixed_devices():
 
 
 def test_lm_entry_points_default_to_cuda(monkeypatch):
-    """The LM path's entry points ask for CUDA unless told otherwise."""
+    """The LM path's entry points and both launchers (LM and GNN modes)
+    ask for CUDA unless told otherwise."""
     from repro_torch.configs import ARCHS, smoke
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import decoder_lm as M
     from repro_torch.models.convert import lm_params_from_numpy
     from repro_torch.serving import LMServingEngine
@@ -142,6 +153,8 @@ def test_lm_entry_points_default_to_cuda(monkeypatch):
         "lm_params_from_numpy": lambda: lm_params_from_numpy(cfg, {}),
         "LMServingEngine": lambda: LMServingEngine(cfg, model),
         "serve": lambda: serve.main(["--arch", "rwkv6-3b", "--smoke"]),
+        "serve --gnn": lambda: serve.main(["--gnn", "pubmed-like"]),
+        "train --gnn": lambda: train.main(["--gnn", "pubmed-like"]),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
