@@ -17,25 +17,51 @@ fails (non-zero exit, no result line) on any failed check:
    in rows that non-zero ones name (`nonfinite_phase`); then 2,000 requests
    through `NAIServingEngine(mode="compiled")` for each backend (fused,
    block_ell, segment) at pipeline depth 2, after one warm pass, held
-   against the port's host-mode engine; then three more NAI phases, each
+   against the port's host-mode engine; then six more NAI phases, each
    with the launch counters zeroed before it and read after it:
    - store: the graph saved with `save_graph_store`, `MmapStore.verify()`
      checking every array, a copy with one flipped byte raising
      `StoreCorruption`, and the 2,000 requests served from the
      `MmapStore` through fused and block_ell, equal to the in-memory
      passes exactly;
+   - faults (`faults_phase`): 8 batches of 500 test-split requests on
+     fused at depth 2 with the watchdog armed (1 s) and one seeded
+     `FaultPlan` (host, device, nan, slow and hang faults at fixed
+     batches): every request ends exactly once, exactly the named batches
+     fail with their typed errors, the others bitwise equal to a
+     fault-free run, the hang declared within the watchdog plus 0.1 s;
+     with `retry_failed` the failed batches complete on the host path,
+     equal to the host-mode engine; a `FaultyStore` over the store
+     phase's `MmapStore` with a `store_read` fault fails only its batch
+     on block_ell;
    - scale: a 1e6-node power-law store made by `make_graph` (256
      features, 1.02 GB) in a process of its own, 32 batches of 64
      uniform ids served from it on fused (after a warm pass) and on
      block_ell, which must agree exactly; generation seconds, req/s, host
      ms per batch, B2's launches and the peak RSS beside the feature
      bytes;
+   - offline (`offline_phase`): `run_full_graph_infer` over the whole
+     pubmed-like graph (T_s the median first-step distance, T_max 3) on
+     block_ell, fused and segment: equal to `make_compiled_infer` on the
+     same pack, a run killed after superstep 1 and resumed equal to the
+     uninterrupted one (bitwise on the tile backends, outside the margin
+     on segment), a flipped byte in a step falling back one superstep,
+     B1-B3 launched once per superstep; then the scale phase's 1e6-node
+     store on segment (one run; the tile bytes its graph would need),
+     each with pack, superstep, checkpoint and classification seconds;
    - cache: 1,024 Zipf(1.0) requests over the test split in batches of
      64 through every backend with the propagated-feature cache on
      (4,096 nodes) and off, and a no-hit control (fills off): cached ==
      cold outside the margin, hits, fewer rows packed than sampled,
      fused == block_ell exactly, no pack allocation in the steady pass,
      and the same after a mutation round that stales cached entries;
+   - frontend (`frontend_phase`): `default_slo_classes` (gold at T_max 3,
+     best_effort at T_max 1) on fused: a virtual-clock replay of a bursty
+     stream (pipelined == serial == direct per-class engines, no pack
+     allocation in the steady pass), a wall-clock open loop at 0.5x and
+     2x the serve phase's fused req/s (per-class goodput, shed, p50, p99,
+     conservation), and a breaker trip (a `device` fault plan on gold
+     demotes it to best_effort; the breaker closes after its cooldown);
 4. LM serving (`lm_phases`) at full width and depth in bf16 with random
    weights from `torch.Generator("cuda").manual_seed(0)`, with the
    rwkv mixes mu_* drawn from U(0, 1) and the attention projections
@@ -693,10 +719,14 @@ def gnn_phases(torch, dev, kernels):
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
-        store_phase(torch, dev, kernels, g, cfg, nai, heads, requests,
-                    results, tmp)
-        scale_phase(torch, dev, kernels, tmp)
+        store_path = store_phase(torch, dev, kernels, g, cfg, nai, heads,
+                                 requests, results, tmp)
+        faults_phase(torch, dev, kernels, g, cfg, nai, heads, store_path)
+        scale_path = scale_phase(torch, dev, kernels, tmp)
+        offline_phase(torch, dev, kernels, g, cfg, heads, scale_path, tmp)
     cache_phase(torch, dev, kernels, g, cfg, heads)
+    frontend_phase(torch, dev, kernels, g, cfg, nai, heads,
+                   len(requests) / results["fused"][2])
     return rows, lambda: train_phase(
         torch, dev, kernels, g, dataclasses.replace(cfg, dropout=0.1), nai,
         requests, dist)
@@ -764,6 +794,7 @@ def store_phase(torch, dev, kernels, g, cfg, nai, heads, requests, results,
           and launches["nap_exit"] > 0, "the store phase launched B1-B3")
     ms.close()
     print(f"store phase {time.perf_counter() - t_phase:.1f} s")
+    return path
 
 
 def _rss_bytes() -> int:
@@ -864,6 +895,7 @@ def scale_phase(torch, dev, kernels, tmp, n: int = 1_000_000):
     gc.collect()
     torch.cuda.empty_cache()
     print(f"scale phase {time.perf_counter() - t_phase:.1f} s")
+    return path
 
 
 def cache_phase(torch, dev, kernels, g, cfg, heads):
@@ -966,6 +998,523 @@ def cache_phase(torch, dev, kernels, g, cfg, heads):
     del engines
     gc.collect()
     torch.cuda.empty_cache()
+
+def faults_phase(torch, dev, kernels, g, cfg, nai, heads, store_path):
+    """Failure-domain isolation at the full pubmed-like size: 8 batches of
+    500 test-split requests through `fused` at depth 2 with the watchdog
+    armed and one seeded `FaultPlan` (host, device, nan, slow and hang
+    faults at fixed batches): conservation, exactly the named batches
+    failed with their typed errors, every other batch bitwise equal to a
+    fault-free run, the hang declared within the watchdog plus its slack;
+    the same plan with `retry_failed` (the failed batches completed on the
+    host path, equal to the host-mode engine's); then a `FaultyStore`
+    over the store phase's `MmapStore` with a `store_read` fault on
+    `block_ell`, failing only its batch."""
+    from repro_torch.gnn import MmapStore
+    from repro_torch.serving import (FaultPlan, FaultSpec, FaultyStore,
+                                     NAIServingEngine)
+    phase("faults")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(17)
+    batches = [rng.choice(g.test_idx, size=nai.batch_size, replace=False)
+               for _ in range(8)]
+    watchdog_s, slack_s = 1.0, 0.1
+    # event counters tick per stage: host and slow once per batch, device
+    # once per batch past the host stage, nan once per dispatched batch,
+    # hang once per dispatched batch nan left alone; so these indices put
+    # the faults on batches 1 (host), 3 (device), 5 (nan), 6 (slow) and 7
+    # (hang, the last: flush() meets it before its deadline)
+    plan = FaultPlan([FaultSpec("host", at=(1,)),
+                      FaultSpec("device", at=(2,)),
+                      FaultSpec("nan", at=(3,)),
+                      FaultSpec("slow", at=(6,), delay_s=0.3),
+                      FaultSpec("hang", at=(4,))], seed=17)
+    named = {1: "InjectedFault", 3: "InjectedFault", 5: "NaNGuardError",
+             7: "WatchdogTimeout"}
+    kw = dict(device=dev, mode="compiled", pipeline_depth=2,
+              max_wait_s=10.0)
+    print(f"{len(batches)} batches of {nai.batch_size} test-split requests;"
+          f" {plan}; watchdog {watchdog_s} s (slack {slack_s} s)")
+
+    def run(eng, bs, hung=None):
+        """Serve `bs` one batch per step; returns (requests per batch,
+        terminal requests, wall seconds, dispatch time of batch `hung`)."""
+        eng.reset_stats()
+        t0 = time.perf_counter()
+        per_batch, done, t_hung = [], [], None
+        for i, b in enumerate(bs):
+            eng.submit(b)
+            per_batch.append(list(eng.queue))
+            done += eng.step()
+            if i == hung:
+                t_hung = eng._inflight[-1].t_submit
+        done += eng.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ids = [id(r) for r in done]
+        check(len(ids) == len(set(ids)) and set(ids) == {
+            id(r) for rs in per_batch for r in rs}
+            and eng.stats.served + eng.stats.failed == len(ids),
+            "faults: every accepted request ended exactly once")
+        return per_batch, done, wall, t_hung
+
+    def outcome(rs):
+        return (np.array([r.prediction for r in rs]),
+                np.array([r.exit_order for r in rs]))
+
+    zero_counts(kernels)
+    clean_eng = NAIServingEngine(cfg, nai, heads, g, spmm_impl="fused",
+                                 **kw)
+    run(clean_eng, batches)                       # warm: pools pinned
+    clean, _, wall, _ = run(clean_eng, batches)
+    print(f"fault-free fused: {len(batches) * nai.batch_size / wall:.1f} "
+          f"req/s")
+    del clean_eng
+    eng = NAIServingEngine(cfg, nai, heads, g, spmm_impl="fused",
+                           faults=plan, watchdog_s=watchdog_s, **kw)
+    got, done, wall, t_hung = run(eng, batches, hung=7)
+    for i, rs in enumerate(got):
+        if i in named:
+            errs = {r.error.split(":")[0] for r in rs}
+            check(all(r.status == "failed" for r in rs)
+                  and errs == {named[i]},
+                  f"faults: batch {i} failed with {named[i]} ({errs})")
+        else:
+            check(all(r.status == "completed" for r in rs)
+                  and all(np.array_equal(a, b) for a, b in
+                          zip(outcome(rs), outcome(clean[i]))),
+                  f"faults: batch {i} completed, bitwise equal to the "
+                  f"fault-free run")
+    lat = [r.done_s - t_hung for r in got[7]]
+    check(watchdog_s <= min(lat) and max(lat) <= watchdog_s + slack_s,
+          f"faults: hang declared {min(lat):.4f}-{max(lat):.4f} s after "
+          f"dispatch (watchdog {watchdog_s} s + slack {slack_s} s)")
+    print(f"faulted fused: {wall:.2f} s for {len(done)} requests, failed "
+          f"{eng.stats.failed} in batches {sorted(named)}; hang declared "
+          f"{max(lat):.4f} s after dispatch; fault_stats {eng.fault_stats}")
+    del eng
+    retry = NAIServingEngine(cfg, nai, heads, g, spmm_impl="fused",
+                             faults=plan, watchdog_s=watchdog_s,
+                             retry_failed=True, **kw)
+    got, _, wall, _ = run(retry, batches)
+    host = NAIServingEngine(cfg, nai, heads, g, device=dev, mode="host",
+                            max_wait_s=10.0)
+    t0 = time.perf_counter()
+    for i, rs in enumerate(got):
+        want = clean[i]
+        if i in named:
+            check(all(r.retried for r in rs),
+                  f"faults: batch {i} completed on the host path")
+            want, _, _, _ = run(host, [batches[i]])
+            want = want[0]
+        check(all(r.status == "completed" for r in rs)
+              and all(np.array_equal(a, b) for a, b in
+                      zip(outcome(rs), outcome(want))),
+              f"faults: retry_failed batch {i} equal to "
+              f"{'the host-mode engine' if i in named else 'fault-free'}")
+    print(f"retry_failed: every request completed ({retry.stats.retried} "
+          f"on the host path, {wall:.2f} s; host-mode engine on the "
+          f"failed batches {time.perf_counter() - t0:.2f} s), equal to the "
+          f"host-mode engine on those batches")
+    del retry, host
+    store = FaultyStore(MmapStore(store_path), FaultPlan(
+        [FaultSpec("store_read", at=(1,))], seed=17).injector())
+    feng = NAIServingEngine(cfg, nai, heads, store, spmm_impl="block_ell",
+                            **kw)
+    got, _, wall, _ = run(feng, batches[:4])
+    for i, rs in enumerate(got):
+        if i == 1:
+            check(all(r.status == "failed" and
+                      r.error.startswith("StoreIOError") for r in rs),
+                  "faults: the store_read batch failed with StoreIOError")
+        else:
+            check(all(r.status == "completed" for r in rs)
+                  and all(np.array_equal(a, b) for a, b in
+                          zip(outcome(rs), outcome(clean[i]))),
+                  f"faults: FaultyStore batch {i} equal to the fault-free "
+                  f"run")
+    print(f"FaultyStore over the MmapStore, block_ell: batch 1 failed "
+          f"(StoreIOError), batches 0, 2, 3 equal to the fault-free run; "
+          f"{wall:.2f} s; {store.injector.summary()}")
+    feng.close()
+    del feng
+    launches = launch_counts(kernels)
+    print(f"faults phase launches {launches}")
+    check(launches["nap_step_fused"] > 0 and launches["spmm_block_ell"] > 0
+          and launches["nap_exit"] > 0, "the faults phase launched B1-B3")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"faults phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def _full_graph_near(torch, store, r, t_s, t_min, t_max):
+    """Bool per node: does a decision-step d² under full-graph propagation
+    (float64, on the CPU) lie within D2_MARGIN of t_s²?"""
+    from repro_torch.gnn.distributed import graph_as_support
+    from repro_torch.gnn.nai import support_stationary_factors
+    sup = graph_as_support(store, r)
+    x0 = np.asarray(store.features, np.float32)
+    c, s = support_stationary_factors(store, sup, x0, r)
+    x_inf = torch.from_numpy(c[:, None] * s[None, :])
+    x = torch.from_numpy(x0).double()
+    src = torch.from_numpy(sup.src).long()
+    dst = torch.from_numpy(sup.dst).long()
+    coef = torch.from_numpy(sup.coef).double()[:, None]
+    ts2 = float(np.float32(t_s) ** 2)
+    near = np.zeros(store.n, bool)
+    for l in range(1, t_max):
+        x = torch.zeros_like(x).index_add_(0, dst, coef * x[src])
+        if l >= t_min:
+            d2 = ((x - x_inf) ** 2).sum(1).numpy()
+            near |= np.abs(d2 - ts2) <= D2_MARGIN * ts2
+    return near
+
+
+def offline_phase(torch, dev, kernels, g, cfg, heads, scale_path, tmp):
+    """Checkpointed full-graph inference (`run_full_graph_infer`) over the
+    whole pubmed-like graph on block_ell, fused and segment (T_s the
+    median first-step distance, T_max 3): each equal to the port's
+    serving path (`make_compiled_infer`) on the same pack, a run killed
+    after superstep 1 and resumed equal to the uninterrupted one (bitwise
+    on the tile backends, outside the margin on segment), a corrupted
+    step falling back one superstep; then the scale phase's 1e6-node
+    store on segment, one run with its times and the tile bytes the tile
+    backends would need."""
+    import shutil
+    from repro_torch.gnn import GNNConfig, MmapStore, NAIConfig
+    from repro_torch.gnn import init_classifiers
+    from repro_torch.gnn.backends import pack_operands
+    from repro_torch.gnn.distributed import pack_graph
+    from repro_torch.gnn.nai import make_compiled_infer
+    from repro_torch.gnn.packing import batch_bucket, step_active_blocks
+    from repro_torch.gnn.store import as_store
+    from repro_torch.kernels.spmm import CB, RB
+    from repro_torch.launch.full_graph_infer import (
+        OfflineConfig, PreemptionSimulated, first_step_distance_quantile,
+        run_full_graph_infer)
+    phase("offline")
+    t_phase = time.perf_counter()
+    store = as_store(g)
+    t_s = first_step_distance_quantile(store, cfg.r, 0.5)
+    nai = NAIConfig(t_s=t_s, t_min=1, t_max=3)
+    near = _full_graph_near(torch, store, cfg.r, t_s, nai.t_min, nai.t_max)
+    check(near.mean() <= MAX_NEAR_SHARE, f"offline: {near.sum()} nodes "
+          f"within the threshold margin")
+    print(f"{g.name}: all {store.n} nodes; T_s {t_s:.6f} (median "
+          f"first-step distance); {nai}; nodes within the margin "
+          f"{int(near.sum())}")
+
+    def run(impl, ck, **kw):
+        return run_full_graph_infer(store, cfg, heads, nai, OfflineConfig(
+            ckpt_dir=str(Path(tmp) / ck), spmm_impl=impl, device=str(dev),
+            watchdog_s=10.0, **kw))
+
+    def equal(a, b, impl):
+        pa, oa = a
+        pb, ob = b
+        keep = ~near if impl == "segment" else np.ones(len(pa), bool)
+        return (np.array_equal(pa[keep], pb[keep])
+                and np.array_equal(oa[keep], ob[keep]))
+
+    def times(st):
+        return (f"pack {st['pack_s']:.3f} s, {st['supersteps_run']} "
+                f"supersteps {st['compute_s']:.4f} s "
+                f"({st['compute_s'] / max(st['supersteps_run'], 1):.4f} s "
+                f"each) + to host {st['to_host_s']:.3f} s, checkpoints "
+                f"{st['ckpt_s']:.3f} s / {st['ckpt_bytes']} bytes, classify "
+                f"{st['classify_s']:.3f} s, total {st['total_s']:.3f} s, "
+                f"{st['nodes_per_s']:.1f} nodes/s")
+
+    results = {}
+    for impl in ("block_ell", "fused", "segment"):
+        zero_counts(kernels)
+        res = run(impl, f"off-{impl}")
+        launches = launch_counts(kernels)
+        results[impl] = res
+        st = res.stats
+        print(f"offline {impl}: {times(st)}; exit histogram "
+              f"{st['exit_histogram']}; launches {launches}")
+        if impl == "fused":
+            check(launches["nap_step_fused"] == nai.t_max,
+                  "offline fused launched B2 once per superstep")
+        elif impl == "block_ell":
+            check(launches["spmm_block_ell"] == nai.t_max
+                  and launches["nap_exit"] == nai.t_max,
+                  "offline block_ell launched B1 and B3 once per superstep")
+        else:
+            check(all(v == 0 for v in launches.values()),
+                  "offline segment launched no block-ELL kernel")
+        be, packed = pack_graph(store, 1, cfg.r, impl, stationary=True)
+        sa = (step_active_blocks(packed.hop_rb, nai.t_max)
+              if be.uses_tiles else None)
+        oracle = make_compiled_infer(cfg, nai, spmm_impl=impl, device=dev)
+        preds, eo = oracle(heads, pack_operands(be, packed, sa),
+                           torch.from_numpy(packed.x0),
+                           torch.from_numpy(packed.x_inf))
+        want = (preds.cpu().numpy()[:store.n], eo.cpu().numpy()[:store.n])
+        del oracle, packed, preds, eo
+        got = (res.predictions, res.exit_orders)
+        check(equal(got, want, impl), f"offline {impl} == make_compiled_"
+              f"infer on the same pack ({'outside the margin' if impl == 'segment' else 'bitwise'})")
+        ck = f"off-{impl}-kill"
+        try:
+            run(impl, ck, crash_after=1)
+            check(False, "offline: crash_after=1 preempted the run")
+        except PreemptionSimulated:
+            pass
+        res2 = run(impl, ck)
+        check(res2.stats["resumed_from"] == 1
+              and res2.stats["supersteps_run"] == nai.t_max - 1
+              and equal((res2.predictions, res2.exit_orders), got, impl),
+              f"offline {impl}: killed after superstep 1 and resumed == "
+              f"uninterrupted")
+        print(f"offline {impl}: == make_compiled_infer; killed after "
+              f"superstep 1 and resumed == uninterrupted ("
+              f"{times(res2.stats)})")
+        shutil.rmtree(Path(tmp) / ck)
+    # a flipped byte in the newest step: resume falls back one superstep
+    ck = Path(tmp) / "off-corrupt"
+    try:
+        run("fused", ck.name, crash_after=2)
+        check(False, "offline: crash_after=2 preempted the run")
+    except PreemptionSimulated:
+        pass
+    x_npy = ck / "step_00002" / "x.npy"
+    with open(x_npy, "r+b") as fh:
+        fh.seek(x_npy.stat().st_size // 2)
+        byte = fh.read(1)[0]
+        fh.seek(-1, 1)
+        fh.write(bytes([byte ^ 0x01]))
+    res3 = run("fused", ck.name)
+    st = res3.stats
+    check(st["resumed_from"] == 1 and st["corrupt_steps"] == 1
+          and equal((res3.predictions, res3.exit_orders),
+                    (results["fused"].predictions,
+                     results["fused"].exit_orders), "fused"),
+          "offline: a corrupted step falls back one superstep")
+    print(f"offline fused, a flipped byte in step 2's x.npy: resumed from "
+          f"superstep {st['resumed_from']} ({st['fallbacks'][0]['error'][:60]}"
+          f"...), equal to the uninterrupted run")
+    for impl in results:
+        shutil.rmtree(Path(tmp) / f"off-{impl}")
+    shutil.rmtree(ck)
+
+    # the 1e6-node store on segment
+    ms = MmapStore(scale_path)
+    src, dst = ms.coo()
+    n_cb = -(-ms.n // CB)
+    pairs = np.unique((dst.astype(np.int64) // RB) * n_cb + src // CB)
+    per_rb = np.bincount(pairs // n_cb)
+    n_rb = -(-batch_bucket(ms.n) // CB) * CB // RB
+    padded = n_rb * int(per_rb.max()) * RB * CB * 4
+    card = (torch.cuda.get_device_properties(dev).total_memory
+            if dev.type == "cuda" else 0)
+    print(f"{ms!r}: block-ELL tiles of the whole graph {len(pairs)} "
+          f"({len(pairs) * RB * CB * 4} bytes of valid 8x128 f32 tiles; "
+          f"{padded} bytes padded to the widest row block's "
+          f"{int(per_rb.max())} slots, against the card's {card} bytes: "
+          f"the tile operands {'fit' if padded < card else 'do not fit'});"
+          f" segment runs it")
+    del src, dst, pairs, per_rb
+    cfg_s = GNNConfig("sgc", ms.feat_dim, ms.num_classes, k=2, hidden=32,
+                      mlp_layers=2)
+    nai_s = NAIConfig(t_s=6.0, t_min=1, t_max=2)
+    heads_s = init_classifiers(cfg_s, torch.Generator().manual_seed(0),
+                               device=dev)
+    zero_counts(kernels)
+    res = run_full_graph_infer(ms, cfg_s, heads_s, nai_s, OfflineConfig(
+        ckpt_dir=str(Path(tmp) / "off-1e6"), spmm_impl="segment",
+        device=str(dev), watchdog_s=60.0))
+    st = res.stats
+    check(len(res.predictions) == ms.n
+          and 0 <= res.predictions.min()
+          and res.predictions.max() < ms.num_classes
+          and set(np.unique(res.exit_orders)) <= {1, 2},
+          "offline 1e6: a class and an exit order for every node")
+    print(f"offline 1e6 nodes, segment: {times(st)}; exit histogram "
+          f"{st['exit_histogram']}; nb_pad {st['nb_pad']}")
+    ms.close()
+    shutil.rmtree(Path(tmp) / "off-1e6")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"offline phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def frontend_phase(torch, dev, kernels, g, cfg, nai, heads, closed_rps):
+    """The SLO front-end at the full pubmed-like size with
+    `default_slo_classes` (gold at T_max 3, best_effort at T_max 1) on
+    `fused`: a virtual-clock replay of a bursty stream (each class's
+    outcomes equal to direct per-class engines', pipelined equal to
+    serial, no pack allocation in the steady pass); a wall-clock open
+    loop at about 0.5x and 2x the serve phase's closed-loop fused req/s
+    (`closed_rps`), with per-class goodput, shed, p50 and p99 and
+    conservation; and a breaker trip: a `device` fault plan on gold
+    demotes it to best_effort, and the breaker closes after its
+    cooldown."""
+    from collections import defaultdict
+    from repro_torch.serving import (BreakerConfig, EngineConfig, FaultPlan,
+                                     FaultSpec, NAIServingEngine,
+                                     ServingFrontend, default_slo_classes)
+    phase("frontend")
+    t_phase = time.perf_counter()
+    classes = default_slo_classes(nai)
+    print("classes: " + "; ".join(
+        f"{c.name} T_max {c.nai.t_max} deadline {c.deadline_s} s max_wait "
+        f"{c.max_wait_s} s queue {c.queue_depth}" for c in classes))
+    rng = np.random.default_rng(23)
+    events, t = [], 0.0
+    for _ in range(3):        # a burst, then a quiet gap
+        for nid in rng.choice(g.test_idx, size=int(rng.integers(
+                nai.batch_size // 2, 2 * nai.batch_size + 1))):
+            events.append((t, "gold" if rng.random() < 0.5
+                           else "best_effort", int(nid)))
+            t += 1e-4
+        t += 1.0
+
+    def frontend(depth, **kw):
+        return ServingFrontend(cfg, heads, g, kw.pop("classes", classes),
+                               device=dev, mode="compiled",
+                               spmm_impl="fused", pipeline_depth=depth, **kw)
+
+    def replay(fe):
+        reqs = []
+        for t, cls, nid in events:
+            reqs.append(fe.submit(nid, cls, now=t))
+            fe.step(now=t)
+        fe.step(now=events[-1][0] + 100.0)
+        fe.flush(now=events[-1][0] + 100.0)
+        check(all(r is not None and r.status == "completed" for r in reqs),
+              "frontend replay: every request accepted and completed")
+        return reqs
+
+    zero_counts(kernels)
+    serial = frontend(1)
+    t0 = time.perf_counter()
+    ref = replay(serial)
+    serial_s = time.perf_counter() - t0
+    serial.close()
+    fe = frontend(2)
+    allocs = []
+    for i in range(5):        # four warm passes, then the steady one
+        fe.reset_stats()      # batch ids count from 0 again
+        a0 = {n: e.pack_stats["allocs"] for n, e in fe.engines.items()}
+        t0 = time.perf_counter()
+        reqs = replay(fe)
+        piped_s = time.perf_counter() - t0
+        allocs.append({n: e.pack_stats["allocs"] - a0[n]
+                       for n, e in fe.engines.items()})
+    check(all(v == 0 for v in allocs[-1].values()),
+          f"frontend: zero pack allocations in the steady pass ({allocs})")
+    check([(r.node_id, r.slo_class, r.batch_id, r.prediction, r.exit_order)
+           for r in reqs] ==
+          [(r.node_id, r.slo_class, r.batch_id, r.prediction, r.exit_order)
+           for r in ref], "frontend: pipelined == serial")
+    groups = defaultdict(list)
+    for r in reqs:
+        groups[r.slo_class, r.batch_id].append(r)
+    for c in classes:
+        eng = NAIServingEngine(cfg, c.nai, heads, g, device=dev,
+                               mode="compiled", spmm_impl="fused",
+                               max_wait_s=10.0)
+        for key in sorted(k for k in groups if k[0] == c.name):
+            eng.submit([r.node_id for r in groups[key]])
+            got = eng.step()
+            check([(r.node_id, r.prediction, r.exit_order) for r in got] ==
+                  [(r.node_id, r.prediction, r.exit_order)
+                   for r in groups[key]],
+                  f"frontend: {key} == a direct {c.name} engine")
+        del eng
+    n_b = {c.name: len([k for k in groups if k[0] == c.name])
+           for c in classes}
+    print(f"virtual clock: {len(events)} requests in 3 bursts, batches "
+          f"{n_b}; serial {serial_s:.2f} s, pipelined steady pass "
+          f"{piped_s:.2f} s; pack allocations per pass {allocs}; "
+          f"pipelined == serial == direct engines; best_effort exit "
+          f"orders {sorted({r.exit_order for r in reqs if r.slo_class == 'best_effort'})}")
+
+    for load in (0.5, 2.0):
+        rate = load * closed_rps
+        n_req = int(rate * 3.0)
+        arrivals = np.cumsum(rng.exponential(1.0 / rate, size=n_req))
+        nodes = rng.choice(g.test_idx, size=n_req)
+        kinds = np.where(rng.random(n_req) < 0.5, "gold", "best_effort")
+        fe.reset_stats()
+        accepted, terminal = [], []
+        t0 = time.perf_counter()
+        i = 0
+        while i < n_req:
+            now = time.perf_counter() - t0
+            while i < n_req and arrivals[i] <= now:
+                r = fe.submit(int(nodes[i]), str(kinds[i]))
+                if r is not None:
+                    accepted.append(r)
+                i += 1
+            terminal += fe.step()
+        terminal += fe.flush()
+        wall = time.perf_counter() - t0
+        ids = [id(r) for r in terminal]
+        check(len(ids) == len(set(ids))
+              and set(ids) == {id(r) for r in accepted}
+              and fe.pending() == 0,
+              f"frontend open loop {load}x: every accepted request ended "
+              f"exactly once")
+        summ = fe.summary()
+        for name, s in summ.items():
+            check(s["offered"] == s["rejected"] + s["completed"]
+                  + s["failed"], f"frontend open loop {load}x: {name} "
+                  f"offered == shed + completed + failed")
+        print(f"open loop {load}x ({rate:.1f} req/s offered, {n_req} "
+              f"requests over {arrivals[-1]:.2f} s, drained in {wall:.2f} "
+              f"s): " + "; ".join(
+                  f"{n} offered {s['offered']} shed {s['rejected']} "
+                  f"completed {s['completed']} goodput {s['deadline_hits']} "
+                  f"({s['deadline_hits'] / wall:.1f}/s, "
+                  f"{s['goodput_frac']:.3f}) p50 {s['p50_ms']:.1f} ms p99 "
+                  f"{s['p99_ms']:.1f} ms batches {s['batches']}"
+                  for n, s in summ.items()))
+    fe.close()
+    del fe, serial
+
+    gold, best = classes
+    faulty = (dataclasses.replace(gold, max_wait_s=0.001, engine=EngineConfig(
+        mode="compiled", spmm_impl="fused", faults=FaultPlan(
+            [FaultSpec("device", at=(0, 1, 2))], seed=3))),
+        dataclasses.replace(best, max_wait_s=0.001))
+    br = BreakerConfig(window=8, trip_frac=0.5, min_events=8,
+                       cooldown_s=0.05, probes=1, count_misses=False)
+    fe = frontend(1, classes=faulty, breaker=br)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 60.0:
+        for nid in rng.choice(g.test_idx, size=8):
+            fe.submit(int(nid), "gold")
+        guard = time.perf_counter() + 5.0
+        while fe.pending() and time.perf_counter() < guard:
+            fe.step()
+        if fe.breakers["gold"].state == "closed" and \
+                fe.stats["gold"].degraded:
+            break
+        time.sleep(0.01)
+    fe.flush()
+    st, brk = fe.stats["gold"], fe.breakers["gold"]
+    check(brk.trips >= 1 and st.degraded > 0 and brk.state == "closed"
+          and st.offered == st.accepted + st.rejected
+          and st.accepted == st.completed + st.failed
+          and fe.pending() == 0,
+          f"frontend breaker: gold tripped, demoted, closed again ({st}, "
+          f"{brk.transitions})")
+    print(f"breaker: gold {st}; transitions "
+          + ", ".join(f"{a}->{b} at {t - brk.transitions[0][0]:.3f} s"
+                      for t, a, b in brk.transitions)
+          + f"; {time.perf_counter() - t0:.2f} s")
+    fe.close()
+    del fe
+    launches = launch_counts(kernels)
+    print(f"frontend phase launches {launches}")
+    check(launches["nap_step_fused"] > 0, "the frontend phase launched B2")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"frontend phase {time.perf_counter() - t_phase:.1f} s")
+
 
 def train_phase(torch, dev, kernels, g, cfg, nai, requests, dist):
     """Inception Distillation on the card at the serve phase's size, then

@@ -269,6 +269,69 @@ def _masked_loop(backend, nai, ops, x0, n_batch, n_rows):
     return exit_order, series
 
 
+def make_superstep(backend: PropagationBackend, nai, *, n_batch: int,
+                   n_rows: int, device="cuda", mesh=None,
+                   gather_mode: str = "dense"):
+    """One NAP propagation step as its own callable — the unit of work of
+    the offline full-graph job (`repro_torch.launch.full_graph_infer`),
+    which checkpoints the state between steps instead of running the whole
+    loop in one dispatch. Single device only: a `mesh` or a gather mode
+    other than ``dense`` is sharding (ROADMAP A7, not ported).
+
+    Returns ``step(operands, x, exit_order, l) -> (x_new, exit_order)``
+    (device tensors, returned without synchronising) that replicates
+    exactly one iteration of `_masked_loop`'s body: the same threshold
+    sentinel for T_min/T_max, the same row-block predicate
+    ``step_active[l-1] * live``, the same exit-order update. ``live`` is
+    recovered from the incoming ``exit_order`` (any batch row still at 0),
+    which is what the loop carries in from the previous iteration; the
+    non-finite flags of the tile backends, which the loop carries from
+    step to step, are recomputed from the incoming ``x`` (a resumed chain
+    does not have them). So a chain of supersteps from the same state
+    equals the single-dispatch loop bit for bit on ``block_ell`` and
+    ``fused``, and equals itself across interruption and resume.
+    ``operands`` come from `pack_operands` (plus the dense ``x_inf`` for
+    backends with ``uses_dense_x_inf``): numpy arrays are copied to
+    `device` on every call, tensors already there (``src``/``dst`` as
+    int64) are used as they are. Cache-seed operands are not supported."""
+    if mesh is not None or gather_mode != "dense":
+        raise NotImplementedError(
+            "sharded supersteps (mesh=, gather_mode other than 'dense') "
+            "are not ported yet: ROADMAP A7")
+    dev = resolve_device(device)
+    tmax = nai.t_max
+    ts2_on = float(np.float32(nai.t_s) ** 2)
+
+    def step(operands, x, exit_order, l: int):
+        if not 1 <= l <= tmax:
+            raise ValueError(f"superstep {l} outside 1..{tmax}")
+        if "seed_rows" in operands:
+            raise ValueError("supersteps take no cache-seed operands")
+        ops = {k: _as_tensor(v, dev) for k, v in operands.items()}
+        for k in ("src", "dst"):
+            if k in ops:
+                ops[k] = ops[k].long()
+        x = _as_tensor(x, dev)
+        exit_order = _as_tensor(exit_order, dev)
+        backend.validate(ops, x, n_batch)
+        with torch.inference_mode():
+            node_active = (exit_order == 0).to(torch.int32)
+            ts2 = ts2_on if nai.t_min <= l < tmax else -1.0
+            live = (exit_order == 0).any().to(torch.int32)
+            sa = ops.get("step_active")
+            active_rb = sa[l - 1] * live if sa is not None else None
+            bad = nonfinite_blocks(x) if backend.uses_tiles else None
+            x, exits, _ = backend.step(ops, x, node_active, active_rb, ts2,
+                                       n_batch=n_batch, n_rows=n_rows,
+                                       x_bad=bad)
+            exit_order = torch.where((node_active != 0) & exits,
+                                     torch.full_like(exit_order, l),
+                                     exit_order)
+        return x, exit_order
+
+    return step
+
+
 def run_propagation(backend: PropagationBackend, nai, operands: dict,
                     x0, n_batch: int, *, device="cuda",
                     classify=None, classifiers=None,

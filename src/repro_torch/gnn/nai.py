@@ -276,6 +276,21 @@ def infer_batch_masked(cfg: GNNConfig, nai: NAIConfig, sup_src, sup_dst,
     return run_propagation(backend, nai, ops, x0, n_batch, device=device)
 
 
+def classify_by_order(cfg: GNNConfig, t_max: int, classifiers: Classifiers,
+                      exit_order: torch.Tensor,
+                      series: torch.Tensor) -> torch.Tensor:
+    """Per-order classification selected by exit order: row i takes head
+    f^(exit_order[i]) of its own series (``series`` (>= t_max+1, N, f),
+    features beyond ``cfg.feat_dim`` are padding). Row-wise, so a caller
+    may classify in row chunks."""
+    preds = torch.zeros(exit_order.shape, dtype=torch.int64,
+                        device=exit_order.device)
+    for l in range(1, t_max + 1):
+        z = classifiers.head(l)(series[:l + 1, :, :cfg.feat_dim])
+        preds = torch.where(exit_order == l, z.argmax(dim=-1), preds)
+    return preds
+
+
 def make_compiled_infer(cfg: GNNConfig, nai: NAIConfig, *,
                         spmm_impl: str = "block_ell", device="cuda",
                         return_series: bool = False):
@@ -296,13 +311,7 @@ def make_compiled_infer(cfg: GNNConfig, nai: NAIConfig, *,
     tmax = nai.t_max
 
     def classify(classifiers, exit_order, series):
-        """Per-order classification selected by exit mask."""
-        preds = torch.zeros(exit_order.shape, dtype=torch.int64,
-                            device=exit_order.device)
-        for l in range(1, tmax + 1):
-            z = classifiers.head(l)(series[:l + 1, :, :cfg.feat_dim])
-            preds = torch.where(exit_order == l, z.argmax(dim=-1), preds)
-        return preds
+        return classify_by_order(cfg, tmax, classifiers, exit_order, series)
 
     def run(classifiers, operands, x0, x_inf):
         nb = x_inf.shape[0]

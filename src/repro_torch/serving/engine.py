@@ -48,8 +48,21 @@ hit rows after every step. The batch rows' series is copied back with the
 results, and once the batch has passed its guard the cache is filled from
 it (``cache_fill``). Cached and cold serving give equal predictions and
 exit orders outside the threshold margin (a seeded value was summed in
-its fill batch's order), also across mutations of the store. The mesh,
-fault injection, watchdog and retry of the JAX engine are not ported
+its fill batch's order), also across mutations of the store.
+
+Failure-domain isolation (`repro_torch.serving.faults`; all off by
+default): a failure in a batch's host stage, device dispatch or sync, or
+a guard trip on its results, fails that batch only. ``faults=`` is a
+seeded `FaultPlan` consulted once per batch at the ``slow``/``host``
+(host stage), ``device`` (dispatch), ``nan`` and ``hang`` (after
+dispatch, `poison_results`) points; ``watchdog_s`` bounds each batch's
+sync: the engine polls the batch's CUDA event with ``query()`` until
+``watchdog_s`` after its dispatch and then declares it hung
+(`WatchdogTimeout`) without blocking on it; ``retry_failed`` gives a
+failed batch one attempt on the host path (`infer_batch_host`). Requests
+carry an absolute deadline and an SLO class tag, stamped by the
+front-end (`repro_torch.serving.frontend`); the engine itself is
+deadline-agnostic. The JAX engine's mesh (sharded serving) is not ported
 yet.
 """
 from __future__ import annotations
@@ -73,11 +86,8 @@ from repro_torch.gnn.packing import (PackedSupport, batch_bucket,
 from repro_torch.gnn.propcache import PropCache
 from repro_torch.gnn.sampler import sample_support
 from repro_torch.gnn.store import as_store
-
-
-class NaNGuardError(RuntimeError):
-    """Device results failed the finite/range guard — the batch is
-    failed rather than letting garbage reach a completed Request."""
+from repro_torch.serving.faults import (InjectedFault, NaNGuardError,
+                                        WatchdogTimeout, poison_results)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +102,10 @@ class EngineConfig:
     # --- propagated-feature cache (repro_torch.gnn.propcache; 0 = off) ---
     cache_nodes: int = 0             # LRU capacity in cached nodes
     cache_fill: bool = True          # insert batch-row series after serving
+    # --- failure-domain isolation (all default off / no-op) ---
+    faults: object = None            # FaultPlan schedule, or None
+    watchdog_s: Optional[float] = None   # device-sync deadline, None = off
+    retry_failed: bool = False       # retry a failed batch once (host path)
 
     def __post_init__(self):
         if self.mode not in ("host", "compiled"):
@@ -118,20 +132,39 @@ class EngineConfig:
         if self.latency_window < 1:
             raise ValueError(f"latency_window must be >= 1, got "
                              f"{self.latency_window}")
+        if self.watchdog_s is not None and self.watchdog_s <= 0:
+            raise ValueError(f"watchdog_s must be > 0 (or None to "
+                             f"disable), got {self.watchdog_s}")
+        if self.faults is not None and not callable(
+                getattr(self.faults, "injector", None)):
+            raise ValueError("faults must be a FaultPlan "
+                             "(repro_torch.serving.faults) or None")
 
 
 @dataclasses.dataclass
 class Request:
     node_id: int
     arrival_s: float
+    deadline_s: float = float("inf")   # ABSOLUTE completion deadline
+    slo_class: str = ""                # routing tier (serving front-end)
     done_s: float = -1.0
     prediction: int = -1
     exit_order: int = -1
     batch_id: int = -1                 # engine batch this completed in
     # terminal lifecycle: every accepted request ends EXACTLY once as
-    # "completed" or "failed"
+    # "completed" or "failed" (shedding happens before acceptance, at the
+    # front-end)
     status: str = "pending"            # "pending" | "completed" | "failed"
-    error: str = ""                    # failure cause when failed
+    error: str = ""                    # typed failure cause when failed
+    retried: bool = False              # recovered on the host path
+    degraded: bool = False             # demoted by an open circuit breaker
+    probe: bool = False                # half-open breaker probe request
+
+    @property
+    def within_deadline(self) -> bool:
+        """Completed in time (the goodput numerator); False while the
+        request is pending."""
+        return 0.0 <= self.done_s <= self.deadline_s
 
 
 class LatencyRing:
@@ -162,6 +195,7 @@ class EngineStats:
     served: int = 0
     batches: int = 0
     failed: int = 0        # requests that ended status="failed"
+    retried: int = 0       # requests recovered on the host path
     latencies: LatencyRing = dataclasses.field(default_factory=LatencyRing)
     exit_hist: Dict[int, int] = dataclasses.field(default_factory=dict)
 
@@ -174,6 +208,7 @@ class EngineStats:
             "served": self.served,
             "batches": self.batches,
             "failed": self.failed,
+            "retried": self.retried,
             "p50_ms": 1e3 * self.percentile(50),
             "p95_ms": 1e3 * self.percentile(95),
             "p99_ms": 1e3 * self.percentile(99),
@@ -191,9 +226,10 @@ class _Inflight:
     nb_real: int             # unique node count (real rows of the result)
     preds: torch.Tensor      # host tensors, filled when `done` fires
     orders: torch.Tensor
-    done: Optional[torch.cuda.Event]   # None: results already on the host
+    done: object             # CUDA event; None: results already on the host
     host_s: float            # sample + pack wall time
     dispatch_s: float        # copy + launch wall time
+    t_submit: float = 0.0    # wall clock at dispatch (watchdog anchor)
     series: Optional[torch.Tensor] = None   # (T_max, nb, f) steps 1..T_max
     fill: object = None      # cache fill record (nodes, deps, gv) or None
 
@@ -231,7 +267,12 @@ class NAIServingEngine:
         self.mode = ec.mode
         self.spmm_impl = ec.spmm_impl
         self.pipeline_depth = ec.pipeline_depth
+        # failure-domain isolation knobs (EngineConfig, all off by default)
         self.nan_guard = ec.nan_guard
+        self.watchdog_s = ec.watchdog_s
+        self.retry_failed = ec.retry_failed
+        self._faults = (ec.faults.injector()
+                        if ec.faults is not None else None)
         self.queue: Deque[Request] = deque()
         self.stats = EngineStats(latencies=LatencyRing(ec.latency_window))
         self.cache: Optional[PropCache] = (
@@ -261,6 +302,11 @@ class NAIServingEngine:
             self._runner = make_compiled_infer(
                 cfg, nai, spmm_impl=ec.spmm_impl, device=self.device,
                 return_series=self.cache is not None)
+
+    @property
+    def fault_stats(self) -> Optional[Dict]:
+        """Per-stage injected-fault tallies (None without a FaultPlan)."""
+        return self._faults.summary() if self._faults is not None else None
 
     @property
     def cache_stats(self) -> Dict[str, float]:
@@ -409,11 +455,31 @@ class NAIServingEngine:
         done.record()
         return (*host, done)
 
+    def _watchdog_sync(self, fl: _Inflight) -> None:
+        """Bound the device sync: poll the batch's CUDA event with
+        ``query()`` until it has fired or `watchdog_s` has passed since
+        dispatch, then raise `WatchdogTimeout` — the batch is declared hung
+        and failed, and the pipeline moves on (its pool slot stays guarded
+        by the event recorded after its copies). Never waits on the event
+        itself. With the watchdog off (None), or with no event (the CPU:
+        results are ready), it returns at once."""
+        wd, ev = self.watchdog_s, fl.done
+        if wd is None or ev is None:
+            return
+        deadline = fl.t_submit + wd
+        while not ev.query():
+            if time.perf_counter() >= deadline:
+                raise WatchdogTimeout(
+                    f"device sync not ready {wd * 1e3:.0f} ms after "
+                    f"dispatch; batch of {len(fl.requests)} declared hung")
+            time.sleep(1e-4)
+
     def _guard_results(self, preds: np.ndarray, orders: np.ndarray,
                        nb_real: int) -> None:
-        """Fail the batch if the device returned garbage: out-of-range
-        class ids or exit orders. Guards values only — a passing batch's
-        results are untouched."""
+        """Fail the batch if the device returned garbage: non-finite values
+        (a float result holding NaN or Inf, as a poisoned batch's) or
+        out-of-range class ids or exit orders. Guards values only — a
+        passing batch's results are untouched."""
         if not self.nan_guard:
             return
         p, o = preds[:nb_real], orders[:nb_real]
@@ -436,8 +502,25 @@ class NAIServingEngine:
     def _fail_batch(self, batch: List[Request], err: Exception
                     ) -> List[Request]:
         """Terminal handling for a batch whose stage raised: only THIS
-        batch fails; the queue and other in-flight batches are
-        untouched."""
+        batch fails; the queue and other in-flight batches are untouched.
+        With `retry_failed` the batch gets one attempt on the host path
+        (`infer_batch_host`, which needs no device stage) before it is
+        declared failed."""
+        if self.retry_failed and not any(r.retried for r in batch):
+            for r in batch:
+                r.retried = True
+            try:
+                nodes = np.asarray([r.node_id for r in batch])
+                uniq, inv = np.unique(nodes, return_inverse=True)
+                p_u, o_u, _, _, _ = infer_batch_host(
+                    self.cfg, self.nai, self.classifiers, self.store, uniq)
+            except Exception as retry_err:   # noqa: BLE001 — isolation
+                err = retry_err
+            else:
+                self.stats.retried += len(batch)
+                self._complete(batch, p_u[inv], o_u[inv],
+                               time.perf_counter())
+                return batch
         msg = f"{type(err).__name__}: {err}"
         for r in batch:
             r.status = "failed"
@@ -447,12 +530,14 @@ class NAIServingEngine:
         return batch
 
     def _finalize_oldest(self) -> List[Request]:
-        """Wait for the oldest in-flight batch's results and complete its
-        requests (FIFO, whatever the pipeline depth). A sync failure or a
-        guard trip fails ONLY this batch."""
+        """Wait for the oldest in-flight batch's results (bounded by the
+        watchdog when armed) and complete its requests (FIFO, whatever the
+        pipeline depth). A sync failure, watchdog trip or guard trip fails
+        ONLY this batch."""
         fl = self._inflight.popleft()
         t0 = time.perf_counter()
         try:
+            self._watchdog_sync(fl)
             if fl.done is not None:
                 fl.done.synchronize()
             preds_a = fl.preds.numpy()
@@ -509,6 +594,12 @@ class NAIServingEngine:
         for nid in nids:
             self.queue.append(Request(nid, now))
 
+    def submit_request(self, req: Request) -> None:
+        """Enqueue a pre-built request (the front-end's path: deadline and
+        SLO class already stamped)."""
+        self._validate_node_id(req.node_id)
+        self.queue.append(req)
+
     def form_batch(self, now: Optional[float] = None, *,
                    force: bool = False) -> List[Request]:
         """Close a batch on size OR age, whichever comes first: a full
@@ -541,7 +632,28 @@ class NAIServingEngine:
                 if ev is not None and not ev.query():
                     break
                 done += self._finalize_oldest()
+        # watchdog re-arm: a hung head batch must not wedge open-loop
+        # serving (poll never blocks, so a never-firing event would park
+        # below pipeline_depth forever); its deadline has passed, so
+        # _watchdog_sync declares it failed at once
+        if self.watchdog_s is not None:
+            while (self._inflight
+                   and time.perf_counter() - self._inflight[0].t_submit
+                   >= self.watchdog_s):
+                done += self._finalize_oldest()
         return done
+
+    def _inject_host_faults(self) -> None:
+        """Host-stage injection point (`slow` then `host`), called once per
+        served batch so a plan's event counters align with batch indices.
+        No-op without a FaultPlan."""
+        if self._faults is None:
+            return
+        spec = self._faults.fire("slow")
+        if spec is not None and spec.delay_s > 0.0:
+            time.sleep(spec.delay_s)
+        if self._faults.fire("host") is not None:
+            raise InjectedFault("injected host-stage failure")
 
     def _serve_batch(self, batch: List[Request]) -> List[Request]:
         nodes = np.asarray([r.node_id for r in batch])
@@ -550,6 +662,7 @@ class NAIServingEngine:
         uniq, inv = np.unique(nodes, return_inverse=True)
         if self.mode == "host":
             try:
+                self._inject_host_faults()
                 p_u, o_u, _, _, _ = infer_batch_host(
                     self.cfg, self.nai, self.classifiers, self.store, uniq)
             except Exception as e:   # noqa: BLE001 — batch isolation
@@ -558,17 +671,26 @@ class NAIServingEngine:
             return batch
         t0 = time.perf_counter()
         try:
+            self._inject_host_faults()
             packed, step_active, slot, fill = self._host_stage(uniq)
             t1 = time.perf_counter()
+            if (self._faults is not None
+                    and self._faults.fire("device") is not None):
+                raise InjectedFault("injected device-stage failure")
             preds, orders, series, ev = self._device_stage(
                 packed, step_active, slot)
-        except Exception as e:   # noqa: BLE001 — batch-level isolation
+            preds, orders, ev = poison_results(self._faults, preds, orders,
+                                               ev)
+        except Exception as e:   # noqa: BLE001 — batch-level isolation:
+            # a stage failure takes down THIS batch only; in-flight batches
+            # and the queue are untouched, and _advance keeps the pipeline
+            # moving
             return self._fail_batch(batch, e) + self._advance()
         t2 = time.perf_counter()
         self._inflight.append(
             _Inflight(batch, inv, packed.nb_real, preds, orders, ev,
-                      host_s=t1 - t0, dispatch_s=t2 - t1, series=series,
-                      fill=fill))
+                      host_s=t1 - t0, dispatch_s=t2 - t1, t_submit=t2,
+                      series=series, fill=fill))
         done: List[Request] = []
         while len(self._inflight) >= self.pipeline_depth:
             done += self._finalize_oldest()

@@ -620,3 +620,140 @@ def test_spmm_ops_on_card(cuda):
     got = spmm(ell, x.to(cuda), active.to(cuda))
     assert spmm_block_ell.launches == before + 1
     torch.testing.assert_close(got.cpu(), spmm(ell, x, active), **TOL)
+
+
+def test_watchdog_on_a_real_cuda_event(cuda):
+    """The engine's watchdog polls a real CUDA event that has not fired
+    (the card spins for about a second) and declares the batch hung
+    within its deadline plus 50 ms, without waiting on the event."""
+    import time
+    from repro_torch.serving import WatchdogTimeout
+    from repro_torch.serving.engine import _Inflight
+    g = load_dataset("pubmed-like", scale=0.02, seed=4)
+    cfg = GNNConfig("sgc", g.features.shape[1], g.num_classes, k=2)
+    nai = NAIConfig(t_s=6.0, t_min=1, t_max=2, batch_size=8)
+    heads = init_classifiers(cfg, torch.Generator().manual_seed(0),
+                             device=cuda)
+    eng = NAIServingEngine(cfg, nai, heads, g, device=cuda, mode="compiled",
+                           spmm_impl="fused", watchdog_s=0.05)
+    torch.cuda._sleep(int(2e9))
+    ev = torch.cuda.Event()
+    ev.record()
+    t0 = time.perf_counter()
+    fl = _Inflight([], np.zeros(0, np.int64), 0, None, None, ev, 0.0, 0.0,
+                   t_submit=t0)
+    with pytest.raises(WatchdogTimeout):
+        eng._watchdog_sync(fl)
+    took = time.perf_counter() - t0
+    assert 0.05 <= took < 0.1 and not ev.query()
+    ev.synchronize()
+
+
+def test_hang_and_nan_faults_on_card(cuda):
+    """Injected faults on the card: the hung batch (watchdog) and the
+    poisoned batch (NaN guard) fail alone; every other batch equals a
+    fault-free run's; with retry_failed they complete on the host path."""
+    from repro_torch.serving import FaultPlan, FaultSpec
+    g = load_dataset("pubmed-like", scale=0.1, seed=0)
+    cfg = GNNConfig("sgc", g.features.shape[1], g.num_classes, k=4,
+                    hidden=64, mlp_layers=2)
+    nai = NAIConfig(t_s=20.0, t_min=1, t_max=3, batch_size=50)
+    heads = init_classifiers(cfg, torch.Generator().manual_seed(0),
+                             device=cuda)
+    nodes = np.random.default_rng(0).choice(g.test_idx, size=300,
+                                            replace=False)
+
+    def serve(**kw):
+        eng = NAIServingEngine(cfg, nai, heads, g, device=cuda,
+                               mode="compiled", spmm_impl="fused",
+                               pipeline_depth=2, max_wait_s=10.0, **kw)
+        done = []
+        for i in range(0, len(nodes), 50):
+            eng.submit(nodes[i:i + 50])
+            done += eng.step()
+        return done + eng.flush()
+
+    plan = FaultPlan([FaultSpec("nan", at=(1,)), FaultSpec("hang", at=(3,))])
+    clean = serve()
+    hit = serve(faults=plan, watchdog_s=0.5)
+    errs = {r.error.split(":")[0] for r in hit if r.status == "failed"}
+    assert errs == {"NaNGuardError", "WatchdogTimeout"}
+    bad = {int(n) for n in nodes[50:100]} | {int(n) for n in nodes[200:250]}
+    for a, b in zip(clean, hit):
+        assert a.node_id == b.node_id
+        assert (b.status == "failed") == (b.node_id in bad)
+        if b.status == "completed":
+            assert (a.prediction, a.exit_order) == (b.prediction,
+                                                    b.exit_order)
+    retried = serve(faults=plan, watchdog_s=0.5, retry_failed=True)
+    assert all(r.status == "completed" for r in retried)
+    assert sum(r.retried for r in retried) == 100
+
+
+def _full_graph_pack(impl):
+    from repro_torch.gnn.backends import pack_operands
+    from repro_torch.gnn.distributed import pack_graph
+    from repro_torch.gnn.packing import step_active_blocks
+    from repro_torch.gnn.store import make_graph
+    store = make_graph(3000, avg_deg=8.0, alpha=2.2, seed=3, path=None,
+                       feat_dim=200, num_classes=5)
+    be, packed = pack_graph(store, 1, 0.5, impl, stationary=True)
+    sa = step_active_blocks(packed.hop_rb, 3)
+    ops = pack_operands(be, packed, sa)
+    if be.uses_dense_x_inf:
+        ops["x_inf"] = packed.x_inf
+    return store, be, packed, ops
+
+
+@pytest.mark.parametrize("impl", ["block_ell", "fused"])
+def test_superstep_chain_equals_loop_on_card(cuda, impl):
+    """A chain of supersteps (flags recomputed from x) equals the
+    single-dispatch NAP loop (flags carried by the kernels) bit for bit
+    on the card, through B1 + B3 or B2."""
+    from repro_torch.gnn.backends import make_superstep, run_propagation
+    from repro_torch.launch.full_graph_infer import \
+        first_step_distance_quantile
+    store, be, packed, ops = _full_graph_pack(impl)
+    nai = NAIConfig(t_s=first_step_distance_quantile(store, 0.5, 0.5),
+                    t_min=1, t_max=3)
+    eo_loop, series = run_propagation(be, nai, dict(ops), packed.x0,
+                                      packed.n_batch, device=cuda)
+    step = make_superstep(be, nai, n_batch=packed.n_batch,
+                          n_rows=packed.n_pad, device=cuda)
+    before = {k.__name__: k.launches
+              for k in (spmm_block_ell, nap_exit, nap_step_fused)}
+    x = torch.from_numpy(packed.x0).to(cuda)
+    eo = torch.zeros(packed.n_batch, dtype=torch.int32, device=cuda)
+    for l in range(1, 4):
+        x, eo = step(ops, x, eo, l)
+        assert torch.equal(x[:packed.n_batch], series[l]), l
+    assert torch.equal(torch.where(eo == 0, 3, eo), eo_loop)
+    assert set(eo_loop.tolist()) == {1, 2, 3}
+    kernel = nap_step_fused if impl == "fused" else spmm_block_ell
+    assert kernel.launches - before[kernel.__name__] == 3
+
+
+@pytest.mark.parametrize("impl", ["block_ell", "fused"])
+def test_offline_resume_equals_uninterrupted_on_card(cuda, impl, tmp_path):
+    from repro_torch.gnn import init_classifiers as init
+    from repro_torch.launch.full_graph_infer import (OfflineConfig,
+                                                     PreemptionSimulated,
+                                                     run_full_graph_infer)
+    store, *_ = _full_graph_pack(impl)
+    cfg = GNNConfig("sgc", 200, 5, k=3, hidden=32)
+    heads = init(cfg, torch.Generator().manual_seed(0), device=cuda)
+    nai = NAIConfig(t_s=5.0, t_min=1, t_max=3)
+
+    def run(ck, **kw):
+        return run_full_graph_infer(store, cfg, heads, nai, OfflineConfig(
+            ckpt_dir=str(tmp_path / ck), spmm_impl=impl, device="cuda",
+            watchdog_s=5.0, **kw))
+
+    ref = run("clean")
+    for k in range(3):
+        with pytest.raises(PreemptionSimulated):
+            run(f"k{k}", crash_after=k)
+        res = run(f"k{k}")
+        assert res.stats["resumed_from"] == k
+        np.testing.assert_array_equal(res.predictions, ref.predictions)
+        np.testing.assert_array_equal(res.exit_orders, ref.exit_orders)

@@ -46,14 +46,16 @@ def test_import_scan_sees_the_whole_port():
     assert {"engine.py", "backends.py", "chip_smoke.py", "kernel.py",
             "store.py", "propcache.py", "ops.py", "distill.py",
             "baselines.py", "adamw.py", "inception_distill.py",
-            "train.py"} <= names
+            "train.py", "faults.py", "frontend.py", "distributed.py",
+            "checkpoint.py", "full_graph_infer.py"} <= names
 
 
 def test_port_modules_load_no_jax_at_run_time():
     """Imported in a fresh interpreter, the serving path (store, cache,
-    sampler, packing, loop, engine, kernel wrappers), the store's
-    generator program, the trainer (optimizer, losses, distillation,
-    baselines) and both launchers pull in no module of JAX or of the JAX
+    sampler, packing, loop, engine, faults, front-end, kernel wrappers),
+    the store's generator program, the trainer (optimizer, losses,
+    distillation, baselines), both launchers and the offline job (its
+    packing, checkpoints and CLI) pull in no module of JAX or of the JAX
     package."""
     import subprocess
     import sys
@@ -62,7 +64,10 @@ def test_port_modules_load_no_jax_at_run_time():
             "repro_torch.kernels.nap_exit.ops, repro_torch.optim, "
             "repro_torch.core.inception_distill, repro_torch.gnn.distill, "
             "repro_torch.gnn.baselines, repro_torch.kernels.spmm.ops, "
-            "repro_torch.launch.serve, repro_torch.launch.train; "
+            "repro_torch.launch.serve, repro_torch.launch.train, "
+            "repro_torch.serving.faults, repro_torch.serving.frontend, "
+            "repro_torch.gnn.distributed, repro_torch.launch.checkpoint, "
+            "repro_torch.launch.full_graph_infer; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
@@ -83,9 +88,13 @@ def test_resolve_device_raises_without_cuda(monkeypatch):
             resolve_device(dev)
 
 
-def test_entry_points_default_to_cuda(monkeypatch):
+def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     """With no device argument every entry point asks for CUDA — and so
     raises here, where there is none."""
+    from repro_torch.gnn.backends import make_superstep
+    from repro_torch.gnn.store import save_graph_store
+    from repro_torch.launch import full_graph_infer as offline
+    from repro_torch.serving import ServingFrontend, default_slo_classes
     _no_cuda(monkeypatch)
     g = load_dataset("pubmed-like", scale=0.02, seed=4)
     g = dataclasses.replace(g, features=np.ascontiguousarray(
@@ -115,15 +124,31 @@ def test_entry_points_default_to_cuda(monkeypatch):
             cfg, nai, heads, g, mode="compiled", cache_nodes=64, **kw),
         "train_nai": lambda **kw: train_nai(cfg, g, DistillConfig(
             epochs_base=1, epochs_offline=1, epochs_online=1), **kw),
+        "ServingFrontend": lambda **kw: ServingFrontend(
+            cfg, heads, g, default_slo_classes(nai), spmm_impl="fused",
+            **kw),
+        "make_superstep": lambda **kw: make_superstep(
+            get_backend("fused"), nai, n_batch=8, n_rows=128, **kw),
+        "run_full_graph_infer": lambda **kw: offline.run_full_graph_infer(
+            g, cfg, heads, nai, offline.OfflineConfig(
+                ckpt_dir=str(tmp_path / "ck"), spmm_impl="fused", **kw)),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     # the same entry points build on the CPU when asked to
+    # the offline CLI asks for CUDA before it reads the store
+    store = save_graph_store(g, str(tmp_path / "store"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        offline._main(["--store", store, "--ckpt", str(tmp_path / "c")])
+    assert offline._main(["--store", store, "--ckpt", str(tmp_path / "c"),
+                          "--t-max", "2", "--t-s", "6", "--device",
+                          "cpu"]) == 0
     for name in ("init_classifiers", "params_from_numpy",
                  "make_compiled_infer", "NAIServingEngine(host)",
                  "NAIServingEngine(compiled)", "NAIServingEngine(cached)",
-                 "train_nai"):
+                 "train_nai", "ServingFrontend", "make_superstep",
+                 "run_full_graph_infer"):
         calls[name](device="cpu")
 
 
