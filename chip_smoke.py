@@ -17,8 +17,22 @@ fails (non-zero exit, no result line) on any failed check:
    in rows that non-zero ones name (`nonfinite_phase`); then 2,000 requests
    through `NAIServingEngine(mode="compiled")` for each backend (fused,
    block_ell, segment) at pipeline depth 2, after one warm pass, held
-   against the port's host-mode engine; then six more NAI phases, each
+   against the port's host-mode engine; then seven more NAI phases, each
    with the launch counters zeroed before it and read after it:
+   - sharded (`sharded_phase`, ROADMAP A7): D shards on the one card
+     (`make_serving_mesh(D, devices=(cuda:0,) * D)`, printed as the mesh
+     it is beside `torch.cuda.device_count()`): the first 1,000 of the
+     2,000 requests through every backend at D = 2 (halo, dense,
+     alltoall) and D = 4 (halo, alltoall), each after two warm passes,
+     in turns with the D = 1 engine: predictions and exit orders bitwise
+     D = 1's on fused and block_ell, outside the margin on segment;
+     `halo_frac` < 1 in the halo modes; no pack allocation in the
+     measured pass; B1-B3 launched D times per step; req/s, p50, p99,
+     host/dispatch/sync ms per batch, `halo_stats` and the bytes each
+     step moves between shards; one fused D = 4 alltoall pass under the
+     profiler (the exchange's device time against B2's, idle share);
+     the whole graph offline at D = 2 alltoall on every backend, equal
+     to D = 1 and, killed after superstep 1 and resumed, to itself;
    - store: the graph saved with `save_graph_store`, `MmapStore.verify()`
      checking every array, a copy with one flipped byte raising
      `StoreCorruption`, and the 2,000 requests served from the
@@ -669,26 +683,17 @@ def gnn_phases(torch, dev, kernels):
     # a separate traced pass per backend (after the counted ones): device
     # busy time = union of the intervals of the kernels and copies the
     # profiler saw on the card, against the pass's wall time
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for impl, eng in engines.items():
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, _, wall = serve(eng, requests)
-        spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                       for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
-        busy_us, reach, by_name = 0.0, -np.inf, {}
-        for lo, hi, kname in spans:
-            busy_us += max(0.0, hi - max(lo, reach))
-            reach = max(reach, hi)
-            by_name[kname] = by_name.get(kname, 0.0) + (hi - lo)
+        busy, idle, by_name = device_spans(prof, wall)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-        print(f"{impl} traced pass: {len(spans)} device events, busy "
-              f"{busy_us / 1e3:.1f} ms of {1e3 * wall:.1f} ms wall (idle "
-              f"share {1 - busy_us / 1e3 / (1e3 * wall):.3f}); most device "
-              f"time: " + ", ".join(f"{k[:48]} {v / 1e3:.1f} ms"
-                                    for k, v in top))
+        print(f"{impl} traced pass: busy {busy:.1f} ms of "
+              f"{1e3 * wall:.1f} ms wall (idle share {idle:.3f}); most "
+              f"device time: " + ", ".join(f"{k[:48]} {v:.1f} ms"
+                                           for k, v in top))
 
     dist = request_distances(cfg, nai, g, requests, nai.batch_size)
     near = within_margin(dist, nai.t_s)
@@ -718,6 +723,12 @@ def gnn_phases(torch, dev, kernels):
     del engines, host, prof
     gc.collect()
     torch.cuda.empty_cache()
+    sharded = sharded_phase(torch, dev, kernels, g, cfg, nai, heads,
+                            requests, near)
+    for r in rows:
+        r["note"] = (f"({r['launches']} in the serve phase {r['note']}, "
+                     f"+ {sharded[r['name']]} in the sharded phase)")
+        r["launches"] += sharded[r["name"]]
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
         store_path = store_phase(torch, dev, kernels, g, cfg, nai, heads,
                                  requests, results, tmp)
@@ -1170,6 +1181,218 @@ def _full_graph_near(torch, store, r, t_s, t_min, t_max):
     return near
 
 
+SHARD_REQUESTS = 1000         # per sharded configuration (2 batches of 500)
+SHARD_CONFIGS = ((2, "halo"), (2, "dense"), (2, "alltoall"), (4, "halo"),
+                 (4, "alltoall"))
+
+
+def offline_times(st) -> str:
+    """One offline run's seconds per stage and nodes/s."""
+    return (f"pack {st['pack_s']:.3f} s, {st['supersteps_run']} "
+            f"supersteps {st['compute_s']:.4f} s "
+            f"({st['compute_s'] / max(st['supersteps_run'], 1):.4f} s "
+            f"each) + to host {st['to_host_s']:.3f} s, checkpoints "
+            f"{st['ckpt_s']:.3f} s / {st['ckpt_bytes']} bytes, classify "
+            f"{st['classify_s']:.3f} s, total {st['total_s']:.3f} s, "
+            f"{st['nodes_per_s']:.1f} nodes/s")
+
+
+def device_spans(prof, wall_s):
+    """(busy ms, idle share, {kernel name: device ms}) of a profiled
+    window: busy = the union of the CUDA events' intervals."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, reach, by_name = 0.0, -np.inf, {}
+    for lo, hi, kname in spans:
+        busy_us += max(0.0, hi - max(lo, reach))
+        reach = max(reach, hi)
+        by_name[kname] = by_name.get(kname, 0.0) + (hi - lo) / 1e3
+    return busy_us / 1e3, 1 - busy_us / 1e3 / (1e3 * wall_s), by_name
+
+
+def sharded_phase(torch, dev, kernels, g, cfg, nai, heads, requests, near):
+    """Sharded serving and offline inference (ROADMAP A7) with D shards on
+    the one card (`make_serving_mesh(D, devices=(dev,) * D)`): the mesh
+    code path and its exchanges, not the capacity of D cards. Serve: the
+    first 1,000 of the serve phase's requests through every backend at
+    D = 2 (halo, dense, alltoall) and D = 4 (halo, alltoall), each after
+    two warm passes, in turns with the D = 1 engine (before and after);
+    predictions and exit orders bitwise D = 1's on block_ell and fused,
+    outside the margin on segment; halo_frac < 1 in the halo modes; no
+    pack allocation in the measured pass; B1-B3 launched D times per step.
+    Then one fused D = 4 alltoall pass under the profiler (device time of
+    the exchange's kernels and copies against B2's, idle share). Offline:
+    the whole graph at D = 2 alltoall on every backend, equal to the D = 1
+    run and, killed after superstep 1 and resumed, to itself. Returns the
+    phase's launches per kernel."""
+    import shutil
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.gnn import NAIConfig
+    from repro_torch.gnn.store import as_store
+    from repro_torch.launch.full_graph_infer import (
+        OfflineConfig, PreemptionSimulated, first_step_distance_quantile,
+        run_full_graph_infer)
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving import NAIServingEngine
+    phase("sharded")
+    t_phase = time.perf_counter()
+    meshes = {D: make_serving_mesh(D, devices=(dev,) * D) for D in (2, 4)}
+    print(f"{meshes[2]}, {meshes[4]}; torch.cuda.device_count() "
+          f"{torch.cuda.device_count()}: the shards share one card (device "
+          f"to device copies), so this phase measures the sharded path and "
+          f"its exchange, not the capacity of several cards")
+    reqs = requests[:SHARD_REQUESTS]
+    near = near[:SHARD_REQUESTS]
+    n_batches = -(-len(reqs) // nai.batch_size)
+    zero_counts(kernels)                  # the phase's path starts here
+
+    def engine(impl, mesh=None, gm="halo"):
+        return NAIServingEngine(cfg, nai, heads, g,
+                                device=None if mesh else dev,
+                                mode="compiled", spmm_impl=impl,
+                                pipeline_depth=2, max_wait_s=10.0,
+                                mesh=mesh, gather_mode=gm)
+
+    def warm(eng):
+        # 2 batches a pass over 3 pool slots: after two passes every slot
+        # holds the final bucket shapes, so the next pass is steady
+        for _ in range(2):
+            serve_requests(torch, eng, reqs)
+        eng.reset_stats()
+        return eng.pack_stats["allocs"]
+
+    def line(eng, res, launches):
+        summ = eng.stats.summary()
+        t = list(eng.batch_timings)
+        return (f"{len(reqs) / res[2]:.1f} req/s, p50 {summ['p50_ms']:.1f} "
+                f"ms, p99 {summ['p99_ms']:.1f} ms, per batch host "
+                f"{np.mean([b['host_s'] for b in t]) * 1e3:.1f} ms dispatch "
+                f"{np.mean([b['dispatch_s'] for b in t]) * 1e3:.1f} ms sync "
+                f"{np.mean([b['sync_s'] for b in t]) * 1e3:.1f} ms, "
+                f"launches {launches}")
+
+    for impl in ("fused", "block_ell", "segment"):
+        base = engine(impl)
+        warm(base)
+        before = launch_counts(kernels)
+        ref = serve_requests(torch, base, reqs)
+        d1 = {n: k.launches - before[n] for n, k in kernels.items()}
+        print(f"{impl} D=1: {line(base, ref, d1)}")
+        for D, gm in SHARD_CONFIGS:
+            eng = engine(impl, meshes[D], gm)
+            allocs = warm(eng)
+            before = launch_counts(kernels)
+            res = serve_requests(torch, eng, reqs)
+            launches = {n: k.launches - before[n] for n, k in kernels.items()}
+            hs = eng.halo_stats
+            print(f"{impl} D={D} {gm}: {line(eng, res, launches)}; "
+                  f"halo_stats {hs}; exchange "
+                  f"{hs['exchange_bytes_per_step'] / 1e6:.1f} MB per step "
+                  f"(f32 rows between shards); pack allocations in the "
+                  f"measured pass {eng.pack_stats['allocs'] - allocs}")
+            tag = f"sharded {impl} D={D} {gm}"
+            if impl == "segment":
+                check(same_outside(res, ref, near),
+                      f"{tag} == D=1 outside the margin")
+            else:
+                check(np.array_equal(res[0], ref[0])
+                      and np.array_equal(res[1], ref[1]),
+                      f"{tag}: predictions and exit orders bitwise D=1's")
+            check(eng.pack_stats["allocs"] == allocs,
+                  f"{tag}: no pack allocation in a steady pass")
+            if gm != "dense":
+                check(hs["halo_frac"] < 1.0, f"{tag}: halo_frac < 1")
+            per_pass = n_batches * nai.t_max * D
+            want = {"fused": {"nap_step_fused": per_pass},
+                    "block_ell": {"spmm_block_ell": per_pass,
+                                  "nap_exit": per_pass},
+                    "segment": {}}[impl]
+            check(all(launches[n] == want.get(n, 0)
+                      for n in ("spmm_block_ell", "nap_step_fused",
+                                "nap_exit")),
+                  f"{tag}: B1-B3 launched D times per step ({want})")
+            del eng
+        again = serve_requests(torch, base, reqs)
+        print(f"{impl} D=1 again: {len(reqs) / again[2]:.1f} req/s")
+        if impl != "segment":
+            check(np.array_equal(again[0], ref[0])
+                  and np.array_equal(again[1], ref[1]),
+                  f"{impl} D=1 repeats itself")
+        del base
+        gc.collect()
+
+    # one traced fused D=4 alltoall pass
+    eng = engine("fused", meshes[4], "alltoall")
+    warm(eng)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, wall = serve_requests(torch, eng, reqs)
+    busy, idle, by_name = device_spans(prof, wall)
+    b2 = sum(v for k, v in by_name.items() if "nap_step" in k)
+    # the exchange's work, by kernel name: block gathers (indexing),
+    # concatenations and device-to-device copies (a few small ones of the
+    # loop itself, the live flag's stack and the un-permutation, count too)
+    xch = {k: v for k, v in by_name.items()
+           if any(w in k for w in ("gather", "index", "CatArray", "DtoD"))}
+    h2d = sum(v for k, v in by_name.items() if "HtoD" in k)
+    print(f"traced fused D=4 alltoall pass ({n_batches} batches): busy "
+          f"{busy:.2f} ms of {1e3 * wall:.1f} ms wall (idle share "
+          f"{idle:.3f}); B2 {b2:.3f} ms; exchange (gathers, "
+          f"concatenations, DtoD copies) {sum(xch.values()):.3f} ms; "
+          f"Memcpy HtoD {h2d:.2f} ms; device time by kernel:")
+    for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {v:8.3f} ms  {'[exchange] ' if k in xch else ''}"
+              f"{k[:110]}")
+    del eng, prof
+    gc.collect()
+
+    # offline: the whole graph at D = 2 alltoall against D = 1
+    store = as_store(g)
+    t_s = first_step_distance_quantile(store, cfg.r, 0.5)
+    onai = NAIConfig(t_s=t_s, t_min=1, t_max=3)
+    fnear = _full_graph_near(torch, store, cfg.r, t_s, 1, 3)
+    tmp = Path(tempfile.mkdtemp(dir=REPO / "build"))
+
+    def run(impl, ck, mesh=None, **kw):
+        return run_full_graph_infer(store, cfg, heads, onai, OfflineConfig(
+            ckpt_dir=str(tmp / ck), spmm_impl=impl, device=str(dev),
+            gather_mode="alltoall", watchdog_s=10.0, **kw), mesh=mesh)
+
+    def equal(a, b, impl):
+        keep = ~fnear if impl == "segment" else np.ones(store.n, bool)
+        return (np.array_equal(a.predictions[keep], b.predictions[keep])
+                and np.array_equal(a.exit_orders[keep],
+                                   b.exit_orders[keep]))
+
+    try:
+        for impl in ("block_ell", "fused", "segment"):
+            one = run(impl, f"{impl}-1")
+            two = run(impl, f"{impl}-2", meshes[2])
+            check(equal(two, one, impl), f"offline {impl} D=2 alltoall == "
+                  f"D=1 ({'outside the margin' if impl == 'segment' else 'bitwise'})")
+            try:
+                run(impl, f"{impl}-k", meshes[2], crash_after=1)
+                check(False, "offline D=2: crash_after=1 preempted the run")
+            except PreemptionSimulated:
+                pass
+            res = run(impl, f"{impl}-k", meshes[2])
+            check(res.stats["resumed_from"] == 1 and equal(res, two, impl),
+                  f"offline {impl} D=2: killed after superstep 1 and "
+                  f"resumed == uninterrupted")
+            print(f"offline {impl} D=1: {offline_times(one.stats)}")
+            print(f"offline {impl} D=2 alltoall: "
+                  f"{offline_times(two.stats)}; resumed: "
+                  f"{offline_times(res.stats)}")
+    finally:
+        shutil.rmtree(tmp)
+    launches = launch_counts(kernels)
+    print(f"sharded phase launches {launches}")
+    print(f"sharded phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def offline_phase(torch, dev, kernels, g, cfg, heads, scale_path, tmp):
     """Checkpointed full-graph inference (`run_full_graph_infer`) over the
     whole pubmed-like graph on block_ell, fused and segment (T_s the
@@ -1216,14 +1439,7 @@ def offline_phase(torch, dev, kernels, g, cfg, heads, scale_path, tmp):
         return (np.array_equal(pa[keep], pb[keep])
                 and np.array_equal(oa[keep], ob[keep]))
 
-    def times(st):
-        return (f"pack {st['pack_s']:.3f} s, {st['supersteps_run']} "
-                f"supersteps {st['compute_s']:.4f} s "
-                f"({st['compute_s'] / max(st['supersteps_run'], 1):.4f} s "
-                f"each) + to host {st['to_host_s']:.3f} s, checkpoints "
-                f"{st['ckpt_s']:.3f} s / {st['ckpt_bytes']} bytes, classify "
-                f"{st['classify_s']:.3f} s, total {st['total_s']:.3f} s, "
-                f"{st['nodes_per_s']:.1f} nodes/s")
+    times = offline_times
 
     results = {}
     for impl in ("block_ell", "fused", "segment"):

@@ -13,8 +13,9 @@ Two execution paths:
 * `make_compiled_infer` / `infer_batch_masked` — the device path: static
   shapes, a loop over orders with per-node active masks, compute saving at
   tile granularity through the kernels' row-block predication
-  (`repro_torch.gnn.backends`). PyTorch runs eagerly, so "compiled" names
-  the path, not a jit: each call launches its kernels directly.
+  (`repro_torch.gnn.backends`), on one device or over the shards of a
+  mesh. PyTorch runs eagerly, so "compiled" names the path, not a jit:
+  each call launches its kernels directly.
 
 Distances in the host path are float64 norms against T_s; the device path
 compares squared float32 distances against the squared threshold. Nodes
@@ -23,6 +24,7 @@ the two paths (`decision_distances` finds them).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import Dict, Optional, Tuple
@@ -30,10 +32,11 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
-from repro_torch.gnn.backends import get_backend, run_propagation
+from repro_torch.gnn.backends import (get_backend, mesh_devices,
+                                      normalize_mesh, run_propagation)
 from repro_torch.gnn.graph import Graph
 from repro_torch.gnn.models import Classifiers, GNNConfig, classification_macs
+from repro_torch.gnn.packing import shard_batch_perm
 from repro_torch.gnn.sampler import Support, sample_support
 from repro_torch.gnn.store import as_store
 
@@ -249,15 +252,24 @@ def infer_batch_masked(cfg: GNNConfig, nai: NAIConfig, sup_src, sup_dst,
                        sup_coef, x0, x_inf, n_batch: int, *,
                        spmm_impl: str = "segment", ell=None,
                        step_active=None, x_inf_factors=None,
-                       device="cuda"):
+                       device=None, mesh=None, halo_operands=None,
+                       gather_mode: str = "dense"):
     """Masked NAP over packed operands: returns (exit_order (n_batch,),
     batch-row series (T_max+1, n_batch, f)). `spmm_impl` names a
     registered backend — ``segment`` (edge list sup_src/sup_dst/sup_coef),
     ``block_ell`` (``ell=(tiles, tile_col, valid)`` + `step_active` from
     `repro_torch.gnn.packing.step_active_blocks`), or ``fused`` (the same
-    plus `x_inf_factors=(c, s)`)."""
+    plus `x_inf_factors=(c, s)`).
+
+    `mesh` (a mesh with a ``data`` axis; operands packed with
+    ``pack_support(n_shards=D)``) runs the same loop over the D shards;
+    results come back in the packed shard-major batch order (undo with
+    `repro_torch.gnn.packing.shard_batch_perm`). `gather_mode` picks the
+    per-step frontier exchange: ``dense``, or ``halo`` / ``alltoall``,
+    which need `halo_operands`, the ``halo_*`` arrays of a
+    ``pack_support(halo=True)`` pack (see `repro_torch.gnn.backends`)."""
     backend = get_backend(spmm_impl)
-    ops = {}
+    ops = dict(halo_operands or {})
     if backend.uses_tiles:
         if ell is None:
             raise ValueError(f"{spmm_impl} path needs ell="
@@ -273,7 +285,8 @@ def infer_batch_masked(cfg: GNNConfig, nai: NAIConfig, sup_src, sup_dst,
         ops["c_inf"], ops["s_inf"] = x_inf_factors
     if backend.uses_dense_x_inf:
         ops["x_inf"] = x_inf
-    return run_propagation(backend, nai, ops, x0, n_batch, device=device)
+    return run_propagation(backend, nai, ops, x0, n_batch, device=device,
+                           mesh=mesh, gather_mode=gather_mode)
 
 
 def classify_by_order(cfg: GNNConfig, t_max: int, classifiers: Classifiers,
@@ -292,35 +305,88 @@ def classify_by_order(cfg: GNNConfig, t_max: int, classifiers: Classifiers,
 
 
 def make_compiled_infer(cfg: GNNConfig, nai: NAIConfig, *,
-                        spmm_impl: str = "block_ell", device="cuda",
+                        spmm_impl: str = "block_ell", device=None,
+                        mesh=None, gather_mode: str = "dense",
                         return_series: bool = False):
     """Masked NAP propagation + per-order classification as one callable
     ``run(classifiers, operands, x0, x_inf) -> (predictions (nb,),
     exit_order (nb,))``, device tensors, returned without synchronising.
     `operands` is keyed as `repro_torch.gnn.backends.pack_operands` builds
     it; `x_inf` is the dense stationary state (its row count is the
-    padded batch size; a zero-column placeholder for ``fused``).
+    padded batch size; a zero-column placeholder for ``fused``). `device`
+    defaults to ``"cuda"``.
 
     `return_series=True` makes it return ``(predictions, exit_order,
     series (T_max+1, nb, f))``, the batch rows' propagation history that
     the propagated-feature cache fills from (steps 1..T_max of a batch row
     are exact global values: batch rows always propagate at full
-    budget)."""
+    budget).
+
+    `mesh` (a mesh with a ``data`` axis of size D > 1; operands from
+    ``pack_support(n_shards=D)``, with halo metadata unless `gather_mode`
+    is ``dense``) runs the loop over the D shards (`run_propagation`);
+    ``operands``, ``x0`` and ``x_inf`` may then also be the per-shard
+    dicts and row blocks of `shard_operands` (the serving engine places
+    them itself). Each shard classifies its own batch rows with a copy of
+    the heads on its device; predictions, exit orders and the series are
+    gathered on the mesh's first device and un-permuted back to the
+    original batch order, so they equal single-device serving's. At D = 1
+    every gather mode is the single-device path."""
     backend = get_backend(spmm_impl)
-    dev = resolve_device(device)
+    devs = mesh_devices(mesh, device)
+    mesh = normalize_mesh(mesh)
+    n_shards = len(devs)
+    if mesh is None:
+        gather_mode = "dense"
     tmax = nai.t_max
+    replicas: Dict[torch.device, Tuple[Classifiers, Classifiers]] = {}
+
+    def heads_on(classifiers: Classifiers):
+        """The heads on every shard's device: the module itself where it
+        lies there, else a copy made once per device (kept while the
+        engine passes the same module)."""
+        own = _classifier_device(classifiers)
+        out = []
+        for dev in devs:
+            if dev == own:
+                out.append(classifiers)
+                continue
+            src, rep = replicas.get(dev, (None, None))
+            if src is not classifiers:
+                rep = copy.deepcopy(classifiers).to(dev)
+                replicas[dev] = (classifiers, rep)
+            out.append(rep)
+        return out
 
     def classify(classifiers, exit_order, series):
         return classify_by_order(cfg, tmax, classifiers, exit_order, series)
 
     def run(classifiers, operands, x0, x_inf):
-        nb = x_inf.shape[0]
-        ops = dict(operands)
-        if backend.uses_dense_x_inf:
-            ops["x_inf"] = x_inf
+        parts = isinstance(x_inf, (list, tuple))
+        nb = sum(t.shape[0] for t in x_inf) if parts else x_inf.shape[0]
+        if parts:
+            ops = [dict(o) for o in operands]
+            if backend.uses_dense_x_inf:
+                for o, xi in zip(ops, x_inf):
+                    o["x_inf"] = xi
+        else:
+            ops = dict(operands)
+            if backend.uses_dense_x_inf:
+                ops["x_inf"] = x_inf
+        heads = classifiers if mesh is None else heads_on(classifiers)
         out = run_propagation(
-            backend, nai, ops, x0, nb, device=dev, classify=classify,
-            classifiers=classifiers, return_series=return_series)
-        return (out[1], out[0], *out[2:])
+            backend, nai, ops, x0, nb, device=devs[0], mesh=mesh,
+            gather_mode=gather_mode, classify=classify, classifiers=heads,
+            return_series=return_series)
+        exit_order, preds = out[0], out[1]
+        series = out[2] if return_series else None
+        if n_shards > 1:
+            # shard-major packed order -> original batch order
+            unperm = torch.from_numpy(shard_batch_perm(nb, n_shards)).to(
+                devs[0])
+            exit_order, preds = exit_order[unperm], preds[unperm]
+            if series is not None:
+                series = series[:, unperm]
+        return (preds, exit_order) + ((series,) if return_series else ())
 
     return run

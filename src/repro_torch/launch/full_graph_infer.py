@@ -1,5 +1,6 @@
 """Checkpointed, preemption-tolerant full-graph offline NAI inference on
-one device (the port of `repro.launch.full_graph_infer`).
+one device or over the shards of a mesh (the port of
+`repro.launch.full_graph_infer`).
 
 The serving stack answers per-batch queries; the paper's other product
 surface is the batch job — classify EVERY node of a `GraphStore` graph, at
@@ -46,15 +47,25 @@ Interrupted equals uninterrupted exactly on ``block_ell`` and ``fused``
 CUDA ``segment`` adds with atomics (``index_add_``), so its resumed run
 equals an uninterrupted one only outside a margin around the threshold.
 
-Single device: a mesh (``mesh=``), sharded packing and the gather modes
-are sharding (ROADMAP A7); at one device every gather mode is the dense
-one, as in the JAX package.
+Sharded (``mesh=``, a mesh with a ``data`` axis of D > 1 devices): the
+graph is packed with ``n_shards=D`` (and the halo frame unless
+``gather_mode`` is ``dense``), each shard's operands and state live on its
+device, and every superstep exchanges the frontier between shards
+(`repro_torch.gnn.backends`). The checkpoint holds the state in packed
+(shard-major) order, as the JAX package's does, with the shard count and
+gather mode in its fingerprint; predictions and exit orders are
+un-permuted to node order at the end, equal to the single-device run's.
+At D = 1 every gather mode is the dense one.
 
 CLI::
 
     PYTHONPATH=src python -m repro_torch.launch.full_graph_infer \\
         --store STORE_DIR --ckpt CKPT_DIR [--impl segment] [--t-max 3] \\
-        [--t-s 6.0 | --t-s-quantile 0.5] [--crash-after K] [--device cuda]
+        [--t-s 6.0 | --t-s-quantile 0.5] [--crash-after K] [--device cuda] \\
+        [--shards D --gather alltoall]
+
+``--shards D`` takes the first D GPUs (`make_serving_mesh`, which raises
+when fewer exist); with ``--device cpu`` the D shards share the CPU.
 
 Exit code 17 = simulated preemption (``--crash-after``): the run stopped
 on purpose after committing superstep K; rerun the same command to resume.
@@ -71,10 +82,13 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.gnn.backends import make_superstep, pack_operands
+from repro_torch.gnn.backends import (GATHER_MODES, make_superstep,
+                                      mesh_devices, normalize_mesh,
+                                      pack_operands, shard_operands,
+                                      split_rows)
 from repro_torch.gnn.distributed import graph_as_support, pack_graph
 from repro_torch.gnn.nai import classify_by_order, support_stationary_factors
-from repro_torch.gnn.packing import step_active_blocks
+from repro_torch.gnn.packing import shard_batch_perm, step_active_blocks
 from repro_torch.gnn.store import as_store
 from repro_torch.launch.checkpoint import (CheckpointCorruption,
                                            CheckpointError,
@@ -82,7 +96,6 @@ from repro_torch.launch.checkpoint import (CheckpointCorruption,
 from repro_torch.serving.faults import InjectedFault, WatchdogTimeout
 
 EXIT_PREEMPTED = 17
-GATHER_MODES = ("dense", "halo", "alltoall")
 
 
 class PreemptionSimulated(RuntimeError):
@@ -212,19 +225,20 @@ def _wait(ev, watchdog_s: float) -> bool:
 
 def run_full_graph_infer(store, cfg, classifiers, nai, ocfg: OfflineConfig,
                          *, mesh=None, fault_plan=None) -> OfflineResult:
-    """Classify every node of `store` with NAI on ``ocfg.device``,
-    checkpointing at superstep granularity. `cfg` / `classifiers` are the
-    model config and its trained per-order heads (`repro_torch.gnn.models`),
-    `nai` the `NAIConfig`, `ocfg` the job's knobs. Returns predictions and
-    exit orders of the n real nodes in store order, plus run stats (resume
-    point, fallbacks, straggler and watchdog counters, checkpoint
-    overhead)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded offline inference (mesh=) is not ported yet: "
-            "ROADMAP A7")
+    """Classify every node of `store` with NAI on ``ocfg.device``, or
+    over the shards of `mesh` (whose first device must be
+    ``ocfg.device``), checkpointing at superstep granularity. `cfg` /
+    `classifiers` are the model config and its trained per-order heads
+    (`repro_torch.gnn.models`), `nai` the `NAIConfig`, `ocfg` the job's
+    knobs. Returns predictions and exit orders of the n real nodes in
+    store order, plus run stats (resume point, fallbacks, straggler and
+    watchdog counters, checkpoint overhead)."""
     t_start = time.perf_counter()
     dev = resolve_device(ocfg.device)
+    devs = mesh_devices(mesh, dev)
+    mesh = normalize_mesh(mesh)
+    D = len(devs)
+    gather_mode = ocfg.gather_mode if D > 1 else "dense"
     store = as_store(store)
     tmax = nai.t_max
     injector = (fault_plan.injector()
@@ -232,8 +246,8 @@ def run_full_graph_infer(store, cfg, classifiers, nai, ocfg: OfflineConfig,
                 else None)
 
     t0 = time.perf_counter()
-    be, packed = pack_graph(store, 1, cfg.r, ocfg.spmm_impl,
-                            stationary=True)
+    be, packed = pack_graph(store, D, cfg.r, ocfg.spmm_impl,
+                            halo=gather_mode != "dense", stationary=True)
     sa = (step_active_blocks(packed.hop_rb, tmax)
           if be.uses_tiles else None)
     ops_np = pack_operands(be, packed, sa)
@@ -246,8 +260,8 @@ def run_full_graph_infer(store, cfg, classifiers, nai, ocfg: OfflineConfig,
         "store": store.name, "n": int(store.n),
         "num_edges": int(store.num_edges),
         "mutation_clock": int(store.mutation_clock),
-        "feat_dim": int(store.feat_dim), "shards": 1,
-        "impl": ocfg.spmm_impl, "gather_mode": "dense",
+        "feat_dim": int(store.feat_dim), "shards": D,
+        "impl": ocfg.spmm_impl, "gather_mode": gather_mode,
         "r": float(cfg.r), "t_s": float(nai.t_s),
         "t_min": int(nai.t_min), "t_max": int(tmax),
         "nb_pad": int(nb_pad), "n_pad": int(n_pad),
@@ -257,8 +271,9 @@ def run_full_graph_infer(store, cfg, classifiers, nai, ocfg: OfflineConfig,
                             injector=injector)
 
     stats: Dict = {
-        "n": int(store.n), "shards": 1, "impl": ocfg.spmm_impl,
-        "gather_mode": "dense", "t_max": tmax, "device": str(dev),
+        "n": int(store.n), "shards": D, "impl": ocfg.spmm_impl,
+        "gather_mode": gather_mode, "t_max": tmax, "device": str(dev),
+        "mesh": None if mesh is None else str(mesh),
         "nb_pad": int(nb_pad), "n_pad": int(n_pad),
         "resumed_from": None, "supersteps_run": 0, "corrupt_steps": 0,
         "fallbacks": [], "ckpt_write_failures": 0,
@@ -287,14 +302,23 @@ def run_full_graph_infer(store, cfg, classifiers, nai, ocfg: OfflineConfig,
 
     # ------------------------------------------------- superstep loop
     step_fn = make_superstep(be, nai, n_batch=nb_pad, n_rows=n_pad,
-                             device=dev)
-    ops_dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-               for k, v in ops_np.items()}
-    for k in ("src", "dst"):
-        if k in ops_dev:
-            ops_dev[k] = ops_dev[k].long()
-    x_dev = torch.from_numpy(np.ascontiguousarray(x_host)).to(dev)
-    eo_dev = torch.from_numpy(np.ascontiguousarray(eo_host)).to(dev)
+                             device=dev, mesh=mesh, gather_mode=gather_mode)
+    # the operands are placed once (sharded: each shard's on its device)
+    # and the state stays on the device(s) between supersteps
+    if mesh is None:
+        shards = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                   for k, v in ops_np.items()}]
+        x_dev = torch.from_numpy(np.ascontiguousarray(x_host)).to(dev)
+        eo_dev = torch.from_numpy(np.ascontiguousarray(eo_host)).to(dev)
+    else:
+        shards = shard_operands(ops_np, devs)
+        x_dev = split_rows(np.ascontiguousarray(x_host), devs)
+        eo_dev = split_rows(np.ascontiguousarray(eo_host), devs)
+    for o in shards:
+        for k in ("src", "dst"):
+            if k in o:
+                o[k] = o[k].long()
+    ops_dev = shards[0] if mesh is None else shards
     durations: List[float] = []
     if ocfg.crash_after is not None and ocfg.crash_after <= start:
         raise PreemptionSimulated(
@@ -317,9 +341,13 @@ def run_full_graph_infer(store, cfg, classifiers, nai, ocfg: OfflineConfig,
                 continue
             x_new, eo_new = step_fn(ops_dev, x_dev, eo_dev, l)
             if dev.type == "cuda":
-                ev = torch.cuda.Event()
-                ev.record()
-                if ocfg.watchdog_s > 0 and not _wait(ev, ocfg.watchdog_s):
+                evs = []
+                for d in dict.fromkeys(devs):
+                    ev = torch.cuda.Event()
+                    ev.record(torch.cuda.current_stream(d))
+                    evs.append(ev)
+                if ocfg.watchdog_s > 0 and not all(
+                        _wait(ev, ocfg.watchdog_s) for ev in evs):
                     stats["watchdog_retries"] += 1
                     if last:
                         raise WatchdogTimeout(
@@ -327,7 +355,8 @@ def run_full_graph_infer(store, cfg, classifiers, nai, ocfg: OfflineConfig,
                             f"{ocfg.watchdog_s}s watchdog on every "
                             f"attempt")
                     continue
-                ev.synchronize()
+                for ev in evs:
+                    ev.synchronize()
             break
         dur = time.perf_counter() - t0
         if len(durations) >= 2:
@@ -341,8 +370,12 @@ def run_full_graph_infer(store, cfg, classifiers, nai, ocfg: OfflineConfig,
         stats["supersteps_run"] += 1
         x_dev, eo_dev = x_new, eo_new
         t0 = time.perf_counter()
-        x_host = x_dev.cpu().numpy()
-        eo_host = eo_dev.cpu().numpy()
+        if mesh is None:
+            x_host = x_dev.cpu().numpy()
+            eo_host = eo_dev.cpu().numpy()
+        else:
+            x_host = torch.cat([t.cpu() for t in x_dev]).numpy()
+            eo_host = torch.cat([t.cpu() for t in eo_dev]).numpy()
         stats["to_host_s"] += time.perf_counter() - t0
         snaps[l] = x_host[:nb_pad]
         _save(mgr, l, x_host, eo_host, stats)
@@ -364,6 +397,10 @@ def run_full_graph_infer(store, cfg, classifiers, nai, ocfg: OfflineConfig,
             order = torch.from_numpy(eo_final[lo:hi]).to(dev)
             out = classify_by_order(cfg, tmax, classifiers, order, series)
             preds[lo:hi] = out.cpu().numpy()
+    if D > 1:
+        unperm = shard_batch_perm(nb_pad, D)
+        preds = preds[unperm]
+        eo_final = eo_final[unperm]
     n = store.n
     predictions = np.ascontiguousarray(preds[:n])
     exit_orders = np.ascontiguousarray(eo_final[:n])
@@ -397,13 +434,20 @@ def _main(argv=None) -> int:
     from repro_torch.gnn.nai import NAIConfig
     from repro_torch.gnn.store import MmapStore
 
+    from repro_torch.launch.mesh import make_serving_mesh
+
     ap = argparse.ArgumentParser(
         description="Offline checkpointed full-graph NAI inference over an "
-                    "on-disk GraphStore, on one device. Rerun the same "
-                    "command after a crash or preemption to resume from "
-                    "the last complete superstep.")
+                    "on-disk GraphStore, on one device or D shards. Rerun "
+                    "the same command after a crash or preemption to "
+                    "resume from the last complete superstep.")
     ap.add_argument("--store", required=True, help="MmapStore directory")
     ap.add_argument("--ckpt", required=True, help="checkpoint directory")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="row shards: the first D GPUs, or D shards on "
+                         "the CPU with --device cpu")
+    ap.add_argument("--gather", default="alltoall", choices=GATHER_MODES,
+                    help="frontier exchange between shards")
     ap.add_argument("--impl", default="segment",
                     choices=("segment", "block_ell", "fused"))
     ap.add_argument("--t-max", type=int, default=3)
@@ -444,12 +488,19 @@ def _main(argv=None) -> int:
     classifiers = init_classifiers(
         cfg, torch.Generator().manual_seed(args.seed), device=dev)
     nai = NAIConfig(t_s=t_s, t_min=args.t_min, t_max=args.t_max)
+    mesh = None
+    if args.shards > 1:
+        mesh = (make_serving_mesh(args.shards, devices=[dev] * args.shards)
+                if dev.type == "cpu" else make_serving_mesh(args.shards))
+        dev = mesh.devices[0]
     ocfg = OfflineConfig(ckpt_dir=args.ckpt, spmm_impl=args.impl,
-                         device=str(dev), resume=not args.no_resume,
+                         gather_mode=args.gather, device=str(dev),
+                         resume=not args.no_resume,
                          watchdog_s=args.watchdog_s,
                          crash_after=args.crash_after)
     try:
-        res = run_full_graph_infer(store, cfg, classifiers, nai, ocfg)
+        res = run_full_graph_infer(store, cfg, classifiers, nai, ocfg,
+                                   mesh=mesh)
     except PreemptionSimulated as e:
         print(f"PREEMPTED: {e}", flush=True)
         return EXIT_PREEMPTED

@@ -1,5 +1,4 @@
-"""Batched NAI serving engine (the port of `repro.serving.engine`,
-single device).
+"""Batched NAI serving engine (the port of `repro.serving.engine`).
 
 Requests (node ids) arrive on a queue; the batch former (`form_batch`)
 closes a batch on size OR age — a full `batch_size` immediately, a partial
@@ -62,8 +61,22 @@ sync: the engine polls the batch's CUDA event with ``query()`` until
 failed batch one attempt on the host path (`infer_batch_host`). Requests
 carry an absolute deadline and an SLO class tag, stamped by the
 front-end (`repro_torch.serving.frontend`); the engine itself is
-deadline-agnostic. The JAX engine's mesh (sharded serving) is not ported
-yet.
+deadline-agnostic.
+
+Sharded serving (``mesh=``, a mesh with a ``data`` axis of D > 1 devices,
+`repro_torch.launch.mesh.make_serving_mesh`; compiled mode only): the
+packer lays each batch out in D shard-major row blocks
+(``pack_support(n_shards=D)``, with the halo frame unless ``gather_mode``
+is ``dense``), the pool pins the whole buffer set, and `_device_stage`
+copies each shard's slice to its device (`shard_operands`). Every shard
+runs the kernels on its own tiles and the frontier it gathers each step
+(``gather_mode``: ``dense``, ``halo`` or ``alltoall``, see
+`repro_torch.gnn.backends`), classifies its own batch rows, and the
+results are gathered and un-permuted on the mesh's first device, so
+predictions and exit orders equal single-device serving's. One process
+drives every shard. `halo_stats` records the exchange's footprint; the
+cache is partitioned by shard (`PropCache(n_shards=D)`). A one-device
+mesh serves the plain path.
 """
 from __future__ import annotations
 
@@ -75,13 +88,15 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
-from repro_torch.gnn.backends import BACKENDS, get_backend, pack_operands
+from repro_torch.gnn.backends import (BACKENDS, GATHER_MODES,
+                                      exchange_bytes_per_step, get_backend,
+                                      mesh_devices, normalize_mesh,
+                                      pack_operands, shard_operands)
 from repro_torch.gnn.models import Classifiers, GNNConfig
 from repro_torch.gnn.nai import (NAIConfig, infer_batch_host,
                                  make_compiled_infer,
                                  support_stationary_factors)
-from repro_torch.gnn.packing import (PackedSupport, batch_bucket,
+from repro_torch.gnn.packing import (CB, PackedSupport, batch_bucket,
                                      pack_support, step_active_blocks)
 from repro_torch.gnn.propcache import PropCache
 from repro_torch.gnn.sampler import sample_support
@@ -95,10 +110,12 @@ class EngineConfig:
     """Validated serving-engine configuration."""
     mode: str = "host"               # "host" (numpy) | "compiled"
     spmm_impl: str = "block_ell"     # registered PropagationBackend name
+    gather_mode: str = "halo"        # sharded frontier exchange
     pipeline_depth: int = 1          # 1 = serial, 2 = one batch in flight
     max_wait_s: float = 0.01         # batch former age bound
     latency_window: int = 4096       # LatencyRing capacity
     nan_guard: bool = True           # finite/range check on synced results
+    mesh: object = None              # DeviceMesh with a "data" axis, or None
     # --- propagated-feature cache (repro_torch.gnn.propcache; 0 = off) ---
     cache_nodes: int = 0             # LRU capacity in cached nodes
     cache_fill: bool = True          # insert batch-row series after serving
@@ -113,12 +130,18 @@ class EngineConfig:
         if self.spmm_impl not in BACKENDS:
             raise ValueError(f"unknown spmm_impl {self.spmm_impl!r} "
                              f"(one of {sorted(BACKENDS)})")
+        if self.gather_mode not in GATHER_MODES:
+            raise ValueError(f"unknown gather_mode {self.gather_mode!r} "
+                             f"(one of {GATHER_MODES})")
         if self.pipeline_depth < 1:
             raise ValueError(f"pipeline_depth must be >= 1, got "
                              f"{self.pipeline_depth}")
         if self.pipeline_depth > 1 and self.mode != "compiled":
             raise ValueError("pipelining overlaps host pack with device "
                              "compute; mode='host' has no device stage")
+        if self.mesh is not None and self.mode != "compiled":
+            raise ValueError("sharded serving (mesh=) requires "
+                             "mode='compiled'")
         if self.cache_nodes < 0:
             raise ValueError(f"cache_nodes must be >= 0, got "
                              f"{self.cache_nodes}")
@@ -236,24 +259,40 @@ class _Inflight:
 
 # PackedSupport fields that travel to the device
 _UPLOADED = ("tiles", "tile_col", "valid", "src", "dst", "coef", "c_inf",
-             "s_inf", "x0", "x_inf", "seed_rows", "seed_vals")
+             "s_inf", "x0", "x_inf", "seed_rows", "seed_vals",
+             "halo_src_shard", "halo_src_block", "halo_send_block",
+             "halo_frame_src")
 
 
 class NAIServingEngine:
     def __init__(self, cfg: GNNConfig, nai: NAIConfig,
-                 classifiers: Classifiers, graph, *, device="cuda",
+                 classifiers: Classifiers, graph, *, device=None,
                  config: Optional[EngineConfig] = None, **kwargs):
         """`graph` is a `GraphStore` (or a raw `Graph`, wrapped via
-        `as_store`); `classifiers` the per-order heads, moved to `device`.
-        Engine options come either as one ``config=EngineConfig(...)`` or
-        as keyword arguments (``mode=``, ``spmm_impl=``, ...), never
-        both."""
+        `as_store`); `classifiers` the per-order heads, moved to `device`
+        (default ``"cuda"``; with a mesh, the mesh's first device, where
+        results are gathered). Engine options come either as one
+        ``config=EngineConfig(...)`` or as keyword arguments (``mode=``,
+        ``spmm_impl=``, ...), never both."""
         if config is not None and kwargs:
             raise ValueError(
                 f"pass either config=EngineConfig(...) or engine kwargs, "
                 f"not both (got kwargs {sorted(kwargs)})")
         ec = config if config is not None else EngineConfig(**kwargs)
-        self.device = resolve_device(device)
+        # a one-device mesh serves the plain path
+        self.mesh = normalize_mesh(ec.mesh)
+        self.devices = mesh_devices(ec.mesh, device)
+        self.device = self.devices[0]
+        self.n_shards = len(self.devices)
+        # the frontier exchange only exists across shards
+        self.gather_mode = ec.gather_mode if self.n_shards > 1 else "dense"
+        # per-step exchange footprint of the widest batch seen (sharded
+        # engines): rows each shard's step reads, true halo rows, padded
+        # support rows, their ratio, and the f32 bytes that cross between
+        # shards per step
+        self.halo_stats: Dict[str, float] = {
+            "gather_rows_per_step": 0, "halo_rows": 0, "s_pad": 0,
+            "halo_frac": 0.0, "exchange_bytes_per_step": 0}
         if self.device.type == "cuda":
             # the classifier matmuls run on the card: keep them IEEE f32
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -275,8 +314,11 @@ class NAIServingEngine:
                         if ec.faults is not None else None)
         self.queue: Deque[Request] = deque()
         self.stats = EngineStats(latencies=LatencyRing(ec.latency_window))
+        # sharded: partitioned so each shard's cache holds rows its shard
+        # owns (see PropCache.n_shards)
         self.cache: Optional[PropCache] = (
-            PropCache(ec.cache_nodes, nai.t_max) if ec.cache_nodes else None)
+            PropCache(ec.cache_nodes, nai.t_max, n_shards=self.n_shards)
+            if ec.cache_nodes else None)
         self.cache_fill = ec.cache_fill
         # support rows sampled vs rows propagated (the cache's saving)
         self.row_stats: Dict[str, int] = {"rows_support": 0,
@@ -285,22 +327,24 @@ class NAIServingEngine:
         # per-batch stage breakdown (host/dispatch/sync seconds), bounded
         self.batch_timings: Deque[Dict[str, float]] = deque(maxlen=1024)
         # bucket high-water marks keyed by padded batch size
-        # -> (s_bucket, tb_bucket, e_bucket, k_bucket)
-        self._bucket_hwm: Dict[int, Tuple[int, int, int, int]] = {}
+        # -> (s_bucket, tb_bucket, e_bucket, h_bucket, hb_bucket, k_bucket)
+        self._bucket_hwm: Dict[int, Tuple[int, ...]] = {}
         self._inflight: Deque[_Inflight] = deque()
         # rotating pack-buffer pool: bucket -> pipeline_depth + 1 slots,
         # with the pinned host tensors behind each slot's arrays and the
-        # event recorded after the slot's last host-to-device copies
+        # events (one per device) recorded after the slot's last
+        # host-to-device copies
         self._pack_pool: Dict[int, List[Optional[PackedSupport]]] = {}
         self._pool_idx: Dict[int, int] = {}
         self._pinned: Dict[Tuple[int, int], Dict[str, torch.Tensor]] = {}
-        self._copied: Dict[Tuple[int, int], torch.cuda.Event] = {}
+        self._copied: Dict[Tuple[int, int], List[torch.cuda.Event]] = {}
         self._backend = None
         self._runner = None
         if ec.mode == "compiled":
             self._backend = get_backend(ec.spmm_impl)
             self._runner = make_compiled_infer(
                 cfg, nai, spmm_impl=ec.spmm_impl, device=self.device,
+                mesh=self.mesh, gather_mode=self.gather_mode,
                 return_series=self.cache is not None)
 
     @property
@@ -376,15 +420,14 @@ class NAIServingEngine:
         else:
             x_inf = np.zeros((nb, 0), np.float32)
 
-        nb_bucket = batch_bucket(nb)
-        hwm = self._bucket_hwm.get(nb_bucket, (0, 0, 0, 0))
+        nb_bucket = batch_bucket(nb, self.n_shards)
+        hwm = self._bucket_hwm.get(nb_bucket, (0,) * 6)
         slots = self._pack_pool.setdefault(
             nb_bucket, [None] * (self.pipeline_depth + 1))
         idx = self._pool_idx.get(nb_bucket, 0)
         slot = (nb_bucket, idx)
-        copied = self._copied.pop(slot, None)
-        if copied is not None:
-            copied.synchronize()   # the slot's last copies have finished
+        for ev in self._copied.pop(slot, ()):
+            ev.synchronize()   # the slot's last copies have finished
         packed = pack_support(sup, x0, x_inf, nb_bucket=nb_bucket,
                               s_bucket=hwm[0], tb_bucket=hwm[1],
                               e_bucket=hwm[2],
@@ -392,10 +435,12 @@ class NAIServingEngine:
                               build_edges=be.uses_edges,
                               x_inf_factors=(c_inf, s_inf)
                               if be.uses_factors else None,
-                              out=slots[idx],
+                              out=slots[idx], n_shards=self.n_shards,
+                              halo=self.gather_mode != "dense",
+                              h_bucket=hwm[3], hb_bucket=hwm[4],
                               seeds=(sup.hit, sup.seed_vals)
                               if self.cache is not None else None,
-                              k_bucket=hwm[3])
+                              k_bucket=hwm[5])
         slots[idx] = packed
         self._pool_idx[nb_bucket] = (idx + 1) % len(slots)
         self.pack_stats["reuses" if packed.reused else "allocs"] += 1
@@ -403,7 +448,12 @@ class NAIServingEngine:
             self._pinned[slot] = self._pin(packed)
         self._bucket_hwm[nb_bucket] = (
             max(hwm[0], packed.n_pad), max(hwm[1], packed.tiles.shape[1]),
-            max(hwm[2], packed.src.shape[-1]), max(hwm[3], packed.seed_pad))
+            max(hwm[2], packed.src.shape[-1]),
+            max(hwm[3], packed.n_halo_pad),
+            max(hwm[4], packed.halo_send_pad),
+            max(hwm[5], packed.seed_pad))
+        if self.mesh is not None:
+            self._record_halo(packed)
         step_active = (step_active_blocks(packed.hop_rb, nai.t_max)
                        if be.uses_tiles else None)
         fill = None
@@ -413,30 +463,56 @@ class NAIServingEngine:
             fill = (nodes, sup.nodes, sup.graph_version)
         return packed, step_active, slot, fill
 
+    def _record_halo(self, packed: PackedSupport) -> None:
+        """Fold one sharded pack into `halo_stats` (structural: the rows
+        each shard's step reads against the true boundary and the dense
+        S_pad, and the bytes the mode moves between shards per step)."""
+        halo_on = packed.halo_src_shard is not None
+        hs = self.halo_stats
+        for k, v in (
+                ("gather_rows_per_step",
+                 packed.n_halo_pad * CB if halo_on else packed.n_pad),
+                ("halo_rows", packed.halo_rows if halo_on else packed.n_pad),
+                ("s_pad", packed.n_pad),
+                ("halo_frac", packed.halo_frac if halo_on else 1.0),
+                ("exchange_bytes_per_step", exchange_bytes_per_step(
+                    self.gather_mode, self.n_shards, packed.n_pad,
+                    packed.x0.shape[1], packed.halo_send_pad))):
+            hs[k] = max(hs[k], v)
+
     # ----------------------------------------------------- device stage
     def _device_stage(self, packed: PackedSupport,
                       step_active: Optional[np.ndarray], slot):
-        """Copy the operands to the device, launch the masked NAP loop and
-        the classifiers, and start copying the results back. Returns
-        (preds, orders, series, done) without waiting for the card: host
-        tensors valid once the CUDA event `done` has fired (None on the
-        CPU, where they are ready on return); `series` is the batch rows'
-        steps 1..T_max with the cache on, else None."""
+        """Copy the operands to the device (sharded: each shard's slice to
+        its device), launch the masked NAP loop and the classifiers, and
+        start copying the results back. Returns (preds, orders, series,
+        done) without waiting for the card: host tensors valid once the
+        CUDA event `done` has fired (None on the CPU, where they are ready
+        on return); `series` is the batch rows' steps 1..T_max with the
+        cache on, else None."""
         dev = self.device
         arrays = pack_operands(self._backend, packed, step_active)
         arrays.update(x0=packed.x0, x_inf=packed.x_inf)
         pinned = self._pinned.get(slot, {})
-        on_dev = {}
-        for name, arr in arrays.items():
-            host = pinned.get(name)
-            if host is None:
-                host = torch.from_numpy(arr)
-            on_dev[name] = host.to(dev, non_blocking=True)
+        host = {name: pinned[name] if name in pinned
+                else torch.from_numpy(arr) for name, arr in arrays.items()}
+        if self.mesh is None:
+            on_dev = {name: t.to(dev, non_blocking=True)
+                      for name, t in host.items()}
+            x0, x_inf = on_dev.pop("x0"), on_dev.pop("x_inf")
+        else:
+            on_dev = shard_operands(host, self.devices, non_blocking=True)
+            x0 = [o.pop("x0") for o in on_dev]
+            x_inf = [o.pop("x_inf") for o in on_dev]
         if dev.type == "cuda":
-            copied = torch.cuda.Event()
-            copied.record()
+            # one event per device: the next pack into this slot waits for
+            # every copy out of its pinned buffers
+            copied = []
+            for d in dict.fromkeys(self.devices):
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(d))
+                copied.append(ev)
             self._copied[slot] = copied
-        x0, x_inf = on_dev.pop("x0"), on_dev.pop("x_inf")
         out = self._runner(self.classifiers, on_dev, x0, x_inf)
         if self.cache is not None:
             out = (*out[:2], out[2][1:])

@@ -17,7 +17,7 @@ The front-end turns the former into the latter:
 * **SLO classes** — T_max and T_min are the paper's knobs of the
   accuracy/latency trade-off; each class (``gold`` / ``best_effort``)
   routes to its own `NAIServingEngine` at the class's `NAIConfig`, all on
-  one device and sharing one set of per-order heads (`Classifiers`): gold
+  one device (or mesh) and sharing one set of per-order heads (`Classifiers`): gold
   at a high T_max, best-effort at T_max = T_min.
 * **Circuit breaker** — with a `BreakerConfig`, a class whose terminal
   outcomes go bad (failures, and deadline misses if counted) opens its
@@ -230,22 +230,23 @@ class ClassStats:
 
 class ServingFrontend:
     """Routes single requests into per-SLO-class `NAIServingEngine`s on
-    one device.
+    one device, or on one mesh of shards (``mesh=``).
 
     ``classes`` is an ordered sequence of `SLOClass`; the first is the
     default routing target. ``classifiers`` is the trained per-order heads
     (`Classifiers`), shared by every class engine: a class at T_max = l
     classifies with heads 1..l. The base engine configuration comes either
     as one ``engine=EngineConfig(...)`` or as keyword arguments
-    (``mode=``, ``spmm_impl=``, ...), not both. Each class engine gets the
+    (``mode=``, ``spmm_impl=``, ``mesh=``, ...), not both. Each class engine gets the
     base config (or the class's own ``engine``) with the class's
-    `NAIConfig` and `max_wait_s` put in, on ``device``."""
+    `NAIConfig` and `max_wait_s` put in, on ``device`` (default
+    ``"cuda"``; with a mesh, the mesh's first device)."""
 
     def __init__(self, cfg, classifiers, graph,
                  classes: Sequence[SLOClass], *,
                  engine: Optional[EngineConfig] = None,
                  breaker: Optional[BreakerConfig] = None,
-                 device="cuda", mode: str = "compiled",
+                 device=None, mode: str = "compiled",
                  pipeline_depth: int = 1, latency_window: int = 4096,
                  **engine_kwargs):
         if not classes:

@@ -1,7 +1,8 @@
 """The CUDA kernels B1-B5 on the card, against their plain PyTorch
-versions, the port's engine end to end on the card, and training on the
+versions, the port's engine end to end on the card, training on the
 card (AdamW steps against the CPU's at rtol 1e-4, TF32 off; `train_nai`
-with CUDA-generator dropout, its heads served). Marked `cuda`;
+with CUDA-generator dropout, its heads served), and D = 2 and 4 shards
+on the one card equal to one device bit for bit on B1 + B3 and B2. Marked `cuda`;
 each test skips (from its fixture) where no GPU is present. Run on a GPU
 machine with
 
@@ -47,7 +48,9 @@ from repro_torch.kernels.spmm import (CB, RB, nonfinite_blocks,
 from repro_torch.kernels.wkv6 import ref_wkv6, wkv6, wkv6_heads
 from repro_torch.serving import NAIServingEngine
 
-from torch_parity import assert_orders_match, near_threshold
+from torch_parity import (assert_orders_match, near_threshold,
+                          plant_remote_nonfinite, sharded_pack_pair,
+                          step_operands)
 
 pytestmark = pytest.mark.cuda
 
@@ -757,3 +760,38 @@ def test_offline_resume_equals_uninterrupted_on_card(cuda, impl, tmp_path):
         assert res.stats["resumed_from"] == k
         np.testing.assert_array_equal(res.predictions, ref.predictions)
         np.testing.assert_array_equal(res.exit_orders, ref.exit_orders)
+
+
+@pytest.mark.parametrize("impl", ["block_ell", "fused"])
+@pytest.mark.parametrize("D,gather_mode", [(2, "dense"), (2, "halo"),
+                                           (2, "alltoall"), (4, "halo"),
+                                           (4, "alltoall")])
+def test_sharded_propagation_bitwise_on_card(cuda, impl, D, gather_mode):
+    """D shards on the one card (a mesh that repeats cuda:0): B1 + B3 or
+    B2 per shard, on its tiles and the frontier it gathers, equal the
+    single-device loop on the card bit for bit — also with NaN, +Inf and
+    -Inf planted in a row of shard 1 that shard 0 reads, which reaches
+    shard 0's kernels through the exchanged flags; each kernel launched D
+    times per step."""
+    from repro_torch.gnn.backends import run_propagation
+    from repro_torch.gnn.packing import shard_batch_perm
+    from repro_torch.launch.mesh import make_serving_mesh
+    g = load_dataset("pubmed-like", scale=0.1, seed=0)
+    nai = NAIConfig(t_s=20.0, t_min=1, t_max=3)
+    be, base, sh = sharded_pack_pair(g, impl, D, gather_mode,
+                                     batch_size=64, seed=2, t_max=3)
+    mesh = make_serving_mesh(D, devices=(cuda,) * D)
+    perm = torch.from_numpy(shard_batch_perm(sh.n_batch, D)).to(cuda)
+    kernel = nap_step_fused if impl == "fused" else spmm_block_ell
+    for xb, xs in ((base.x0, sh.x0), plant_remote_nonfinite(base, sh)):
+        eo1, s1 = run_propagation(be, nai, step_operands(be, base, 3), xb,
+                                  base.n_batch, device=cuda)
+        before = kernel.launches
+        eo2, s2 = run_propagation(be, nai, step_operands(be, sh, 3), xs,
+                                  sh.n_batch, mesh=mesh,
+                                  gather_mode=gather_mode)
+        assert kernel.launches - before == 3 * D
+        assert torch.equal(eo2[perm], eo1)
+        assert torch.equal(s2[:, perm].view(torch.int32),
+                           s1.view(torch.int32))
+    assert torch.isnan(s1).any() and torch.isinf(s1).any()

@@ -36,8 +36,8 @@ from repro.serving.faults import FaultPlan as JPlan
 from repro.serving.faults import FaultSpec as JSpec
 
 from repro_torch.gnn import GNNConfig, NAIConfig, params_from_numpy
-from repro_torch.gnn.backends import (get_backend, make_superstep,
-                                      pack_operands, run_propagation)
+from repro_torch.gnn.backends import (make_superstep, pack_operands,
+                                      run_propagation)
 from repro_torch.gnn.distributed import graph_as_support, pack_graph
 from repro_torch.gnn.nai import make_compiled_infer
 from repro_torch.gnn.packing import step_active_blocks
@@ -279,21 +279,6 @@ def test_pack_graph_array_equal(setup, impl, stationary):
 def test_first_step_quantile_matches_jax(setup):
     assert setup["t_s"] == pytest.approx(
         j_quantile(setup["jstore"], 0.5, 0.5), rel=1e-6)
-
-
-def test_sharding_raises_not_implemented(setup, tmp_path):
-    with pytest.raises(NotImplementedError, match="A7"):
-        pack_graph(setup["store"], 2)
-    with pytest.raises(NotImplementedError, match="A7"):
-        pack_graph(setup["store"], 1, halo=True)
-    with pytest.raises(NotImplementedError, match="A7"):
-        make_superstep(get_backend("segment"), setup["nai"], n_batch=8,
-                       n_rows=128, device="cpu", gather_mode="alltoall")
-    with pytest.raises(NotImplementedError, match="A7"):
-        run_full_graph_infer(setup["store"], setup["cfg"], setup["heads"],
-                             setup["nai"],
-                             OfflineConfig(ckpt_dir=str(tmp_path),
-                                           device="cpu"), mesh=object())
 
 
 # ------------------------------------------------------- supersteps

@@ -67,7 +67,7 @@ def test_port_modules_load_no_jax_at_run_time():
             "repro_torch.launch.serve, repro_torch.launch.train, "
             "repro_torch.serving.faults, repro_torch.serving.frontend, "
             "repro_torch.gnn.distributed, repro_torch.launch.checkpoint, "
-            "repro_torch.launch.full_graph_infer; "
+            "repro_torch.launch.full_graph_infer, repro_torch.launch.mesh; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
