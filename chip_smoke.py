@@ -94,6 +94,33 @@ fails (non-zero exit, no result line) on any failed check:
    f32 (a path with no kernel), for the f32 and for the bf16 prefill;
    with the bf16-against-f32 error of the last logits after 1, 2, 4, 8,
    16 and all layers;
+   then the MoE models (`moe_phase`, ROADMAP A10.1), after the dense ones
+   are freed: dbrx-132b (16 experts top-4, SwiGLU experts, layernorm) and
+   grok-1-314b (8 experts top-2, gated tanh-GELU experts, attention and
+   final logit soft-caps 30) at full width in bf16, their depth cut to 6
+   of 40 and 4 of 64 layers so that the weights (41.6 and 42.6 GB) fit
+   the card, random weights (conditioned as above); the parameter
+   arithmetic is checked against `count_params` and printed. For each:
+   (a) B4 against its plain version on the first layer's q, k, v at the
+   prefill's shape (4 x 2048, 48 / 8 heads, hd 128, causal, grok's cap),
+   timed beside the plain version, SDPA (which has no cap) and the kernel
+   with the cap off, with the largest |logit|; for grok first on the
+   unconditioned projections, whose logits reach the thousands, where the
+   kernel must be far from the uncapped plain version; (b) the main path:
+   prefill 4 x 2048 (B4 once per layer, no other kernel) and 32 greedy
+   decode steps from its cache, tokens/s, ms per step, peak memory and
+   each layer's share of assignments dropped by the capacity (C = 640);
+   (c) 8 requests through `LMServingEngine` as above; (d) the gates on
+   2 x 2200 tokens (not a multiple of 128: B4 pads): the reference is an
+   f32 prefill through the plain attention (the reference's `_sdpa`, no
+   kernel) and one decode step from its cache, made one layer at a time
+   from f32 copies of that layer's weights (the f32 model would take 83-85
+   GB); the same layers through B4's f32 kernel, and the bf16 model
+   through `prefill_step` / `decode_step`, are held against it, with the
+   share of the last position's top-k expert choices that bf16 and f32
+   agree on. (Token-by-token decoding is no reference here: decode routes
+   the batch as one row at capacity 8, the prefill each sequence at
+   ~688, so they drop different assignments, in the reference too.)
 5. train (`train_phase`, last, so that nothing it leaves behind runs
    beside the LM timings): the paper's training procedure (`train_nai`,
    Inception Distillation, `DistillConfig()`'s 300/200/200 epochs) on the
@@ -146,7 +173,10 @@ orders through every layer); for the bf16 paths 1.0 (rwkv6-3b) and 0.03
 significant bits, and random weights amplify its rounding with depth, as
 the by-depth line shows: rwkv6-3b's error doubles with each doubling of
 the depth, to 0.52 at 32 layers, where unrelated logits would give
-1.41).
+1.41). The MoE gates: 1e-3 for the f32 kernel path against the f32 plain
+path; for bf16, MOE_BF16_REL, about twice what an H100 gave (bf16 and
+f32 chose the same experts there; a bf16 rounding that flips a near-tied
+top-k choice sends that token to another expert and moves the error).
 
 The second-to-last line is a JSON object {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.
@@ -1989,13 +2019,15 @@ def condition_weights(torch, cfg, model, generator) -> None:
     attention projections from the heads axis, so random q.k logits run
     into the thousands and the banded softmax is a hard max whose winner
     rounding flips: scale wq, wk, wv to a fan-in of d (by a power of two
-    at the two configs' widths, exact in bf16)."""
+    at rwkv6-3b's and recurrentgemma-9b's widths, exact in bf16; by
+    2^-3.5 and 768^-0.5, rounded to bf16, at dbrx-132b's and
+    grok-1-314b's)."""
     with torch.no_grad():
         for p, kind in zip(model.layers, cfg.layer_kinds):
             for name, w in p.named_parameters():
                 if name.rsplit(".", 1)[-1].startswith("mu_"):
                     w.uniform_(0.0, 1.0, generator=generator)
-            if kind in ("local", "attn"):
+            if kind in ("local", "attn", "attn_moe"):
                 p["attn"]["wq"].mul_((cfg.num_heads / cfg.d_model) ** 0.5)
                 for w in ("wk", "wv"):
                     p["attn"][w].mul_((cfg.num_kv_heads / cfg.d_model) ** 0.5)
@@ -2013,7 +2045,7 @@ def depth_logits(torch, cfg, model, toks, depths):
     with torch.no_grad():
         x = M._embed_tokens(cfg, model, toks)
         for i, (p, kind) in enumerate(zip(model.layers, cfg.layer_kinds), 1):
-            x, _ = TB.apply_layer(cfg, kind, p, x, positions=pos)
+            x, _, _ = TB.apply_layer(cfg, kind, p, x, positions=pos)
             if i in depths:
                 h = apply_norm(cfg, model["final_norm"], x[:, -1:])
                 out[i] = M._project_logits(cfg, model, h)[:, 0].float()
@@ -2106,8 +2138,8 @@ def lm_phases(torch, dev, kernels, arch, batch, seq, gate_seq, bf16_rel,
             kname = "flash_attention"
             i_loc = cfg.layer_kinds.index("local")
             for i in range(i_loc):
-                x, _ = TB.apply_layer(cfg, cfg.layer_kinds[i],
-                                      model.layers[i], x, positions=pos)
+                x, _, _ = TB.apply_layer(cfg, cfg.layer_kinds[i],
+                                         model.layers[i], x, positions=pos)
             p = model.layers[i_loc]
             q, k, v = (a.contiguous() for a in attention._project_qkv(
                 cfg, p["attn"], apply_norm(cfg, p["norm1"], x), pos))
@@ -2284,6 +2316,329 @@ def lm_phases(torch, dev, kernels, arch, batch, seq, gate_seq, bf16_rel,
     return row
 
 
+MOE_LAYERS = {"dbrx-132b": 6, "grok-1-314b": 4}   # of 40 and 64: one card
+# bf16 limits of the MoE gates: about twice the largest error an H100 gave
+# (dbrx 0.01007, grok 0.005629; "NVIDIA H100 80GB HBM3, 700.00 W")
+MOE_BF16_REL = {"dbrx-132b": 0.02, "grok-1-314b": 0.012}
+
+
+def f32_copy(torch, group):
+    """A nested dict of f32 copies of a `ParamGroup`'s parameters."""
+    return {n: (f32_copy(torch, group[n])
+                if isinstance(group[n], torch.nn.Module)
+                else group[n].float()) for n in group.defs}
+
+
+def moe_layer(torch, cfg, p, x, pos, plain):
+    """One `attn_moe` layer from the module functions, in the order
+    `apply_layer` runs them, with its attention through B4 or (`plain`)
+    through the reference's formula `_sdpa` under a causal mask, where no
+    kernel runs. Returns (x, (k, v), the last position's top-k experts)."""
+    from repro_torch.nn import attention, moe
+    from repro_torch.nn.basic import apply_norm
+    xa = apply_norm(cfg, p["norm1"], x)
+    if plain:
+        S = x.shape[1]
+        q, k, v = attention._project_qkv(cfg, p["attn"], xa, pos)
+        h = attention._sdpa(cfg, q, k, v, attention.causal_mask(
+            S, S, device=x.device))
+        h = torch.einsum("bshe,hed->bsd", h, p["attn"]["wo"])
+        del q
+    else:
+        h, (k, v) = attention.self_attention(cfg, p["attn"], xa, pos)
+    x = x + h
+    xn = apply_norm(cfg, p["norm2"], x)
+    y, _ = moe.apply_moe(cfg, p["moe"], xn)
+    return x + y, (k, v), moe.route(cfg, p["moe"], xn[:, -1:])[2][:, 0]
+
+
+def attention_check(torch, dev, cfg, q, k, v, label, cap_acts=False):
+    """B4 against its plain version on one layer's q, k, v, timed beside
+    the plain version, SDPA (causal, GQA; it has no soft-cap, so for a
+    capped config it computes the uncapped function) and the kernel with
+    the cap off; prints the largest |logit| and, with a cap, the kernel's
+    distance to the uncapped plain version, which must be far outside the
+    tolerance where `cap_acts`.
+
+    Tolerance, twice the bound of the kernel's roundings: P rounded to
+    bf16 moves the output by at most 2^-9 of the largest |v| (the output
+    is a convex combination of rows of v), and each output is rounded to
+    bf16 (2^-9 of |out| each): atol = 2^-8 max|v|, rtol = 2^-7 (the
+    unconditioned projections' v reach ~100, where a bf16 step is 0.5)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     ref_attention)
+    cap = cfg.attn_logit_softcap
+    out = flash_attention(q, k, v, softcap=cap)
+    ref = ref_attention(q, k, v, softcap=cap)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    v_max = float(v.float().abs().max())
+    atol = 2.0 ** -8 * v_max
+    check(torch.allclose(out.float(), ref.float(), rtol=2.0 ** -7,
+                         atol=atol),
+          f"{label}: flash_attention vs plain, max abs err {err} (largest "
+          f"|v| {v_max})")
+    B_, S_, H, hd = q.shape
+    KV = k.shape[2]
+    lg = torch.einsum("qhd,khd->hqk", q[0].float(),
+                      k[0].float().repeat_interleave(H // KV, 1)) / hd ** 0.5
+    lg.masked_fill_(~torch.ones((S_, S_), dtype=torch.bool,
+                                device=dev).tril(), 0.0)
+    max_logit = float(lg.abs().max())
+    del lg
+    line = (f"{label}: B {B_}, S {S_}, {H} q heads, {KV} kv heads, hd {hd}, "
+            f"causal, soft-cap {cap}; largest |logit| (batch 0) "
+            f"{max_logit:.4g}; max abs err vs plain {err:.3g} of values up "
+            f"to {float(ref.float().abs().max()):.3g} (largest |v| "
+            f"{v_max:.3g}, atol {atol:.3g})")
+    if cap:
+        far = float((out.float() - ref_attention(q, k, v).float()
+                     ).abs().max())
+        line += f"; vs the uncapped plain version {far:.3g}"
+        check(far > 10 * atol or not cap_acts,
+              f"{label}: the cap acts (kernel {far} from the uncapped plain "
+              f"version)")
+    print(line)
+    flops = 4 * B_ * H * band_pairs(S_, 0) * hd
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    t = timings(torch, lambda: flash_attention(q, k, v, softcap=cap),
+                lambda: ref_attention(q, k, v, softcap=cap), library,
+                plain_reps=5)
+    t["uncapped_ms"] = time_ms(torch, lambda: flash_attention(q, k, v))
+    ms, by = bound(nbytes, flops, PEAK_BF16_FLOP_S)
+    print(f"{label} timings: kernel {t['ms']:.4f} ms "
+          f"({flops / t['ms'] / 1e9:.1f} TFLOP/s, {ms / t['ms']:.1%} of "
+          f"its bound {ms:.4f} ms, {by}); the kernel without the cap "
+          f"{t['uncapped_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; SDPA "
+          f"{t['library_ms']:.4f} ms{' (uncapped)' if cap else ''}")
+
+
+def moe_phase(torch, dev, kernels, arch, bf16_rel, smi_line):
+    """An MoE model (ROADMAP A10.1) at full width, its depth cut to
+    MOE_LAYERS[arch] so that the bf16 weights fit the card, random
+    weights from a CUDA generator seeded 0 (conditioned as
+    `condition_weights` says): (a) B4 on the first layer's real q, k, v
+    at the prefill's shape (for a capped config also on the unconditioned
+    projections, whose logits reach the thousands); (b) the main path,
+    prefill 4 x 2048 + 32 greedy decode steps, with the share of
+    assignments the capacity dropped per layer; (c) the engine; (d) the
+    end-to-end gates on 2 x 2200 tokens against an f32 prefill through
+    the plain attention, made one layer at a time from f32 copies of that
+    layer's weights (the f32 model does not fit). Returns B4's launches
+    in the prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.models import decoder_lm as M
+    from repro_torch.nn import attention, moe
+    from repro_torch.nn import blocks as TB
+    from repro_torch.nn.basic import apply_norm
+    from repro_torch.nn.params import count_params
+    from repro_torch.serving import LMServingEngine
+
+    phase(f"moe {arch}")
+    torch.cuda.empty_cache()
+    print(f"device memory allocated before the model: "
+          f"{torch.cuda.memory_allocated()} bytes")
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=MOE_LAYERS[arch])
+    batch, seq, n_dec, gate_seq = 4, 2048, 32, 2200
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(0)
+    model = M.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    d, E, f, V = cfg.d_model, cfg.num_experts, cfg.d_ff, cfg.vocab_size
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    experts = 3 * E * d * f
+    per_layer = experts + 2 * d * H * hd + 2 * d * KV * hd + d * E + (
+        4 * d if cfg.norm_kind == "layernorm" else 2 * d)
+    outer = 2 * V * d + (2 * d if cfg.norm_kind == "layernorm" else d)
+    n_par = count_params(model)
+    check(n_par == cfg.num_layers * per_layer + outer
+          and count_params(model.layers[0]) == per_layer,
+          f"{arch} parameter count {n_par}")
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"{arch}: {cfg.num_layers} of {full.num_layers} layers (reduced "
+          f"depth), d_model {d}, {H}/{KV} heads of {hd}, {E} experts top-"
+          f"{cfg.experts_per_token}, d_ff {f}, {cfg.mlp_kind}, "
+          f"{cfg.norm_kind}, vocab {V}, soft-caps {cfg.attn_logit_softcap}"
+          f" / {cfg.final_logit_softcap}: {per_layer:.4g} parameters a "
+          f"layer (experts {experts:.4g}), embed and head {outer:.4g}, "
+          f"{n_par} in all ({n_par:.4g}), {n_bytes} bytes "
+          f"({cfg.param_dtype}); made in {time.perf_counter() - t0:.1f}s")
+    prompts = torch.from_numpy(synthetic_lm_batch(
+        np.random.default_rng(0), batch, max(seq, gate_seq + 1),
+        cfg.vocab_size)["tokens"]).long().to(dev)
+    toks = prompts[:, :seq]
+    pos = torch.arange(seq, device=dev)[None].expand(batch, seq)
+
+    # ---- (a) B4 on the first layer's real operands (for a capped config
+    # first on the unconditioned projections)
+    def first_qkv():
+        p = model.layers[0]
+        with torch.no_grad():
+            x = apply_norm(cfg, p["norm1"], M._embed_tokens(cfg, model, toks))
+            return [a.contiguous() for a in attention._project_qkv(
+                cfg, p["attn"], x, pos)]
+    if cfg.attn_logit_softcap:
+        attention_check(torch, dev, cfg, *first_qkv(),
+                        f"flash_attention {arch} unconditioned",
+                        cap_acts=True)
+        torch.cuda.empty_cache()
+    condition_weights(torch, cfg, model, gen)
+    attention_check(torch, dev, cfg, *first_qkv(), f"flash_attention {arch}")
+    torch.cuda.empty_cache()
+
+    # ---- (b) the main path: prefill, then greedy decode from its cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    moe.apply_moe.drops = []
+    t0 = time.perf_counter()
+    last, cache = M.prefill_step(cfg, model, toks, length=seq + n_dec)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    drops, moe.apply_moe.drops = moe.apply_moe.drops, None
+    tok = last.argmax(-1, keepdim=True)
+    t0 = time.perf_counter()
+    for t in range(seq, seq + n_dec):
+        logits, cache = M.decode_step(cfg, model, cache, tok, t)
+        tok = logits[:, 0].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    launches = launch_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["flash_attention"] == cfg.num_layers and all(
+        v == 0 for n, v in launches.items() if n != "flash_attention"),
+        f"{arch} prefill launched flash_attention once per layer "
+        f"({launches})")
+    check(bool(torch.isfinite(last).all()) and last.shape == (batch, V)
+          and bool(torch.isfinite(logits).all()),
+          f"{arch} prefill and decode logits finite, shaped")
+    share = [int(n) / total for n, total in drops]
+    check(len(share) == cfg.num_layers, f"{arch}: one MoE call a layer")
+    rates = dict(prefill=batch * seq / t_prefill,
+                 decode=batch * n_dec / t_decode)
+    print(f"{arch} prefill {batch} x {seq}: {t_prefill:.3f} s, "
+          f"{rates['prefill']:.1f} tokens/s; flash_attention launches "
+          f"{launches['flash_attention']}; capacity {moe._capacity(cfg, seq)}"
+          f" slots an expert a row; share of assignments dropped, by layer: "
+          + ", ".join(f"{s:.4f}" for s in share))
+    print(f"{arch} decode {n_dec} tokens x {batch}: {t_decode:.3f} s, "
+          f"{rates['decode']:.1f} tokens/s ({1e3 * t_decode / n_dec:.2f} "
+          f"ms per step); peak memory {peak} bytes")
+    step_profile(torch, lambda: M.decode_step(cfg, model, cache, tok,
+                                              seq + n_dec - 1),
+                 f"{arch} decode")
+    del cache, logits
+    torch.cuda.empty_cache()
+
+    # ---- (c) the engine: 8 requests, 4 slots, 32-token prompts, 16 new
+    eng = LMServingEngine(cfg, model, slots=4, max_len=128, device=dev)
+    for prompt in synthetic_lm_batch(np.random.default_rng(1), 8, 32,
+                                     V)["tokens"]:
+        eng.submit(prompt.tolist(), max_new=16)
+    t0 = time.perf_counter()
+    stats = eng.run_until_drained()
+    torch.cuda.synchronize()
+    t_eng = time.perf_counter() - t0
+    check(stats["completed"] == 8 and all(len(r.out) == 16
+                                          for r in eng.completed),
+          f"{arch} engine served every request in full ({stats})")
+    rates["engine"] = 8 * 16 / t_eng
+    print(f"{arch} engine: 8 requests in {stats['ticks']} ticks, "
+          f"{t_eng:.3f} s, {rates['engine']:.1f} generated tokens/s")
+    print(f"{arch} rates: prefill {rates['prefill']:.1f} tokens/s, decode "
+          f"{1e3 * t_decode / n_dec:.2f} ms per step "
+          f"({rates['decode']:.1f} tokens/s), engine {rates['engine']:.1f} "
+          f"tokens/s, peak memory {peak / 1e9:.2f} GB; {smi_line}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # ---- (d) end to end on 2 x gate_seq tokens (not a multiple of 128:
+    # B4's padding runs). The reference: an f32 prefill through the plain
+    # attention (no kernel), one layer at a time from f32 copies of its
+    # weights, and one decode step from its cache; beside it the same
+    # layers through B4's f32 kernel, and the bf16 model through
+    # prefill_step / decode_step
+    B2 = 2
+    gtoks = prompts[:B2, :gate_seq]
+    nxt = prompts[:B2, gate_seq:gate_seq + 1]
+    gpos = torch.arange(gate_seq, device=dev)[None].expand(B2, gate_seq)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    last16, cache = M.prefill_step(cfg, model, gtoks, length=gate_seq + 1)
+    next16 = M.decode_step(cfg, model, cache, nxt, gate_seq)[0][:, 0]
+    del cache
+
+    def pad1(kv):
+        return {n: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 1))
+                for n, t in zip(("k", "v"), kv)}
+    x16 = M._embed_tokens(cfg, model, gtoks)
+    xk = xr = M._embed_tokens(cfg32, model, gtoks)
+    yk = yr = M._embed_tokens(cfg32, model, nxt)
+    agree = []
+    with torch.no_grad():
+        for i, p16 in enumerate(model.layers):
+            p32 = f32_copy(torch, p16)
+            x16, _, idx16 = moe_layer(torch, cfg, p16, x16, gpos, False)
+            xk, ck, _ = TB.apply_layer(cfg32, "attn_moe", p32, xk,
+                                       mode="prefill", positions=gpos)
+            yk, _, _ = TB.apply_layer(cfg32, "attn_moe", p32, yk,
+                                      mode="decode", cache=pad1(
+                                          (ck["k"], ck["v"])), pos=gate_seq)
+            del ck
+            xr, kv, idx32 = moe_layer(torch, cfg32, p32, xr, gpos, True)
+            yr, _, _ = TB.apply_layer(cfg32, "attn_moe", p32, yr,
+                                      mode="decode", cache=pad1(kv),
+                                      pos=gate_seq)
+            del kv, p32
+            agree.append(float(sum(
+                len(set(a.tolist()) & set(b.tolist()))
+                for a, b in zip(idx16, idx32)) / idx16.numel()))
+        top32 = {"final_norm": f32_copy(torch, model["final_norm"]),
+                 "lm_head": model["lm_head"].float()}
+
+        def head(params, c, x):
+            return M._project_logits(c, params, apply_norm(
+                c, params["final_norm"], x[:, -1:]))[:, 0]
+        lastk, nextk = head(top32, cfg32, xk), head(top32, cfg32, yk)
+        lastr, nextr = head(top32, cfg32, xr), head(top32, cfg32, yr)
+        loop16 = head(model, cfg, x16)
+    torch.cuda.synchronize()
+    gate_peak = torch.cuda.max_memory_allocated()
+    del top32, xk, xr, yk, yr, x16
+    errs = {"f32 kernel prefill": rel_l2(lastk, lastr),
+            "f32 kernel decode from its cache": rel_l2(nextk, nextr),
+            "bf16 prefill": rel_l2(last16, lastr),
+            "bf16 decode from its cache": rel_l2(next16, nextr)}
+    print(f"{arch} end to end on {B2} x {gate_seq} tokens + 1 "
+          f"({time.perf_counter() - t0:.1f} s, peak memory {gate_peak} "
+          f"bytes), relative L2 error against the f32 prefill through the "
+          f"plain attention (layer by layer) and its decode step: "
+          + ", ".join(f"{k} {v:.4g}" for k, v in errs.items())
+          + f"; argmax agreement, bf16 prefill "
+          f"{float((last16.argmax(-1) == lastr.argmax(-1)).float().mean()):.2f}"
+          f"; bf16 module-function loop == prefill_step: "
+          f"{bool(torch.equal(loop16, last16))}")
+    print(f"{arch} bf16 against f32: share of the last position's top-"
+          f"{cfg.experts_per_token} expert choices that agree, by layer: "
+          + ", ".join(f"{a:.3f}" for a in agree)
+          + f" (mean {float(np.mean(agree)):.3f})")
+    for what, err in errs.items():
+        tol = F32_REL if what.startswith("f32") else bf16_rel
+        check(err < tol, f"{arch} {what} vs the f32 plain prefill, relative "
+              f"L2 error {err} (limit {tol})")
+    del model, last16, next16
+    torch.cuda.empty_cache()
+    return launches["flash_attention"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2333,6 +2688,15 @@ def main() -> int:
                           1.0, smi_line))
     rows.append(lm_phases(torch, dev, kernels, "recurrentgemma-9b", 2, 4096,
                           2200, 0.03, smi_line))
+    # MoE (ROADMAP A10.1), after the dense models are freed; B4's row adds
+    # their prefills' launches
+    b4 = rows[-1]
+    parts = [f"{b4['launches']} {b4['note']}"]
+    for arch, bf16_rel in MOE_BF16_REL.items():
+        n = moe_phase(torch, dev, kernels, arch, bf16_rel, smi_line)
+        b4["launches"] += n
+        parts.append(f"{n} in one {arch} prefill of 4 x 2048 tokens")
+    b4["note"] = f"({', '.join(parts)})"
     # training last, so that nothing it leaves behind (pinned pools, its
     # subprocesses) runs beside the LM phases' timings
     torch.cuda.empty_cache()

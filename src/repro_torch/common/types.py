@@ -15,7 +15,7 @@ from typing import Tuple
 # Layer kinds understood by repro_torch.nn.blocks
 #   attn      : global causal self-attention + dense MLP
 #   local     : sliding-window causal self-attention + dense MLP
-#   attn_moe  : global causal self-attention + MoE MLP          (not ported)
+#   attn_moe  : global causal self-attention + MoE MLP
 #   rglru     : RG-LRU recurrent mixer + dense MLP (Griffin/RecurrentGemma)
 #   rwkv      : RWKV6 time-mix + channel-mix
 #   xattn     : cross-attention (to frontend embeddings) + MLP  (not ported)

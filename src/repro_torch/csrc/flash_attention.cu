@@ -5,8 +5,11 @@
 // Replaces the TPU kernel `flash_attention` of
 // src/repro/kernels/flash_attention/kernel.py (body `_kernel`): for each
 // (batch, query head) and query position i,
-//   s[j]  = (q[i] * scale) . k[j]            masked to -1e30 unless
-//           j <= i and (window == 0 or j > i - window)   (when causal)
+//   s[j]  = (q[i] * scale) . k[j]
+//   s[j]  = cap * tanh(s[j] / cap)            (grok's logit soft-cap, when
+//                                              cap > 0; before the mask)
+//   s[j]  = -1e30 unless j <= i and (window == 0 or j > i - window)
+//                                             (when causal)
 //   out[i] = sum_j softmax(s)[j] v[j]
 // by the running max / sum / accumulator recurrence over key blocks, with
 // the output acc / max(l, 1e-30) written in q's dtype. Key blocks that lie
@@ -23,7 +26,9 @@
 // ~0.15 GB of q, k, v and out, 0.21 ms at the bf16 tensor-core peak.
 //
 // The dtype picks one of two hand-written kernels (a dispatch, not a
-// fallback: each launch that fails raises in the wrapper).
+// fallback: each launch that fails raises in the wrapper). Each is
+// compiled twice, with and without the soft-cap (template flag CAP), so
+// the uncapped kernels are the code they were before the cap existed.
 //
 // bf16 (`fa_bf16_kernel`, the model path). A block takes 128 queries of
 // one (batch, head): two consumer warpgroups of 64 query rows each, 256
@@ -50,6 +55,17 @@
 // score tile, and the 4-wide output column groups tx + 16g, 64
 // accumulators at hd 256. Q (pre-scaled), K and V tiles are staged in
 // shared memory with rows padded by 4 floats; f32 FMAs on the CUDA cores.
+// The cap is the reference's formula, tanhf(s / cap) * cap.
+//
+// The cap in the bf16 kernel: scale and log2(e) no longer fold into one
+// multiply. With z = s_raw * scale / cap, it computes
+//   tanh(z) = 1 - 2 / (2^(2 z log2 e) + 1)
+// with ex2.approx (relative error ~2^-22) and a fast divide, then times
+// cap * log2(e): ~2e-7 absolute error in tanh, ~1e-5 in a capped log2
+// logit at cap 30, far below the 2^-9 of P's bf16 rounding (tanh.approx
+// errs by up to ~2^-11 relative, 0.015 in a logit of 30: not used). Its
+// cost is two more MUFU operations (ex2, rcp) per score, beside the one
+// ex2 of the softmax.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,11 +96,11 @@ __device__ __forceinline__ void stage(const float* __restrict__ src,
   }
 }
 
-template <int HD>
+template <int HD, bool CAP>
 __global__ void __launch_bounds__(FA_THREADS, 1) fa_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out, int Sq, int Sk,
-    int H, int KV, int causal, int window, float scale) {
+    int H, int KV, int causal, int window, float scale, float softcap) {
   constexpr int LD = HD + 4;        // padded smem row (floats)
   constexpr int PLD = FA_BK + 4;
   constexpr int NG = HD / 64;       // 4-wide column groups per thread
@@ -158,6 +174,7 @@ __global__ void __launch_bounds__(FA_THREADS, 1) fa_f32_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
+        if (CAP) s[a][j] = tanhf(s[a][j] / softcap) * softcap;
         if (causal && (kpos > qpos || (window > 0 && kpos <= qpos - window)))
           s[a][j] = FA_NEG_INF;
         mx = fmaxf(mx, s[a][j]);
@@ -220,23 +237,23 @@ __global__ void __launch_bounds__(FA_THREADS, 1) fa_f32_kernel(
   }
 }
 
-template <int HD>
+template <int HD, bool CAP>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
                int Sq, int Sk, int H, int KV, int causal, int window,
-               float scale, cudaStream_t st) {
+               float scale, float softcap, cudaStream_t st) {
   if (Sq % FA_BQ || Sk % FA_BK) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       sizeof(float) * (FA_BQ * (HD + 4) + 2 * FA_BK * (HD + 4) +
                        FA_BQ * (FA_BK + 4));
   cudaError_t err = cudaFuncSetAttribute(
-      fa_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_f32_kernel<HD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(Sq / FA_BQ, B * H);
-  fa_f32_kernel<HD><<<grid, FA_THREADS, smem, st>>>(
+  fa_f32_kernel<HD, CAP><<<grid, FA_THREADS, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H, KV,
-      causal, window, scale);
+      causal, window, scale, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -306,12 +323,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Accumulator layout of a wgmma m64nN tile, for thread t of a warpgroup:
 // register 4i + e holds row 16 (t / 32) + (t % 32) / 4 + 8 (e / 2), column
 // 8i + 2 (t % 4) + e % 2.
-template <int HD>
+// With CAP, `scale_log2` is 2 scale log2(e) / cap and `cap_log2` is
+// cap log2(e) (the fold of the cap formula above); without, `scale_log2`
+// is scale log2(e) and `cap_log2` is not read.
+template <int HD, bool CAP>
 __global__ void __launch_bounds__(TC_THREADS, 1) fa_bf16_kernel(
     const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
-    int Sq, int Sk, int H, int KV, int causal, int window, float scale_log2) {
+    int Sq, int Sk, int H, int KV, int causal, int window, float scale_log2,
+    float cap_log2) {
   using L = TcSmem<HD>;
   constexpr int BK = L::BK, STAGES = L::STAGES;
   extern __shared__ uint8_t tc_raw[];
@@ -415,6 +436,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1) fa_bf16_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float s = sc[4 * i + e] * scale_log2;
+          if (CAP)
+            s = (1.f - __fdividef(2.f, fast_exp2(s) + 1.f)) * cap_log2;
           if (masked) {
             const int qpos = row0 + 8 * (e / 2);
             const int kpos = k0 + 8 * i + 2 * (lane % 4) + e % 2;
@@ -525,10 +548,10 @@ static bool tile_map(CUtensorMap* map, const void* ptr, int hd, int heads,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HD, bool CAP>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
                 int Sq, int Sk, int H, int KV, int causal, int window,
-                float scale, cudaStream_t st) {
+                float scale, float softcap, cudaStream_t st) {
   constexpr int BK = TcCfg<HD>::BK;
   if (Sq % TC_BQ || Sk % BK) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
@@ -538,26 +561,28 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = TcSmem<HD>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      fa_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fa_bf16_kernel<HD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(Sq / TC_BQ, B * H);
-  fa_bf16_kernel<HD><<<grid, TC_THREADS, smem, st>>>(
+  fa_bf16_kernel<HD, CAP><<<grid, TC_THREADS, smem, st>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV, causal,
-      window, scale * LOG2E);
+      window, CAP ? 2.f * scale * LOG2E / softcap : scale * LOG2E,
+      softcap * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool BF16>
+template <bool BF16, bool CAP>
 int launch_hd(const void* q, const void* k, const void* v, void* out, int B,
               int Sq, int Sk, int H, int KV, int hd, int causal, int window,
-              float scale, cudaStream_t st) {
+              float scale, float softcap, cudaStream_t st) {
   switch (hd) {
 #define FA_CASE(D)                                                           \
   case D:                                                                    \
-    return BF16 ? launch_bf16<D>(q, k, v, out, B, Sq, Sk, H, KV, causal,     \
-                                 window, scale, st)                          \
-                : launch_f32<D>(q, k, v, out, B, Sq, Sk, H, KV, causal,      \
-                                window, scale, st);
+    return BF16 ? launch_bf16<D, CAP>(q, k, v, out, B, Sq, Sk, H, KV,        \
+                                      causal, window, scale, softcap, st)    \
+                : launch_f32<D, CAP>(q, k, v, out, B, Sq, Sk, H, KV, causal, \
+                                     window, scale, softcap, st);
     FA_CASE(64)
     FA_CASE(128)
     FA_CASE(256)
@@ -572,20 +597,28 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int B,
 // q (B, Sq, H, hd), k and v (B, Sk, KV, hd), out (B, Sq, H, hd), all of one
 // dtype (is_bf16: bfloat16 on the tensor cores, else float32 on the CUDA
 // cores), contiguous, 16-byte aligned; Sq % 128 == 0, Sk % 128 == 0,
-// H % KV == 0, hd in {64, 128, 256}.
+// H % KV == 0, hd in {64, 128, 256}; softcap >= 0 (0: no cap).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B,
                                       int Sq, int Sk, int H, int KV, int hd,
                                       int causal, int window, float scale,
-                                      int is_bf16, int device, void* stream) {
+                                      float softcap, int is_bf16, int device,
+                                      void* stream) {
   using namespace repro_torch;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (KV <= 0 || H % KV) return static_cast<int>(cudaErrorInvalidValue);
+  if (KV <= 0 || H % KV || !(softcap >= 0.f))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0 || H == 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_hd<true>(q, k, v, out, B, Sq, Sk, H, KV, hd, causal,
-                                   window, scale, st)
-                 : launch_hd<false>(q, k, v, out, B, Sq, Sk, H, KV, hd,
-                                    causal, window, scale, st);
+  if (softcap > 0.f)
+    return is_bf16 ? launch_hd<true, true>(q, k, v, out, B, Sq, Sk, H, KV, hd,
+                                           causal, window, scale, softcap, st)
+                   : launch_hd<false, true>(q, k, v, out, B, Sq, Sk, H, KV,
+                                            hd, causal, window, scale,
+                                            softcap, st);
+  return is_bf16 ? launch_hd<true, false>(q, k, v, out, B, Sq, Sk, H, KV, hd,
+                                          causal, window, scale, 0.f, st)
+                 : launch_hd<false, false>(q, k, v, out, B, Sq, Sk, H, KV, hd,
+                                           causal, window, scale, 0.f, st);
 }

@@ -27,7 +27,9 @@ replayed between events.
 B1 and B2 run on step 1 of the first pubmed-like batch (full size, as in
 ``chip_smoke.py``), B3 on B1's propagated batch rows against x_inf = c *
 s; B4 on recurrentgemma-9b's ``local`` layer shape,
-q (2, 4096, 16, 256) and k, v (2, 4096, 1, 256) bf16, window 2048; B5 on
+q (2, 4096, 16, 256) and k, v (2, 4096, 1, 256) bf16, window 2048 (with
+no soft-cap; the two versions' outputs are also compared bit for bit,
+there and in f32 on the first 1024 positions); B5 on
 rwkv6-3b's prefill shape, (B, T, H, hd) = (4, 2048, 40, 64) f32, each
 version in the layout it reads (a version that takes (B*H, T, hd) gets
 that copy, made outside the timing), and this version's B5 once more at
@@ -291,15 +293,21 @@ def main() -> int:
     q, k, v = (torch.randn((B, S, h, hd), generator=g, device=dev,
                            dtype=torch.bfloat16) for h in (H, KV, KV))
     b4_ref = ref_attention(q, k, v, window=W).float()
+    b4_out = {}
     for tag, lib in libs.items():
         out = torch.empty_like(q)
+        # versions since the soft-cap take it after the scale: 0, no cap
+        cap = (0.0,) if n_args[tag]["flash_attention_launch"] > 16 else ()
 
         # operands and shapes bound now: B5 below reuses k, v, B, H, hd
-        def b4(lib=lib, out=out, ops=(q, k, v), shape=(B, S, H, KV, hd, W)):
+        def b4(lib=lib, out=out, ops=(q, k, v), shape=(B, S, H, KV, hd, W),
+               cap=cap):
             B, S, H, KV, hd, W = shape
             build.check_launch("flash_attention", lib.flash_attention_launch(
                 *[t.data_ptr() for t in ops], out.data_ptr(), B, S, S, H, KV,
-                hd, 1, W, 1.0 / hd ** 0.5, 1, 0, stream))
+                hd, 1, W, 1.0 / hd ** 0.5, *cap, int(ops[0].dtype ==
+                                                     torch.bfloat16), 0,
+                stream))
         b4()
         torch.cuda.synchronize()
         err = float((out.float() - b4_ref).abs().max())
@@ -308,7 +316,22 @@ def main() -> int:
         if not torch.allclose(out.float(), b4_ref, rtol=1e-2, atol=1e-2):
             raise RuntimeError(f"B4 {tag} disagrees with its plain version")
         calls[("B4", tag)] = b4
+        # and in f32 (the kernel of the f32 gates), on the first 1024 rows
+        o32 = [t[:, :1024].float().contiguous() for t in (q, k, v)]
+        out32 = torch.empty_like(o32[0])
+        b4(out=out32, ops=o32, shape=(B, 1024, H, KV, hd, W))
+        torch.cuda.synchronize()
+        b4_out[tag] = (out.clone(), out32)
     del b4_ref
+    # bits of the two versions: equal since PR 13's kernel (the soft-cap
+    # compiled out at 0); an older B4 differs (printed, not raised)
+    print("B4 this == other bit for bit (bf16, f32): " + ", ".join(
+        str(torch.equal(a.view(torch.int16 if a.dtype == torch.bfloat16
+                               else torch.int32),
+                        b.view(torch.int16 if b.dtype == torch.bfloat16
+                               else torch.int32)))
+        for a, b in zip(b4_out["this"], b4_out["other"])), flush=True)
+    del b4_out
 
     # ---- B5 at rwkv6-3b's prefill shape
     B, T, H, hd = 4, 2048, 40, 64

@@ -17,11 +17,14 @@ from repro_torch.kernels.flash_attention.ref import ref_attention
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
     """q (B, Sq, H, hd); k, v (B, Sk, KV, hd); Sq % BQ == 0 == Sk % BK,
     H % KV == 0; float32 or bfloat16. Causal attention, banded to the last
     `window` keys when window > 0 (no mask when not causal); softmax in
-    f32, output (B, Sq, H, hd) in q's dtype.
+    f32, output (B, Sq, H, hd) in q's dtype. softcap > 0 caps the scaled
+    logits to softcap * tanh(s / softcap) before the mask (grok-1); at 0
+    the kernels run compiled without the cap.
 
     On the card the dtype picks one of two hand-written kernels: bfloat16
     runs Q K^T and P V on the tensor cores (wgmma, f32 accumulation, P
@@ -41,15 +44,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     check("q", q, q.dtype, aligned=dev.type == "cuda")
     check("k", k, q.dtype, (B, Sk, KV, hd), aligned=dev.type == "cuda")
     check("v", v, q.dtype, (B, Sk, KV, hd), aligned=dev.type == "cuda")
-    window = int(window)
+    window, softcap = int(window), float(softcap)
+    if not softcap >= 0.0:
+        raise ValueError(f"softcap {softcap}: expected >= 0 (0: no cap)")
     if dev.type == "cpu":
-        return ref_attention(q, k, v, causal=causal, window=window)
+        return ref_attention(q, k, v, causal=causal, window=window,
+                             softcap=softcap)
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd}: the CUDA kernel takes {HEAD_DIMS}")
     out = torch.empty_like(q)
     err = build.library().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
-        H, KV, hd, int(causal), window, 1.0 / hd ** 0.5,
+        H, KV, hd, int(causal), window, 1.0 / hd ** 0.5, softcap,
         int(q.dtype == torch.bfloat16), dev.index, stream_of(dev))
     build.check_launch("flash_attention", err)
     flash_attention.launches += 1

@@ -7,14 +7,19 @@ import torch
 NEG_INF = -1.0e30
 
 
-def ref_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def ref_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                  softcap: float = 0.0):
     """q (B, Sq, H, hd); k, v (B, Sk, KV, hd) with H % KV == 0. f32
-    arithmetic, output in q's dtype."""
+    arithmetic, output in q's dtype. softcap > 0 caps the scaled logits
+    to softcap * tanh(s / softcap) before the mask, as the reference's
+    `repro.nn.attention._sdpa` does (its Pallas kernel has no cap)."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     kf = k.float().repeat_interleave(H // KV, dim=2)
     vf = v.float().repeat_interleave(H // KV, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / (hd ** 0.5)
+    if softcap > 0.0:
+        s = torch.tanh(s / softcap) * softcap
     if causal:
         qpos = torch.arange(Sq, device=q.device)[:, None]
         kpos = torch.arange(Sk, device=q.device)[None, :]

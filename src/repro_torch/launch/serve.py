@@ -10,6 +10,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --gnn pubmed-like
     PYTHONPATH=src python -m repro_torch.launch.serve --gnn pubmed-like --requests 200 --epochs 20 --k 2 --scale 0.03 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b --tokens 64
 
 Both modes run on ``--device cuda`` unless told otherwise.
@@ -66,6 +67,9 @@ def serve_lm(args) -> dict:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke(cfg)
+        if dev.type == "cuda":
+            # smoke()'s head dim is 32; B4 is compiled for 64, 128 and 256
+            cfg = cfg.scaled(head_dim=max(cfg.resolved_head_dim, 64))
     gen = torch.Generator(dev).manual_seed(args.seed)
     params = M.init_params(cfg, gen, device=dev)
     B, S = args.batch, args.tokens

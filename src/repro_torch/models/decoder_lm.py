@@ -9,12 +9,14 @@ is a loop. Caches are a list with one dict per layer.
 Public API:
     model_defs / init_params(cfg, generator, device)
     forward(cfg, params, tokens, mode)         -> logits, aux
-    prefill_step(cfg, params, tokens)          -> last logits, cache
+    prefill_step(cfg, params, tokens, length)  -> last logits, cache
     init_cache(cfg, batch, length, device)
     decode_step(cfg, params, cache, tokens, pos) -> logits, cache
 
+`aux` is the MoE load-balance loss summed over the `attn_moe` layers (0
+for models without them), as the reference's `forward` returns it.
 Encoder, frontend seeding, adaptive-depth exit heads, the loss and the
-sharding specs wait for ROADMAP A10/A9.
+sharding specs wait for ROADMAP A10.2-A10.5.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ def _check_supported(cfg) -> None:
     if cfg.is_encdec or cfg.num_image_tokens or cfg.pos_embed != "none":
         raise NotImplementedError(
             f"{cfg.name}: encoder / frontend / positional embeddings are not "
-            f"ported yet (ROADMAP A10)")
+            f"ported yet (ROADMAP A10.2)")
 
 
 # ------------------------------------------------------------------- params
@@ -115,18 +117,18 @@ def _positions(tokens):
 @torch.no_grad()
 def forward(cfg, params, tokens, *, mode: str = "train"):
     """tokens (B,S) integer. Returns (logits (B,S,V), aux). Inference only
-    (no dropout, no gradient); aux is the MoE auxiliary loss of the
-    reference, 0 for the ported kinds."""
+    (no dropout, no gradient); aux () f32 is the reference's MoE
+    auxiliary loss summed over the layers."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: expected one of {MODES}")
     positions = _positions(tokens)
     x = _embed_tokens(cfg, params, tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, kind in zip(params["layers"], cfg.layer_kinds):
-        x, _ = B.apply_layer(cfg, kind, p, x, mode="train",
-                             positions=positions)
+        x, _, aux = B.apply_layer(cfg, kind, p, x, mode="train",
+                                  positions=positions, aux=aux)
     x = apply_norm(cfg, params["final_norm"], x)
-    return _project_logits(cfg, params, x), torch.zeros(
-        (), dtype=torch.float32, device=x.device)
+    return _project_logits(cfg, params, x), aux
 
 
 @torch.no_grad()
@@ -140,9 +142,10 @@ def prefill_step(cfg, params, tokens, *, length: Optional[int] = None):
     x = _embed_tokens(cfg, params, tokens)
     caches: List[dict] = []
     for p, kind in zip(params["layers"], cfg.layer_kinds):
-        x, c = B.apply_layer(cfg, kind, p, x, mode="prefill",
-                             positions=positions)
-        if kind == "attn" and length is not None and length > S:
+        x, c, _ = B.apply_layer(cfg, kind, p, x, mode="prefill",
+                                positions=positions)
+        if (kind in ("attn", "attn_moe") and length is not None
+                and length > S):
             c = {n: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, length - S))
                  for n, t in c.items()}
         caches.append(c)
@@ -166,8 +169,8 @@ def decode_step(cfg, params, cache, tokens, pos: int):
     x = _embed_tokens(cfg, params, tokens)
     new_cache = []
     for p, c, kind in zip(params["layers"], cache, cfg.layer_kinds):
-        x, c = B.apply_layer(cfg, kind, p, x, mode="decode", cache=c,
-                             pos=int(pos))
+        x, c, _ = B.apply_layer(cfg, kind, p, x, mode="decode", cache=c,
+                                pos=int(pos))
         new_cache.append(c)
     x = apply_norm(cfg, params["final_norm"], x)
     return _project_logits(cfg, params, x), new_cache

@@ -3,9 +3,10 @@
 
 Shapes: x (B, S, d); q (B, S, H, hd); k/v (B, S, KV, hd). The full-
 sequence path runs through kernel B4 (`repro_torch.kernels.
-flash_attention`), at every S, causal and optionally banded; on CPU
-tensors its plain PyTorch version computes it. Decode uses the plain
-`_sdpa`. Cross-attention (`xattn`/`encdec`) waits for ROADMAP A10.
+flash_attention`), at every S, causal and optionally banded, with the
+logit soft-cap where the config sets one; on CPU tensors its plain
+PyTorch version computes it. Decode uses the plain `_sdpa`.
+Cross-attention (`xattn`/`encdec`) waits for ROADMAP A10.2.
 """
 from __future__ import annotations
 
@@ -78,14 +79,12 @@ def _project_qkv(cfg, p, x, positions):
 
 def self_attention(cfg, p, x, positions, *, window: int = 0):
     """Full-sequence causal self attention (train / prefill), banded to
-    `window` keys when window > 0, through kernel B4. Returns
-    (out, (k, v))."""
-    if cfg.attn_logit_softcap:
-        raise ValueError(f"{cfg.name}: the attention kernel has no logit "
-                         f"soft-cap (attn_logit_softcap = "
-                         f"{cfg.attn_logit_softcap})")
+    `window` keys when window > 0, with the logits soft-capped at
+    `cfg.attn_logit_softcap` when it is set (grok-1), through kernel B4.
+    Returns (out, (k, v))."""
     q, k, v = _project_qkv(cfg, p, x, positions)
-    out = gqa_flash_attention(q, k, v, causal=True, window=window)
+    out = gqa_flash_attention(q, k, v, causal=True, window=window,
+                              softcap=cfg.attn_logit_softcap)
     out = torch.einsum("bshe,hed->bsd", out, p["wo"])
     return out, (k, v)
 

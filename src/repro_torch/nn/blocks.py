@@ -1,16 +1,18 @@
 """Per-kind transformer blocks (`repro.nn.blocks`) for the kinds the port
-serves: `rwkv`, `rglru`, `local` and `attn` (`local` with window 0).
+serves: `rwkv`, `rglru`, `local`, `attn` (`local` with window 0) and
+`attn_moe` (`attn` with the MoE FFN of `repro_torch.nn.moe`).
 
 apply_layer contract:
-    x, cache = apply_layer(cfg, kind, p, x, mode=..., positions=...,
-                           cache=..., pos=...)
+    x, cache, aux = apply_layer(cfg, kind, p, x, mode=..., positions=...,
+                                cache=..., pos=..., aux=...)
   mode     : 'train' | 'prefill' | 'decode'
   cache    : kind-specific dict (see init_layer_cache); None for 'train'
   pos      : decode position (int)
+  aux      : accumulated auxiliary loss (MoE load balance); `attn_moe`
+             adds its layer's, the other kinds return it as given
 
-The other kinds (`attn_moe`, `xattn`, `encdec`, `enc`) raise
-NotImplementedError until ROADMAP A10 ports them; the MoE auxiliary loss
-of the reference's contract goes with them.
+The other kinds (`xattn`, `encdec`, `enc`) raise NotImplementedError
+until ROADMAP A10.2 ports them.
 
 Two differences from the reference, both faults of the reference
 recorded in ROADMAP C:
@@ -30,15 +32,16 @@ from repro_torch.nn import attention as attn
 from repro_torch.nn import rglru as rg
 from repro_torch.nn import rwkv as rk
 from repro_torch.nn.basic import apply_mlp, apply_norm, mlp_defs, norm_defs
+from repro_torch.nn.moe import apply_moe, apply_moe_decode, moe_defs
 
-PORTED_KINDS = ("attn", "local", "rglru", "rwkv")
+PORTED_KINDS = ("attn", "attn_moe", "local", "rglru", "rwkv")
 
 
 def check_kind(kind: str) -> None:
     if kind not in PORTED_KINDS:
         raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet (ROADMAP A10); the port "
-            f"serves {PORTED_KINDS}")
+            f"layer kind {kind!r} is not ported yet (ROADMAP A10.2); the "
+            f"port serves {PORTED_KINDS}")
 
 
 # --------------------------------------------------------------------- defs
@@ -47,6 +50,9 @@ def layer_defs(cfg, kind: str):
     if kind in ("attn", "local"):
         return {"norm1": norm_defs(cfg), "attn": attn.attn_defs(cfg),
                 "norm2": norm_defs(cfg), "mlp": mlp_defs(cfg)}
+    if kind == "attn_moe":
+        return {"norm1": norm_defs(cfg), "attn": attn.attn_defs(cfg),
+                "norm2": norm_defs(cfg), "moe": moe_defs(cfg)}
     if kind == "rglru":
         return {"norm1": norm_defs(cfg), "rglru": rg.rglru_defs(cfg),
                 "norm2": norm_defs(cfg), "mlp": mlp_defs(cfg)}
@@ -63,7 +69,7 @@ def init_layer_cache(cfg, kind: str, batch: int, length: int, dtype, device):
     """`length` = max decode length (KV cache size). Windowed layers use a
     ring buffer of `min(window, length)`."""
     check_kind(kind)
-    if kind == "attn":
+    if kind in ("attn", "attn_moe"):
         return attn.init_kv_cache(cfg, batch, length, dtype, device)
     if kind == "local":
         w = min(cfg.sliding_window or length, length)
@@ -87,14 +93,24 @@ def ring_cache(t: torch.Tensor, window: int) -> torch.Tensor:
 
 # -------------------------------------------------------------------- apply
 def apply_layer(cfg, kind: str, p, x, *, mode: str = "train",
-                positions=None, cache=None, pos=None):
+                positions=None, cache=None, pos=None, aux=0.0):
     check_kind(kind)
     if mode == "decode":
-        return _decode_layer(cfg, kind, p, x, cache, pos)
-    return _full_layer(cfg, kind, p, x, positions, mode)
+        return _decode_layer(cfg, kind, p, x, cache, pos, aux)
+    return _full_layer(cfg, kind, p, x, positions, mode, aux)
 
 
-def _full_layer(cfg, kind, p, x, positions, mode):
+def _ffn(cfg, kind, p, xn, aux, decode=False):
+    """The layer's FFN on its normed input: the MoE for `attn_moe` (its
+    aux loss added to `aux`), else the dense MLP."""
+    if kind != "attn_moe":
+        return apply_mlp(cfg, p["mlp"], xn), aux
+    h, moe_aux = (apply_moe_decode if decode else apply_moe)(cfg, p["moe"],
+                                                             xn)
+    return h, aux + moe_aux
+
+
+def _full_layer(cfg, kind, p, x, positions, mode, aux):
     new_cache = None
     if kind == "rwkv":
         xt = apply_norm(cfg, p["norm1"], x)
@@ -104,7 +120,7 @@ def _full_layer(cfg, kind, p, x, positions, mode):
         x = x + rk.rwkv_channel_mix_full(cfg, p["cmix"], xn)
         if mode == "prefill":
             new_cache = {"state": state, "x_t": xt[:, -1], "x_c": xn[:, -1]}
-        return x, new_cache
+        return x, new_cache, aux
 
     if kind == "rglru":
         h, h_last, conv_tail = rg.rglru_full(cfg, p["rglru"],
@@ -113,22 +129,23 @@ def _full_layer(cfg, kind, p, x, positions, mode):
         x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
         if mode == "prefill":
             new_cache = {"h": h_last, "conv": conv_tail}
-        return x, new_cache
+        return x, new_cache, aux
 
     window = _window(cfg, kind)
     h, (k, v) = attn.self_attention(cfg, p["attn"],
                                     apply_norm(cfg, p["norm1"], x),
                                     positions, window=window)
     x = x + h
-    x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+    h, aux = _ffn(cfg, kind, p, apply_norm(cfg, p["norm2"], x), aux)
+    x = x + h
     if mode == "prefill":
         if window:
             k, v = ring_cache(k, window), ring_cache(v, window)
         new_cache = {"k": k, "v": v}
-    return x, new_cache
+    return x, new_cache, aux
 
 
-def _decode_layer(cfg, kind, p, x, cache, pos):
+def _decode_layer(cfg, kind, p, x, cache, pos, aux):
     if kind == "rwkv":
         xn = apply_norm(cfg, p["norm1"], x)
         h, state = rk.rwkv_tmix_decode(cfg, p["tmix"], xn, cache["state"],
@@ -136,18 +153,19 @@ def _decode_layer(cfg, kind, p, x, cache, pos):
         x = x + h
         xc = apply_norm(cfg, p["norm2"], x)
         x = x + rk.rwkv_cmix_decode(cfg, p["cmix"], xc, cache["x_c"])
-        return x, {"state": state, "x_t": xn[:, 0], "x_c": xc[:, 0]}
+        return x, {"state": state, "x_t": xn[:, 0], "x_c": xc[:, 0]}, aux
 
     if kind == "rglru":
         h, new_cache = rg.rglru_decode(cfg, p["rglru"],
                                        apply_norm(cfg, p["norm1"], x), cache)
         x = x + h
         x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
-        return x, new_cache
+        return x, new_cache, aux
 
     h, new_cache = attn.decode_self_attention(
         cfg, p["attn"], apply_norm(cfg, p["norm1"], x), cache, pos,
         window=_window(cfg, kind))
     x = x + h
-    x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
-    return x, new_cache
+    h, aux = _ffn(cfg, kind, p, apply_norm(cfg, p["norm2"], x), aux,
+                  decode=True)
+    return x + h, new_cache, aux

@@ -4,7 +4,10 @@ A fixed pool of `slots` decodes in lock-step (one `decode_step` per
 tick); finished sequences free their slot, queued requests claim freed
 slots mid-flight. Prompts are consumed one token per tick, like the
 reference (decode-only, no prefill). Adaptive-depth decoding waits for
-ROADMAP A10.
+ROADMAP A10.3. For MoE models (`attn_moe`) a tick routes the whole slot
+batch as one row, as the reference does: at up to 8 slots no expert can
+overflow its capacity (at least 8), but where one does, a lane's tokens
+depend on its neighbours, in both packages.
 """
 from __future__ import annotations
 

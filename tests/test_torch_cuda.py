@@ -3,7 +3,9 @@ versions, the port's engine end to end on the card, training on the
 card (AdamW steps against the CPU's at rtol 1e-4, TF32 off; `train_nai`
 with CUDA-generator dropout, its heads served), and D = 2 and 4 shards
 on the one card equal to one device bit for bit on B1 + B3 and B2. Marked `cuda`;
-each test skips (from its fixture) where no GPU is present. Run on a GPU
+each test skips (from its fixture) where no GPU is present. B4 with
+grok's logit soft-cap against its plain version, and dbrx/grok MoE smoke
+models through B4 on the card against the CPU (1e-3). Run on a GPU
 machine with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -397,6 +399,106 @@ def test_gqa_flash_attention_unpadded_bf16_on_card(cuda):
     ref = ref_attention(q, k, v, window=72)
     assert out.shape == q.shape
     torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype,S,window", [(torch.float32, 256, 0),
+                                            (torch.bfloat16, 384, 0),
+                                            (torch.bfloat16, 256, 100),
+                                            (torch.float32, 256, 64)])
+def test_flash_attention_softcap_matches_plain(cuda, dtype, S, window):
+    """grok's logit soft-cap (30) at hd 128, GQA 8/2, with q scaled so
+    that the logits reach ~150, far beyond the cap: the kernel against its
+    plain version under the same cap (tolerances as without it), and far
+    from the uncapped plain version (the cap acts)."""
+    g = torch.Generator().manual_seed(S + window)
+    B, H, KV, hd, cap = 2, 8, 2, 128, 30.0
+    q = (6.0 * torch.randn((B, S, H, hd), generator=g)).to(cuda, dtype)
+    k = (6.0 * torch.randn((B, S, KV, hd), generator=g)).to(cuda, dtype)
+    v = torch.randn((B, S, KV, hd), generator=g).to(cuda, dtype)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = ref_attention(q, k, v, window=window, softcap=cap)
+    tol = dict(rtol=1e-4, atol=2e-5) if dtype == torch.float32 \
+        else dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    far = ref_attention(q, k, v, window=window)
+    assert (out.float() - far.float()).abs().max() > 0.5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_softcap_zero_is_the_uncapped_kernel(cuda, dtype):
+    """softcap = 0 runs the kernels compiled without the cap: the same bits
+    as a call that names no cap, and not those of a cap of 5 on the same
+    logits. (Bits against the kernel before the cap existed:
+    `python -m repro_torch.kernels.ab --against <parent checkout>`.)"""
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn((2, 256, 4, 128), generator=g).to(cuda, dtype)
+               for _ in range(3))
+    a = flash_attention(q, k, v)
+    b = flash_attention(q, k, v, softcap=0.0)
+    c = gqa_flash_attention(q, k, v, softcap=0.0)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, c)
+    assert not torch.equal(a, flash_attention(q, k, v, softcap=5.0))
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "grok-1-314b"])
+def test_moe_prefill_and_decode_on_card_match_cpu(cuda, arch):
+    """A 2-layer MoE smoke model (head dim 64, which the kernel takes) in
+    f32: prefill through B4 (grok: soft-capped) and 3 decode steps on the
+    card against the same on the CPU (plain versions), logits within 1e-3
+    relative L2, the aux loss within 1e-5."""
+    import dataclasses
+    from repro_torch.configs import ARCHS, smoke
+    from repro_torch.models import decoder_lm as M
+    cfg = dataclasses.replace(smoke(ARCHS[arch]), num_layers=2, head_dim=64)
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu"
+                         ).to(cuda)
+    toks = torch.randint(0, cfg.vocab_size, (3, 40),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        before = flash_attention.launches
+        t = toks.to(dev)
+        logits, aux = M.forward(cfg, model, t)
+        last, cache = M.prefill_step(cfg, model, t, length=43)
+        steps = []
+        tok = last.argmax(-1, keepdim=True).cpu()
+        for pos in range(40, 43):
+            lg, cache = M.decode_step(cfg, model, cache, tok.to(dev), pos)
+            steps.append(lg[:, 0].cpu())
+        out[dev] = (logits.cpu(), aux.cpu(), last.cpu(), steps)
+        assert flash_attention.launches - before == (4 if dev == "cuda"
+                                                     else 0)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+    (l0, a0, p0, s0), (l1, a1, p1, s1) = out["cpu"], out["cuda"]
+    assert rel(l1, l0) < 1e-3 and rel(p1, p0) < 1e-3
+    assert all(rel(b, a) < 1e-3 for a, b in zip(s0, s1))
+    torch.testing.assert_close(a1, a0, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "grok-1-314b",
+                                  "recurrentgemma-9b"])
+def test_serve_lm_smoke_cli_on_card(cuda, arch):
+    """`launch.serve --arch ... --smoke` on the card by default (its smoke
+    config takes head dim 64, which B4 is compiled for)."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         "--smoke", "--tokens", "40", "--batch", "2"], cwd=root,
+        env=dict(os.environ, PYTHONPATH="src"), capture_output=True,
+        text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert f"[serve-lm] {arch} on cuda" in out.stdout
+    assert "decode 39 steps" in out.stdout
 
 
 def test_lm_kernels_refuse_bad_operands_on_cuda(cuda):

@@ -1,9 +1,11 @@
-"""The port's GNN launchers run end to end on the CPU (`--device cpu`) in
-a fresh interpreter at a tiny size, as tests/test_launchers.py runs the
+"""The port's launchers run end to end on the CPU (`--device cpu`) in a
+fresh interpreter at a tiny size, as tests/test_launchers.py runs the
 JAX package's, and print the reference's lines."""
 import os
 import subprocess
 import sys
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -32,6 +34,18 @@ def test_serve_gnn_cli():
     assert "[serve-gnn] training NAI model on pubmed-like" in out.stdout
     assert "served=118 " in out.stdout       # the 118 test nodes at 0.03
     assert "p50=" in out.stdout and "exit histogram" in out.stdout
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "grok-1-314b"])
+def test_serve_lm_moe_cli(arch):
+    """The MoE configs (ROADMAP A10.1) serve at `smoke()` size: prefill,
+    then greedy decode from its cache (padded to 2 x 8 positions)."""
+    out = _run(["repro_torch.launch.serve", "--arch", arch, "--smoke",
+                "--tokens", "8", "--batch", "2", "--device", "cpu"])
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert f"[serve-lm] {arch} on cpu: prefill 2x8 tokens" in out.stdout
+    assert "decode 7 steps" in out.stdout
+    assert "[serve-lm] sample continuation:" in out.stdout
 
 
 def test_train_lm_waits_for_a10_5():

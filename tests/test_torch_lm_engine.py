@@ -22,23 +22,43 @@ PROMPTS = [[1 + i, 2, 3] for i in range(7)]
 
 
 @pytest.mark.parametrize("arch", ["granite-34b", "rwkv6-3b",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "dbrx-132b",
+                                  "grok-1-314b"])
 def test_engine_tokens_match_reference(arch):
+    _engines_agree(arch, slots=3, prompts=PROMPTS)
+
+
+def test_moe_engine_tokens_match_reference_where_capacity_binds():
+    """dbrx smoke (4 experts, top-2) at 12 slots: a tick routes the 12
+    lanes as one row at capacity 8, and the experts overflow it, so a
+    lane's tokens depend on its neighbours; the port's engine still gives
+    the reference's tokens (no isolation the reference lacks)."""
+    from repro_torch.nn import moe
+    prompts = [[1 + i, 2 + 3 * i, 3] for i in range(12)]
+    moe.apply_moe.drops = []
+    try:
+        _engines_agree("dbrx-132b", slots=12, prompts=prompts)
+        assert sum(int(d) for d, _ in moe.apply_moe.drops) > 0
+    finally:
+        moe.apply_moe.drops = None
+
+
+def _engines_agree(arch, slots, prompts):
     jcfg, tcfg = jax_smoke(JAX_ARCHS[arch]), smoke(ARCHS[arch])
     params = JM.init_params(jcfg, jax.random.PRNGKey(0))
     model = lm_params_from_numpy(tcfg, jax.tree.map(np.asarray, params),
                                  device="cpu")
-    engines = (JaxLMEngine(jcfg, params, slots=3, max_len=64),
-               LMServingEngine(tcfg, model, slots=3, max_len=64,
+    engines = (JaxLMEngine(jcfg, params, slots=slots, max_len=64),
+               LMServingEngine(tcfg, model, slots=slots, max_len=64,
                                device="cpu"))
     stats = []
     for eng in engines:
-        for p in PROMPTS:                  # more requests than slots
+        for p in prompts:
             eng.submit(p, max_new=5)
         stats.append(eng.run_until_drained())
     assert stats[0] == {**stats[1], "mean_latency_s":
                         stats[0]["mean_latency_s"]}
-    assert stats[1]["completed"] == len(PROMPTS)
+    assert stats[1]["completed"] == len(prompts)
     ref = {r.rid: (r.prompt, r.out) for r in engines[0].completed}
     got = {r.rid: (r.prompt, r.out) for r in engines[1].completed}
     assert got == ref
@@ -48,7 +68,17 @@ def test_engine_tokens_match_reference(arch):
 def test_engine_outputs_do_not_depend_on_neighbours():
     """A request alone in the engine gets the tokens it got among six
     others (lanes are independent batch rows)."""
-    cfg = smoke(ARCHS["rwkv6-3b"])
+    _alone_equals_among_others("rwkv6-3b")
+
+
+def test_moe_engine_outputs_do_not_depend_on_neighbours():
+    """The same for dbrx smoke at 3 slots: a tick routes the lanes as one
+    row, but 3 tokens cannot overflow an expert's capacity of 8."""
+    _alone_equals_among_others("dbrx-132b")
+
+
+def _alone_equals_among_others(arch):
+    cfg = smoke(ARCHS[arch])
     model = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     eng = LMServingEngine(cfg, model, slots=3, max_len=64, device="cpu")
     for p in PROMPTS:

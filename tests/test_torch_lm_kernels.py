@@ -11,7 +11,10 @@ in another order; the large factors cost about four digits of f32);
 flash attention at rtol = 2e-4, atol = 2e-5 in f32 (`repro`'s own sweep
 bound; softmax sums in another order) and at
 rtol = atol = 0.05 for bf16 inputs against the f32 oracle (the bound of
-`repro`'s bf16 test: one bf16 rounding of inputs and output)."""
+`repro`'s bf16 test: one bf16 rounding of inputs and output). With grok's
+logit soft-cap, which the Pallas kernel lacks, the function B4 computes
+is the reference's `repro.nn.attention._sdpa` (scale, q.k, cap, mask,
+softmax), held at the f32 sweep bound."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +25,7 @@ from repro.kernels.flash_attention import (flash_attention as jax_flash,
                                            ref_attention as jax_ref_attention)
 from repro.kernels.wkv6 import (ref_wkv6_sequential, wkv6 as jax_wkv6,
                                 wkv6_heads as jax_wkv6_heads)
+from repro.nn.attention import _sdpa as jax_sdpa, causal_mask as jax_mask
 from repro.nn.rwkv import _wkv_chunked
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  gqa_flash_attention,
@@ -150,6 +154,29 @@ def test_gqa_flash_attention_unpadded(rng, S, H, KV, window):
                                atol=2e-5)
 
 
+@pytest.mark.parametrize("window", [0, 8])
+def test_flash_attention_softcap_matches_reference_sdpa(rng, window):
+    """B4's plain version and the GQA wrapper with a soft-cap of 2 on
+    logits of std ~4 (the cap decides the result: without it the output
+    is far off) against the reference's `_sdpa` under the same cap."""
+    import dataclasses
+    from repro.configs import ARCHS as JAX_ARCHS, smoke as jax_smoke
+    cap, S, H, KV, hd = 2.0, 40, 4, 2, 32
+    cfg = dataclasses.replace(jax_smoke(JAX_ARCHS["grok-1-314b"]),
+                              attn_logit_softcap=cap)
+    q = (4.0 * rng.standard_normal((2, S, H, hd))).astype(np.float32)
+    k = rng.standard_normal((2, S, KV, hd)).astype(np.float32)
+    v = rng.standard_normal((2, S, KV, hd)).astype(np.float32)
+    want = np.asarray(jax_sdpa(cfg, *map(jnp.asarray, (q, k, v)),
+                               jax_mask(S, S, window)))
+    tq, tk, tv = map(torch.tensor, (q, k, v))
+    for got in (gqa_flash_attention(tq, tk, tv, window=window, softcap=cap),
+                ref_attention(tq, tk, tv, window=window, softcap=cap)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-5)
+    uncapped = gqa_flash_attention(tq, tk, tv, window=window).numpy()
+    assert np.abs(uncapped - want).max() > 0.1
+
+
 def test_flash_attention_refuses_bad_operands():
     q = torch.zeros((1, 128, 4, 32))
     with pytest.raises(ValueError, match="multiples"):
@@ -158,3 +185,5 @@ def test_flash_attention_refuses_bad_operands():
         flash_attention(q, q[:, :, :3].contiguous(), q[:, :, :3].contiguous())
     with pytest.raises(ValueError, match="dtype"):
         flash_attention(q, q.double(), q)
+    with pytest.raises(ValueError, match="softcap"):
+        flash_attention(q, q, q, softcap=-1.0)

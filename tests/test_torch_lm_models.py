@@ -123,10 +123,15 @@ def _unroll(ring, S):
     return ring[:, :S] if S < W else torch.roll(ring, -(S % W), dims=1)
 
 
+MOE_ARCHS = ("dbrx-132b", "grok-1-314b")
+
+
 @pytest.fixture(scope="module")
 def models():
-    return {a: _models(a, layers=2 if a == "rwkv6-3b" else None)
-            for a in ("rwkv6-3b", "recurrentgemma-9b", "granite-34b")}
+    return {a: _models(a, layers=2 if a in ("rwkv6-3b",) + MOE_ARCHS
+                       else None)
+            for a in ("rwkv6-3b", "recurrentgemma-9b", "granite-34b")
+            + MOE_ARCHS}
 
 
 def _tokens(cfg, B, S, seed=0):
@@ -146,8 +151,10 @@ def test_layer_full_mode_matches_reference(models, kind):
     pos = np.broadcast_to(np.arange(S)[None], (2, S))
     jx, jc, _ = JB.apply_layer(jcfg, kind, jp, jnp.asarray(x),
                                mode="prefill", positions=jnp.asarray(pos))
-    tx, tc = TB.apply_layer(tcfg, kind, model.layers[i], torch.tensor(x),
-                            mode="prefill", positions=torch.tensor(pos))
+    tx, tc, aux = TB.apply_layer(tcfg, kind, model.layers[i],
+                                 torch.tensor(x), mode="prefill",
+                                 positions=torch.tensor(pos))
+    assert aux == 0.0
     _close(tx, jx, f"{kind} output")
     for name in jc:
         if kind == "rwkv" and name == "x_t":     # fault 1: decode's x_t
@@ -157,8 +164,9 @@ def test_layer_full_mode_matches_reference(models, kind):
             _close(_unroll(tc[name], S), jc[name], f"local {name}")
         else:
             _close(tc[name], jc[name], f"{kind} cache {name}")
-    tx2, none = TB.apply_layer(tcfg, kind, model.layers[i], torch.tensor(x),
-                               mode="train", positions=torch.tensor(pos))
+    tx2, none, _ = TB.apply_layer(tcfg, kind, model.layers[i],
+                                  torch.tensor(x), mode="train",
+                                  positions=torch.tensor(pos))
     assert none is None and torch.equal(tx2, tx)
 
 
@@ -177,10 +185,10 @@ def test_layer_decode_mode_matches_reference(models, kind, pos):
     jx, jc, _ = JB.apply_layer(jcfg, kind, jp, jnp.asarray(x), mode="decode",
                                cache=jax.tree.map(jnp.asarray, cache),
                                pos=jnp.int32(pos))
-    tx, tc = TB.apply_layer(tcfg, kind, model.layers[i], torch.tensor(x),
-                            mode="decode", pos=pos,
-                            cache={k: torch.tensor(v)
-                                   for k, v in cache.items()})
+    tx, tc, _ = TB.apply_layer(tcfg, kind, model.layers[i],
+                               torch.tensor(x), mode="decode", pos=pos,
+                               cache={k: torch.tensor(v)
+                                      for k, v in cache.items()})
     _close(tx, jx, f"{kind} decode output")
     assert set(tc) == set(jc)
     for name in jc:
@@ -188,14 +196,25 @@ def test_layer_decode_mode_matches_reference(models, kind, pos):
 
 
 def test_unported_kinds_raise():
-    with pytest.raises(NotImplementedError, match="A10"):
-        TB.layer_defs(smoke(ARCHS["grok-1-314b"]), "attn_moe")
-    with pytest.raises(NotImplementedError, match="A10"):
-        M.init_params(smoke(ARCHS["whisper-small"]),
-                      torch.Generator().manual_seed(0), device="cpu")
+    """`xattn`, `encdec` and `enc` (llama-3.2-vision, whisper) wait for
+    ROADMAP A10.2."""
+    for kind in ("xattn", "encdec", "enc"):
+        with pytest.raises(NotImplementedError, match="A10.2"):
+            TB.layer_defs(smoke(ARCHS["llama-3.2-vision-11b"]), kind)
+    for arch in ("llama-3.2-vision-11b", "whisper-small"):
+        with pytest.raises(NotImplementedError, match="A10.2"):
+            M.init_params(smoke(ARCHS[arch]),
+                          torch.Generator().manual_seed(0), device="cpu")
 
 
 # ------------------------------------------------------------------- model
+def _rel_rows(a, b):
+    """Relative L2 error of a against b per position (last axis), f32."""
+    a, b = (t.float().numpy() if isinstance(t, torch.Tensor)
+            else np.asarray(t, np.float32) for t in (a, b))
+    return np.linalg.norm(a - b, axis=-1) / np.linalg.norm(b, axis=-1)
+
+
 def _rel(a, b):
     """Relative L2 error of a against b, both cast to f32."""
     a = a.float().numpy() if isinstance(a, torch.Tensor) else np.asarray(
@@ -205,7 +224,8 @@ def _rel(a, b):
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b",
-                                  "granite-34b"])
+                                  "granite-34b", "dbrx-132b",
+                                  "grok-1-314b"])
 def test_bf16_forward_and_prefill_match_reference(arch):
     """At dtype = param_dtype = bfloat16 (the configs' own types) the
     port's logits from `forward` and `prefill_step` are held against the
@@ -219,9 +239,23 @@ def test_bf16_forward_and_prefill_match_reference(arch):
     weights amplify the roundings layer by layer). Two packages that round
     the same f32 function at slightly different points differ by about
     sqrt(2) e; the port must stay within 2 e of the reference's bf16
-    logits and of the f32 logits."""
+    logits and of the f32 logits.
+
+    With MoE layers (dbrx, grok) the router's top-k is a discontinuous
+    function: at these widths the reference's "small" router init gives
+    near-uniform probabilities (0.2-0.3 over 4 experts), a bf16 rounding
+    of the router's input can flip a near-tie (the reference's own bf16
+    logits flip against its f32 ones for about one seed in four), and one
+    flipped token moves the whole tensor's error to ~5%. So for them the
+    rule holds per position of `forward`: the median position's relative
+    error within 2 e_med (e_med the median position's error of the
+    reference's bf16 against its f32 logits), and at most one position in
+    16 beyond it (a flipped token); `prefill_step`'s last logits are held
+    to `forward`'s last position in each package (one bf16 rounding,
+    2^-8), which the rule above covers."""
     jcfg, jparams, tcfg, model = _models(
-        arch, layers=2 if arch == "rwkv6-3b" else None, dtype="bfloat16")
+        arch, layers=2 if arch in ("rwkv6-3b",) + MOE_ARCHS else None,
+        dtype="bfloat16")
     jcfg32 = dataclasses.replace(jcfg, dtype="float32",
                                  param_dtype="float32")
     jparams32 = jax.tree.map(lambda a: a.astype(jnp.float32), jparams)
@@ -239,8 +273,20 @@ def test_bf16_forward_and_prefill_match_reference(arch):
         assert jl.dtype == jnp.bfloat16 and tl.dtype == torch.bfloat16
         e = _rel(jl, j32)
         assert 0 < e < 0.1, (what, e)
-        assert _rel(tl, jl) <= 2 * e, (what, _rel(tl, jl), e)
-        assert _rel(tl, j32) <= 2 * e, (what, _rel(tl, j32), e)
+        if "attn_moe" not in tcfg.layer_kinds:
+            assert _rel(tl, jl) <= 2 * e, (what, _rel(tl, jl), e)
+            assert _rel(tl, j32) <= 2 * e, (what, _rel(tl, j32), e)
+            continue
+        if what == "prefill":
+            for a, b in ((tl, outs["forward"][2][:, -1]),
+                         (jl, outs["forward"][0][:, -1])):
+                assert (_rel_rows(a, b) <= 2 ** -8).all(), (a, b)
+            continue
+        e_med = float(np.median(_rel_rows(jl, j32)))
+        for other in (jl, j32):
+            r = _rel_rows(tl, other)
+            assert np.median(r) <= 2 * e_med, (what, np.median(r), e_med)
+            assert (r > 2 * e_med).sum() <= r.size // 16, (what, r, e_med)
     _, jcache = JM.prefill_step(jcfg, jparams, jt)
     _, tcache = M.prefill_step(tcfg, model, tt)
     for i, (tc, jc) in enumerate(zip(tcache, _jax_cache_layers(jcfg,
@@ -251,15 +297,20 @@ def test_bf16_forward_and_prefill_match_reference(arch):
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b",
-                                  "granite-34b"])
+                                  "granite-34b", "dbrx-132b",
+                                  "grok-1-314b"])
 def test_forward_and_prefill_match_reference(models, arch):
+    """Logits, every cache entry and the MoE aux loss (summed over the
+    layers; 0 without `attn_moe`, in both packages; rtol 1e-6)."""
     jcfg, jparams, tcfg, model = models[arch]
     S = 24
     toks = _tokens(jcfg, 2, S)
-    jl, _, _ = JM.forward(jcfg, jparams, jnp.asarray(toks), mode="train")
+    jl, jaux, _ = JM.forward(jcfg, jparams, jnp.asarray(toks), mode="train")
     tl, aux = M.forward(tcfg, model, torch.tensor(toks).long())
     _close(tl, jl, "forward logits")
-    assert float(aux) == 0.0
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6, atol=0)
+    assert (float(aux) > 0) == ("attn_moe" in tcfg.layer_kinds)
     jl, jcache = JM.prefill_step(jcfg, jparams, jnp.asarray(toks))
     tl, tcache = M.prefill_step(tcfg, model, torch.tensor(toks).long())
     _close(tl, jl, "prefill last logits")
@@ -277,12 +328,14 @@ def test_forward_and_prefill_match_reference(models, arch):
                 _close(_unroll(tc[name], S), jc[name], f"layer {i} {name}")
             else:
                 _close(tc[name], jc[name], f"layer {i} {kind} {name}")
-        x, _ = TB.apply_layer(tcfg, kind, model.layers[i], x, mode="train",
-                              positions=torch.arange(S)[None].expand(2, S))
+        x, _, _ = TB.apply_layer(tcfg, kind, model.layers[i], x,
+                                 mode="train",
+                                 positions=torch.arange(S)[None].expand(2, S))
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b",
-                                  "granite-34b"])
+                                  "granite-34b", "dbrx-132b",
+                                  "grok-1-314b"])
 def test_decode_steps_match_reference(models, arch):
     jcfg, jparams, tcfg, model = models[arch]
     toks = _tokens(jcfg, 2, 18, seed=3)     # past the window of 16

@@ -47,7 +47,7 @@ def test_import_scan_sees_the_whole_port():
             "store.py", "propcache.py", "ops.py", "distill.py",
             "baselines.py", "adamw.py", "inception_distill.py",
             "train.py", "faults.py", "frontend.py", "distributed.py",
-            "checkpoint.py", "full_graph_infer.py"} <= names
+            "checkpoint.py", "full_graph_infer.py", "moe.py"} <= names
 
 
 def test_port_modules_load_no_jax_at_run_time():
@@ -67,7 +67,8 @@ def test_port_modules_load_no_jax_at_run_time():
             "repro_torch.launch.serve, repro_torch.launch.train, "
             "repro_torch.serving.faults, repro_torch.serving.frontend, "
             "repro_torch.gnn.distributed, repro_torch.launch.checkpoint, "
-            "repro_torch.launch.full_graph_infer, repro_torch.launch.mesh; "
+            "repro_torch.launch.full_graph_infer, repro_torch.launch.mesh, "
+            "repro_torch.nn.moe; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
