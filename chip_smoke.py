@@ -121,6 +121,31 @@ fails (non-zero exit, no result line) on any failed check:
    agree on. (Token-by-token decoding is no reference here: decode routes
    the batch as one row at capacity 8, the prefill each sequence at
    ~688, so they drop different assignments, in the reference too.)
+   Then the cross-attention and encoder models (`xattn_phase`, ROADMAP
+   A10.2) at full width and depth in bf16 (weights 19.55 and 0.56 GB;
+   parameter arithmetic checked against `count_params`), conditioned as
+   above (the `xattn` gates set to 1), stub frontends drawn from a CUDA
+   generator seeded 1: llama-3.2-vision-11b (32 `attn` + 8 gated `xattn`
+   layers; prefill 4 x 2048 tokens with 4 x 1600 image rows) and
+   whisper-small (12 `enc` + 12 `encdec` layers; 16 clips of 1500 frames,
+   224-token prompts). For each: (a) B4 with its key bound on the first
+   `xattn` layer's, or the first `enc` layer's and the first `encdec`
+   layer's cross-attention, real q, k, v (`bounded_attention_check`:
+   queries and keys zero-padded to multiples of 128, kv_len the true
+   key count; the kernel against its plain version in bf16 and f32, NaN
+   in every padded key and value giving the same bits, timed beside the
+   plain version and SDPA over the unpadded operands, the bound counting
+   the true pairs); (c) the main path, prefill (B4 40 and 36 times) and
+   32 greedy decode steps, then 8 requests through `LMServingEngine`
+   with its cache seeded from 4 frontends by `seed_frontend_cache`; (d)
+   `seed_frontend_cache` equal to the prefill's xk / xv bit for bit, and
+   a decode from it at position 0 finite; (e) the gates on 2 x 2200
+   (llama) and 2 x 200 (whisper) tokens against an f32 prefill through
+   the plain attention (`plain_layer`: `_sdpa`, no kernel) and one
+   decode step from its cache, made one layer at a time from f32 copies
+   of that layer's weights (the f32 llama would take 39.1 GB beside the
+   bf16 one), beside the same layers through B4's f32 kernel and the
+   bf16 model through `prefill_step` / `decode_step`.
 5. train (`train_phase`, last, so that nothing it leaves behind runs
    beside the LM timings): the paper's training procedure (`train_nai`,
    Inception Distillation, `DistillConfig()`'s 300/200/200 epochs) on the
@@ -177,6 +202,8 @@ the depth, to 0.52 at 32 layers, where unrelated logits would give
 path; for bf16, MOE_BF16_REL, about twice what an H100 gave (bf16 and
 f32 chose the same experts there; a bf16 rounding that flips a near-tied
 top-k choice sends that token to another expert and moves the error).
+The cross-attention gates: 1e-3 for the f32 kernel path; for bf16,
+XATTN_BF16_REL, about twice what an H100 gave.
 
 The second-to-last line is a JSON object {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.
@@ -2012,25 +2039,39 @@ def band_pairs(S: int, window: int) -> int:
 
 
 def condition_weights(torch, cfg, model, generator) -> None:
-    """Two changes to the reference's random initialization, so that the
+    """Three changes to the reference's random initialization, so that the
     checks below can see what they test. It leaves the rwkv token-shift
     mixes mu_* at 0, under which the prefill cache's `x_t` is never read:
     draw them from U(0, 1). It takes the fan-in of the (d, heads, hd)
     attention projections from the heads axis, so random q.k logits run
-    into the thousands and the banded softmax is a hard max whose winner
-    rounding flips: scale wq, wk, wv to a fan-in of d (by a power of two
-    at rwkv6-3b's and recurrentgemma-9b's widths, exact in bf16; by
-    2^-3.5 and 768^-0.5, rounded to bf16, at dbrx-132b's and
-    grok-1-314b's)."""
+    into the thousands and the softmax is a hard max whose winner
+    rounding flips: scale wq, wk, wv of every self-attention (`local`,
+    `attn`, `attn_moe`, `encdec`, the encoder's `enc`) and cross-attention
+    (`xattn`, `encdec`) to a fan-in of d (by a power of two at rwkv6-3b's,
+    recurrentgemma-9b's and whisper-small's widths, exact in bf16; by
+    2^-3.5 and 768^-0.5 at dbrx-132b's and grok-1-314b's, and 2^-3.5 and
+    2^-4.5 at llama-3.2-vision-11b's, rounded to bf16). It sets the
+    `xattn` gates to 0, where tanh(0) = 0 switches llama-3.2-vision's
+    cross-attention layers off entirely: set them to 1 (tanh 0.76)."""
+    def soften(p):
+        p["wq"].mul_((cfg.num_heads / cfg.d_model) ** 0.5)
+        for w in ("wk", "wv"):
+            p[w].mul_((cfg.num_kv_heads / cfg.d_model) ** 0.5)
+
     with torch.no_grad():
         for p, kind in zip(model.layers, cfg.layer_kinds):
             for name, w in p.named_parameters():
                 if name.rsplit(".", 1)[-1].startswith("mu_"):
                     w.uniform_(0.0, 1.0, generator=generator)
-            if kind in ("local", "attn", "attn_moe"):
-                p["attn"]["wq"].mul_((cfg.num_heads / cfg.d_model) ** 0.5)
-                for w in ("wk", "wv"):
-                    p["attn"][w].mul_((cfg.num_kv_heads / cfg.d_model) ** 0.5)
+            if kind in ("local", "attn", "attn_moe", "encdec"):
+                soften(p["attn"])
+            if kind in ("xattn", "encdec"):
+                soften(p["xattn"])
+            if kind == "xattn":
+                p["gate_attn"].fill_(1.0)
+                p["gate_mlp"].fill_(1.0)
+        for p in model.encoder:
+            soften(p["attn"])
 
 
 def depth_logits(torch, cfg, model, toks, depths):
@@ -2639,6 +2680,412 @@ def moe_phase(torch, dev, kernels, arch, bf16_rel, smi_line):
     return launches["flash_attention"]
 
 
+# models of the cross-attention phase (ROADMAP A10.2): main-path batch,
+# prompt, stub-frontend length, gate batch and prompt. whisper: 16 clips
+# of 1500 frames, 224-token previous-text prompts (n_text_ctx / 2)
+XATTN_SHAPES = {"llama-3.2-vision-11b": dict(batch=4, seq=2048, gate=(2, 2200)),
+                "whisper-small": dict(batch=16, seq=224, gate=(2, 200))}
+# bf16 limits of its gates: about twice the largest error an H100 gave
+# (llama 0.01181, whisper 0.008961; "NVIDIA H100 80GB HBM3, 700.00 W")
+XATTN_BF16_REL = {"llama-3.2-vision-11b": 0.024, "whisper-small": 0.018}
+
+
+def pad_rows(torch, t, block: int = 128, value: float = 0.0):
+    """t (B, S, heads, hd) padded along S to a multiple of `block`."""
+    S = t.shape[1]
+    return torch.nn.functional.pad(t, (0, 0, 0, 0, 0, -(-S // block) * block
+                                       - S), value=value).contiguous()
+
+
+def bounded_attention_check(torch, q, k, v, label):
+    """B4 with its key bound on one layer's real q (B, Sq, H, hd) and k, v
+    (B, Sk, KV, hd), not causal, as the main path launches it: queries and
+    keys zero-padded to multiples of 128, kv_len = Sk. The kernel against
+    its plain version in bf16 (tolerance of `attention_check`) and in f32
+    (rtol 1e-4, atol 2e-5 of the largest |v|: softmax sums in another
+    order); NaN in every padded key and value gives the zero-padded bits
+    in both; timed beside the plain version and SDPA over the unpadded
+    operands (GQA where KV < H). The bound counts the true Sq x Sk pairs.
+    Returns (row of timings, line)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     ref_attention)
+    B_, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    qp, kp, vp = (pad_rows(torch, t) for t in (q, k, v))
+    kn, vn = (pad_rows(torch, t, value=float("nan")) for t in (k, v))
+
+    def kernel(k_=kp, v_=vp, q_=qp):
+        return flash_attention(q_, k_, v_, causal=False, kv_len=Sk)
+    out, nan = kernel(), kernel(kn, vn)
+    ref = ref_attention(qp, kp, vp, causal=False, kv_len=Sk)
+    f32 = [t.float() for t in (qp, kp, vp, kn, vn)]
+    out32 = kernel(f32[1], f32[2], f32[0])
+    nan32 = kernel(f32[3], f32[4], f32[0])
+    ref32 = ref_attention(*f32[:3], causal=False, kv_len=Sk)
+    torch.cuda.synchronize()
+    v_max = float(v.float().abs().max())
+    err = float((out.float() - ref.float()).abs().max())
+    err32 = float((out32 - ref32).abs().max())
+    check(torch.allclose(out.float(), ref.float(), rtol=2.0 ** -7,
+                         atol=2.0 ** -8 * v_max),
+          f"{label}: bf16 kernel vs plain with kv_len {Sk}, max abs err "
+          f"{err} (largest |v| {v_max})")
+    check(torch.allclose(out32, ref32, rtol=1e-4, atol=2e-5 * v_max),
+          f"{label}: f32 kernel vs plain with kv_len {Sk}, max abs err "
+          f"{err32}")
+    check(torch.equal(nan, out) and torch.equal(nan32, out32),
+          f"{label}: NaN in the padded keys and values changes the output")
+    del out32, nan32, ref32, f32, nan, kn, vn
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=KV != H)
+    lib_err = float((library().transpose(1, 2).float()
+                     - ref[:, :Sq].float()).abs().max())
+    t = timings(torch, kernel, lambda: ref_attention(
+        qp, kp, vp, causal=False, kv_len=Sk), library, plain_reps=5)
+    flops = 4 * B_ * H * Sq * Sk * hd
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    t["bound"] = bound(nbytes, flops, PEAK_BF16_FLOP_S)
+    t.update(max_abs_err=err, max_abs_err_f32=err32)
+    ms, by = t["bound"]
+    line = (f"{label}: B {B_}, Sq {Sq} (padded {qp.shape[1]}), Sk = kv_len "
+            f"{Sk} (padded {kp.shape[1]}), {H} q heads, {KV} kv heads, hd "
+            f"{hd}, not causal; max abs err vs plain bf16 {err:.3g}, f32 "
+            f"{err32:.3g} (largest |v| {v_max:.3g}); NaN padding: same bits;"
+            f" SDPA's max abs err {lib_err:.3g}; kernel {t['ms']:.4f} ms "
+            f"({flops / t['ms'] / 1e9:.1f} TFLOP/s, {ms / t['ms']:.1%} of its "
+            f"bound {ms:.4f} ms, {by}); plain {t['plain_ms']:.4f} ms; SDPA "
+            f"{t['library_ms']:.4f} ms; one call per event pair: kernel "
+            f"{t['ms_one_call']:.4f} ms, SDPA {t['library_ms_one_call']:.4f} "
+            f"ms")
+    print(line, flush=True)
+    return t, line
+
+
+def plain_layer(torch, cfg, kind, p, x, pos, frontend):
+    """One `attn`, `xattn`, `encdec` or `enc` layer from the module
+    functions, in `apply_layer`'s order, with every attention through the
+    reference's formula `_sdpa` (a causal mask for `attn` / `encdec`
+    self-attention, none for `enc` and cross-attention), where no kernel
+    runs. Returns (x, the layer's prefill cache)."""
+    from repro_torch.nn import attention as A
+    from repro_torch.nn.basic import apply_mlp, apply_norm
+
+    def attend(pa, q, k, v, causal):
+        S = q.shape[1]
+        h = A._sdpa(cfg, q, k, v, A.causal_mask(S, S, device=q.device)
+                    if causal else None)
+        return torch.einsum("bshe,hed->bsd", h, pa["wo"])
+
+    def cross(pa, xn):
+        xk, xv = A.project_kv(cfg, pa, frontend)
+        q = torch.einsum("bsd,dhe->bshe", xn, pa["wq"])   # no RoPE
+        return attend(pa, q, xk, xv, False), {"xk": xk, "xv": xv}
+    if kind == "xattn":
+        h, cache = cross(p["xattn"], apply_norm(cfg, p["norm1"], x))
+        x = x + torch.tanh(p["gate_attn"]) * h
+        h = apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+        return x + torch.tanh(p["gate_mlp"]) * h, cache
+    q, k, v = A._project_qkv(cfg, p["attn"], apply_norm(cfg, p["norm1"], x),
+                             pos)
+    x = x + attend(p["attn"], q, k, v, kind != "enc")
+    cache = {} if kind == "enc" else {"k": k, "v": v}
+    if kind == "encdec":
+        h, xc = cross(p["xattn"], apply_norm(cfg, p["normx"], x))
+        x = x + h
+        cache.update(xc)
+    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x)), cache
+
+
+def xattn_param_count(cfg) -> tuple:
+    """Parameters of a cross-attention or encoder model from its config
+    (nn/basic.py, nn/attention.py): (per decoder layer kind, per encoder
+    layer, embed + head + norms, total)."""
+    d, f, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    norm = 2 * d if cfg.norm_kind == "layernorm" else d
+    attn = 2 * d * H * hd + 2 * d * KV * hd
+    mlp = (3 if cfg.mlp_kind in ("swiglu", "geglu") else 2) * d * f
+    kinds = {"attn": attn + mlp + 2 * norm, "enc": attn + mlp + 2 * norm,
+             "xattn": attn + mlp + 2 * norm + 2,
+             "encdec": 2 * attn + mlp + 3 * norm}
+    enc = kinds["enc"] if cfg.is_encdec else 0
+    outer = (1 if cfg.tie_embeddings else 2) * V * d + norm * (
+        2 if cfg.is_encdec else 1)
+    total = (sum(kinds[k] for k in cfg.layer_kinds)
+             + cfg.encoder_layers * enc + outer)
+    return kinds, enc, outer, total
+
+
+def xattn_phase(torch, dev, kernels, arch, smi_line):
+    """A cross-attention or encoder model (ROADMAP A10.2) at full width
+    and depth in bf16, random weights from a CUDA generator seeded 0
+    (conditioned as `condition_weights` says), stub frontends drawn from
+    a seeded generator: (a) B4 with its key bound on the first `xattn`
+    layer's real q, k, v (llama-3.2-vision-11b), or on the first `enc`
+    layer's and the first `encdec` layer's cross-attention (whisper-
+    small); (c) the main path, a prefill with the frontend + 32 greedy
+    decode steps, B4 counted; then the engine with its cache seeded by
+    `seed_frontend_cache`; (d) `seed_frontend_cache` against the prefill's
+    xk / xv, bit for bit, and a decode from it at position 0; (e) the
+    end-to-end gates against an f32 prefill through the plain attention
+    (`plain_layer`, no kernel) and one decode step from its cache, made
+    one layer at a time from f32 copies of that layer's weights, beside
+    the same layers through B4's f32 kernel and the bf16 model through
+    `prefill_step` / `decode_step`. Returns (B4's launches in the
+    prefill, the bounded-attention lines)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.models import decoder_lm as M
+    from repro_torch.nn import attention as A
+    from repro_torch.nn import blocks as TB
+    from repro_torch.nn.basic import apply_norm
+    from repro_torch.nn.params import count_params, torch_dtype
+    from repro_torch.serving import LMServingEngine
+
+    phase(f"xattn {arch}")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    shp = XATTN_SHAPES[arch]
+    batch, seq, n_dec = shp["batch"], shp["seq"], 32
+    B2, gate_seq = shp["gate"]
+    n_fe = cfg.encoder_seq if cfg.is_encdec else cfg.num_image_tokens
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(0)
+    model = M.init_params(cfg, gen, device=dev)
+    condition_weights(torch, cfg, model, gen)
+    torch.cuda.synchronize()
+    kinds, enc, outer, total = xattn_param_count(cfg)
+    n_par = count_params(model)
+    check(n_par == total and all(
+        count_params(p) == kinds[k]
+        for p, k in zip(model.layers, cfg.layer_kinds)),
+        f"{arch} parameter count {n_par} (from the config {total})")
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"{arch}: {cfg.num_layers} decoder layers ("
+          + ", ".join(f"{cfg.layer_kinds.count(k)} {k}"
+                      for k in dict.fromkeys(cfg.layer_kinds))
+          + f"), {cfg.encoder_layers} encoder layers, d_model {cfg.d_model},"
+          f" {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, {cfg.mlp_kind} d_ff {cfg.d_ff}, "
+          f"{cfg.norm_kind}, vocab {cfg.vocab_size}, frontend {n_fe} x "
+          f"{cfg.d_model}: per layer " + ", ".join(
+              f"{k} {kinds[k]:.4g}" for k in dict.fromkeys(cfg.layer_kinds))
+          + (f", enc {enc:.4g}" if enc else "")
+          + f", embed + head + norms {outer:.4g}; {n_par} parameters in all "
+          f"({n_par:.4g}), {n_bytes} bytes ({cfg.param_dtype}); made in "
+          f"{time.perf_counter() - t0:.1f}s")
+    dtype = torch_dtype(cfg.dtype)
+    fe_gen = torch.Generator(dev).manual_seed(1)
+    frontend = torch.randn((batch, n_fe, cfg.d_model), generator=fe_gen,
+                           device=dev).to(dtype)
+    prompts = torch.from_numpy(synthetic_lm_batch(
+        np.random.default_rng(0), batch, max(seq, gate_seq + 1),
+        cfg.vocab_size)["tokens"]).long().to(dev)
+    toks = prompts[:, :seq]
+    pos = torch.arange(seq, device=dev)[None].expand(batch, seq)
+
+    # ---- (a) B4 with the key bound on the first cross / bidirectional
+    # layer's real operands, at the main path's shapes
+    lines = []
+    with torch.no_grad():
+        if cfg.is_encdec:
+            p = model.encoder[0]
+            epos = torch.arange(n_fe, device=dev)[None].expand(batch, n_fe)
+            q, k, v = (a.contiguous() for a in A._project_qkv(
+                cfg, p["attn"], apply_norm(cfg, p["norm1"], frontend), epos))
+            lines.append(bounded_attention_check(
+                torch, q, k, v, f"flash_attention {arch} enc (layer 0)"))
+            del q, k, v
+            enc_out = M._run_encoder(cfg, model, frontend)
+            p = model.layers[0]
+            x = M._embed_tokens(cfg, model, toks, pos)
+            x = x + A.self_attention(cfg, p["attn"], apply_norm(
+                cfg, p["norm1"], x), pos)[0]
+            xk, xv = A.project_kv(cfg, p["xattn"], enc_out)
+            q = torch.einsum("bsd,dhe->bshe", apply_norm(cfg, p["normx"], x),
+                             p["xattn"]["wq"])
+            lines.append(bounded_attention_check(
+                torch, q, xk, xv, f"flash_attention {arch} cross "
+                                  f"(layer 0)"))
+            del enc_out, x, xk, xv, q
+        else:
+            i_x = cfg.layer_kinds.index("xattn")
+            x = M._embed_tokens(cfg, model, toks, pos)
+            for i in range(i_x):
+                x, _, _ = TB.apply_layer(cfg, cfg.layer_kinds[i],
+                                         model.layers[i], x, positions=pos)
+            p = model.layers[i_x]
+            xk, xv = A.project_kv(cfg, p["xattn"], frontend)
+            q = torch.einsum("bsd,dhe->bshe", apply_norm(cfg, p["norm1"], x),
+                             p["xattn"]["wq"])
+            lines.append(bounded_attention_check(
+                torch, q, xk, xv, f"flash_attention {arch} xattn "
+                                  f"(layer {i_x})"))
+            del x, xk, xv, q
+    torch.cuda.empty_cache()
+
+    # ---- (c) the main path: prefill with the frontend, then greedy decode
+    n_b4 = (sum(k in ("attn", "xattn") for k in cfg.layer_kinds)
+            + 2 * cfg.layer_kinds.count("encdec") + cfg.encoder_layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    last, cache = M.prefill_step(cfg, model, toks, frontend=frontend,
+                                 length=seq + n_dec)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    tok = last.argmax(-1, keepdim=True)
+    t0 = time.perf_counter()
+    for t in range(seq, seq + n_dec):
+        logits, cache = M.decode_step(cfg, model, cache, tok, t)
+        tok = logits[:, 0].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    launches = launch_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["flash_attention"] == n_b4 and all(
+        v == 0 for n, v in launches.items() if n != "flash_attention"),
+        f"{arch} prefill launched flash_attention {n_b4} times ({launches})")
+    check(bool(torch.isfinite(last).all()) and last.shape == (
+        batch, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+        f"{arch} prefill and decode logits finite, shaped")
+    rates = dict(prefill=batch * seq / t_prefill,
+                 decode=batch * n_dec / t_decode)
+    print(f"{arch} prefill {batch} x {seq} tokens with {batch} x {n_fe} "
+          f"frontend rows: {t_prefill:.3f} s, {rates['prefill']:.1f} "
+          f"tokens/s; flash_attention launches {launches['flash_attention']}")
+    print(f"{arch} decode {n_dec} tokens x {batch}: {t_decode:.3f} s, "
+          f"{rates['decode']:.1f} tokens/s ({1e3 * t_decode / n_dec:.2f} "
+          f"ms per step); peak memory {peak} bytes")
+    step_profile(torch, lambda: M.decode_step(cfg, model, cache, tok,
+                                              seq + n_dec - 1),
+                 f"{arch} decode")
+
+    # ---- (d) seed_frontend_cache: the prefill's xk / xv, bit for bit; a
+    # decode from the seeded cache at position 0 (the reference launcher's
+    # path)
+    seeded = M.seed_frontend_cache(cfg, model, M.init_cache(
+        cfg, batch, seq + n_dec, device=dev), frontend)
+    n_x = 0
+    for c, sc, kind in zip(cache, seeded, cfg.layer_kinds):
+        if kind in ("xattn", "encdec"):
+            n_x += 1
+            check(torch.equal(c["xk"], sc["xk"])
+                  and torch.equal(c["xv"], sc["xv"]),
+                  f"{arch} seed_frontend_cache == the prefill's xk / xv")
+    first = M.decode_step(cfg, model, seeded, toks[:, :1], 0)[0]
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(first).all()),
+          f"{arch} decode from the seeded cache at position 0: finite")
+    print(f"{arch} seed_frontend_cache: xk / xv of {n_x} layers equal to the"
+          f" prefill's bit for bit; a decode from it at position 0 finite")
+    del cache, logits, seeded, first
+    torch.cuda.empty_cache()
+
+    # ---- the engine, its cache seeded: 8 requests, 4 slots, 32-token
+    # prompts, 16 new tokens each
+    eng = LMServingEngine(cfg, model, slots=4, max_len=128, device=dev)
+    eng.cache = M.seed_frontend_cache(cfg, model, eng.cache, frontend[:4])
+    for prompt in synthetic_lm_batch(np.random.default_rng(1), 8, 32,
+                                     cfg.vocab_size)["tokens"]:
+        eng.submit(prompt.tolist(), max_new=16)
+    t0 = time.perf_counter()
+    stats = eng.run_until_drained()
+    torch.cuda.synchronize()
+    t_eng = time.perf_counter() - t0
+    check(stats["completed"] == 8 and all(len(r.out) == 16
+                                          for r in eng.completed),
+          f"{arch} engine served every request in full ({stats})")
+    rates["engine"] = 8 * 16 / t_eng
+    print(f"{arch} engine (cache seeded from 4 frontends): 8 requests in "
+          f"{stats['ticks']} ticks, {t_eng:.3f} s, {rates['engine']:.1f} "
+          f"generated tokens/s")
+    print(f"{arch} rates: prefill {rates['prefill']:.1f} tokens/s, decode "
+          f"{1e3 * t_decode / n_dec:.2f} ms per step "
+          f"({rates['decode']:.1f} tokens/s), engine {rates['engine']:.1f} "
+          f"tokens/s, peak memory {peak / 1e9:.2f} GB; {smi_line}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # ---- (e) end to end on B2 x gate_seq tokens: the reference is an f32
+    # prefill through the plain attention (no kernel), one layer at a time
+    # from f32 copies of its weights, and one decode step from its cache;
+    # beside it the same layers through B4's f32 kernel, and the bf16
+    # model through prefill_step / decode_step
+    gtoks = prompts[:B2, :gate_seq]
+    nxt = prompts[:B2, gate_seq:gate_seq + 1]
+    gfe = frontend[:B2]
+    gpos = torch.arange(gate_seq, device=dev)[None].expand(B2, gate_seq)
+    npos = torch.full_like(nxt, gate_seq)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    last16, cache = M.prefill_step(cfg, model, gtoks, frontend=gfe,
+                                   length=gate_seq + 1)
+    next16 = M.decode_step(cfg, model, cache, nxt, gate_seq)[0][:, 0]
+    del cache
+
+    def pad1(c):
+        return dict(c, **{n: torch.nn.functional.pad(c[n], (0, 0, 0, 0, 0, 1))
+                          for n in ("k", "v") if n in c})
+    with torch.no_grad():
+        fk = fr = gfe.float()
+        if cfg.is_encdec:
+            epos = torch.arange(n_fe, device=dev)[None].expand(B2, n_fe)
+            for p16 in model.encoder:
+                p32 = f32_copy(torch, p16)
+                fk = TB.apply_layer(cfg32, "enc", p32, fk, positions=epos)[0]
+                fr = plain_layer(torch, cfg32, "enc", p32, fr, epos, None)[0]
+            n32 = f32_copy(torch, model["encoder_norm"])
+            fk, fr = apply_norm(cfg32, n32, fk), apply_norm(cfg32, n32, fr)
+        xk = xr = M._embed_tokens(cfg32, model, gtoks, gpos)
+        yk = yr = M._embed_tokens(cfg32, model, nxt, npos)
+        for p16, kind in zip(model.layers, cfg.layer_kinds):
+            p32 = f32_copy(torch, p16)
+            xk, ck, _ = TB.apply_layer(cfg32, kind, p32, xk, mode="prefill",
+                                       positions=gpos, frontend=fk)
+            yk, _, _ = TB.apply_layer(cfg32, kind, p32, yk, mode="decode",
+                                      cache=pad1(ck), pos=gate_seq)
+            xr, cr = plain_layer(torch, cfg32, kind, p32, xr, gpos, fr)
+            yr, _, _ = TB.apply_layer(cfg32, kind, p32, yr, mode="decode",
+                                      cache=pad1(cr), pos=gate_seq)
+            del ck, cr, p32
+        top32 = {"final_norm": f32_copy(torch, model["final_norm"]),
+                 "lm_head": model["lm_head"].float()}
+
+        def head(x):
+            return M._project_logits(cfg32, top32, apply_norm(
+                cfg32, top32["final_norm"], x[:, -1:]))[:, 0]
+        lastk, nextk, lastr, nextr = (head(a) for a in (xk, yk, xr, yr))
+    torch.cuda.synchronize()
+    gate_peak = torch.cuda.max_memory_allocated()
+    del top32, xk, xr, yk, yr, fk, fr
+    errs = {"f32 kernel prefill": rel_l2(lastk, lastr),
+            "f32 kernel decode from its cache": rel_l2(nextk, nextr),
+            "bf16 prefill": rel_l2(last16, lastr),
+            "bf16 decode from its cache": rel_l2(next16, nextr)}
+    print(f"{arch} end to end on {B2} x {gate_seq} tokens + 1, {B2} x {n_fe}"
+          f" frontend rows ({time.perf_counter() - t0:.1f} s, peak memory "
+          f"{gate_peak} bytes), relative L2 error against the f32 prefill "
+          f"through the plain attention (layer by layer) and its decode "
+          f"step: " + ", ".join(f"{k} {v:.4g}" for k, v in errs.items())
+          + f"; argmax agreement, bf16 prefill "
+          f"{float((last16.argmax(-1) == lastr.argmax(-1)).float().mean()):.2f}")
+    for what, err in errs.items():
+        tol = F32_REL if what.startswith("f32") else XATTN_BF16_REL[arch]
+        check(err < tol, f"{arch} {what} vs the f32 plain prefill, relative "
+              f"L2 error {err} (limit {tol})")
+    del model, last16, next16, frontend
+    torch.cuda.empty_cache()
+    print(f"{arch} phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches["flash_attention"], [line for _, line in lines]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2696,6 +3143,15 @@ def main() -> int:
         n = moe_phase(torch, dev, kernels, arch, bf16_rel, smi_line)
         b4["launches"] += n
         parts.append(f"{n} in one {arch} prefill of 4 x 2048 tokens")
+    # cross-attention and encoder models (ROADMAP A10.2), full width and
+    # depth; B4's row adds their prefills' launches
+    bounded = []
+    for arch, shp in XATTN_SHAPES.items():
+        n, lines = xattn_phase(torch, dev, kernels, arch, smi_line)
+        b4["launches"] += n
+        parts.append(f"{n} in one {arch} prefill of {shp['batch']} x "
+                     f"{shp['seq']} tokens")
+        bounded += lines
     b4["note"] = f"({', '.join(parts)})"
     # training last, so that nothing it leaves behind (pinned pools, its
     # subprocesses) runs beside the LM phases' timings
@@ -2724,6 +3180,8 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=ms, bound_by=by,
             library_ms=r["library_ms"]))
+    for text in bounded:
+        print(text)
     print(smi_line)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -18,9 +18,9 @@ from typing import Tuple
 #   attn_moe  : global causal self-attention + MoE MLP
 #   rglru     : RG-LRU recurrent mixer + dense MLP (Griffin/RecurrentGemma)
 #   rwkv      : RWKV6 time-mix + channel-mix
-#   xattn     : cross-attention (to frontend embeddings) + MLP  (not ported)
-#   encdec    : causal self-attn + cross-attn to encoder + MLP  (not ported)
-#   enc       : bidirectional self-attention + dense MLP        (not ported)
+#   xattn     : cross-attention (to frontend embeddings) + MLP
+#   encdec    : causal self-attn + cross-attn to encoder + MLP
+#   enc       : bidirectional self-attention + dense MLP
 # ---------------------------------------------------------------------------
 LAYER_KINDS = ("attn", "local", "attn_moe", "rglru", "rwkv", "xattn", "encdec",
                "enc")

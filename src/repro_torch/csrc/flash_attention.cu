@@ -10,11 +10,25 @@
 //                                              cap > 0; before the mask)
 //   s[j]  = -1e30 unless j <= i and (window == 0 or j > i - window)
 //                                             (when causal)
+//   s[j]  = -1e30 when j >= kv_len            (the key bound)
 //   out[i] = sum_j softmax(s)[j] v[j]
 // by the running max / sum / accumulator recurrence over key blocks, with
 // the output acc / max(l, 1e-30) written in q's dtype. Key blocks that lie
 // wholly above the diagonal or left of the band are skipped, as the TPU
 // kernel's `relevant` test does.
+//
+// The key bound (0 < kv_len <= Sk) is the true length of keys padded to a
+// multiple of the block: an encoder's 1500 frames, 1600 image tokens, the
+// keys of bidirectional and cross-attention, where no causal mask hides
+// the padding. Blocks wholly at or past kv_len are never loaded; in the
+// one block that straddles it, keys and values at or past kv_len are
+// read as zeros (TMA's out-of-bounds fill in the bf16 kernel, the f32
+// kernel's staging) and their logits set to -1e30, so whatever the
+// padding holds (NaN too) never reaches the output. The bound is a
+// template flag (BOUND), as the soft-cap is: at kv_len == Sk the kernels
+// run compiled without it, the code they were before the bound existed
+// (a bound tested at run time cost the causal bf16 kernel 10-14% of its
+// time on the H100 with the same bits).
 //
 // GQA/MQA: q is (B, Sq, H, hd) and k, v are (B, Sk, KV, hd) in the model's
 // layout; query head h reads key/value head h / (H / KV) directly, so the
@@ -83,24 +97,29 @@ constexpr int FA_BK = 64;
 constexpr int FA_THREADS = 256;
 
 // rows x HD tile from `src` (row stride `ld` elements) into `dst` (row
-// stride HD + 4 floats), times `mul`
-template <int HD>
+// stride HD + 4 floats), times `mul`; rows at or past `rows` are zeros
+// (not read)
+template <int HD, bool BOUND>
 __device__ __forceinline__ void stage(const float* __restrict__ src,
-                                      long long ld, float* dst, float mul) {
+                                      long long ld, float* dst, float mul,
+                                      int rows) {
   constexpr int V = HD / 4;
   for (int e = threadIdx.x; e < FA_BQ * V; e += FA_THREADS) {
     const int row = e / V, c = (e % V) * 4;
-    float4 x = *reinterpret_cast<const float4*>(src + row * ld + c);
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (!BOUND || row < rows)
+      x = *reinterpret_cast<const float4*>(src + row * ld + c);
     x.x *= mul; x.y *= mul; x.z *= mul; x.w *= mul;
     *reinterpret_cast<float4*>(dst + row * (HD + 4) + c) = x;
   }
 }
 
-template <int HD, bool CAP>
+template <int HD, bool CAP, bool BOUND>
 __global__ void __launch_bounds__(FA_THREADS, 1) fa_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out, int Sq, int Sk,
-    int H, int KV, int causal, int window, float scale, float softcap) {
+    int kv_len, int H, int KV, int causal, int window, float scale,
+    float softcap) {
   constexpr int LD = HD + 4;        // padded smem row (floats)
   constexpr int PLD = FA_BK + 4;
   constexpr int NG = HD / 64;       // 4-wide column groups per thread
@@ -130,16 +149,17 @@ __global__ void __launch_bounds__(FA_THREADS, 1) fa_f32_kernel(
 #pragma unroll
     for (int e = 0; e < NG * 4; ++e) acc[a][e] = 0.f;
   }
-  stage<HD>(qb, q_ld, Qs, scale);
+  stage<HD, false>(qb, q_ld, Qs, scale, FA_BQ);
 
   const int nkb = Sk / FA_BK;
-  const int kb_end = causal ? min(nkb - 1, (q0 + FA_BQ - 1) / FA_BK) : nkb - 1;
+  int kb_end = causal ? min(nkb - 1, (q0 + FA_BQ - 1) / FA_BK) : nkb - 1;
+  if (BOUND) kb_end = min(kb_end, (kv_len - 1) / FA_BK);
   for (int kbi = 0; kbi <= kb_end; ++kbi) {
     const int k0 = kbi * FA_BK;
     if (causal && window > 0 && k0 + FA_BK - 1 <= q0 - window) continue;
     __syncthreads();                 // previous tiles fully consumed
-    stage<HD>(kb + k0 * kv_ld, kv_ld, Ks, 1.f);
-    stage<HD>(vb + k0 * kv_ld, kv_ld, Vs, 1.f);
+    stage<HD, BOUND>(kb + k0 * kv_ld, kv_ld, Ks, 1.f, kv_len - k0);
+    stage<HD, BOUND>(vb + k0 * kv_ld, kv_ld, Vs, 1.f, kv_len - k0);
     __syncthreads();
 
     float s[4][4];
@@ -175,7 +195,8 @@ __global__ void __launch_bounds__(FA_THREADS, 1) fa_f32_kernel(
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
         if (CAP) s[a][j] = tanhf(s[a][j] / softcap) * softcap;
-        if (causal && (kpos > qpos || (window > 0 && kpos <= qpos - window)))
+        if ((causal && (kpos > qpos || (window > 0 && kpos <= qpos - window)))
+            || (BOUND && kpos >= kv_len))
           s[a][j] = FA_NEG_INF;
         mx = fmaxf(mx, s[a][j]);
       }
@@ -237,23 +258,23 @@ __global__ void __launch_bounds__(FA_THREADS, 1) fa_f32_kernel(
   }
 }
 
-template <int HD, bool CAP>
+template <int HD, bool CAP, bool BOUND>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int Sq, int Sk, int H, int KV, int causal, int window,
-               float scale, float softcap, cudaStream_t st) {
+               int Sq, int Sk, int kv_len, int H, int KV, int causal,
+               int window, float scale, float softcap, cudaStream_t st) {
   if (Sq % FA_BQ || Sk % FA_BK) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       sizeof(float) * (FA_BQ * (HD + 4) + 2 * FA_BK * (HD + 4) +
                        FA_BQ * (FA_BK + 4));
   cudaError_t err = cudaFuncSetAttribute(
-      fa_f32_kernel<HD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_f32_kernel<HD, CAP, BOUND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(Sq / FA_BQ, B * H);
-  fa_f32_kernel<HD, CAP><<<grid, FA_THREADS, smem, st>>>(
+  fa_f32_kernel<HD, CAP, BOUND><<<grid, FA_THREADS, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H, KV,
-      causal, window, scale, softcap);
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, kv_len,
+      H, KV, causal, window, scale, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -326,13 +347,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // With CAP, `scale_log2` is 2 scale log2(e) / cap and `cap_log2` is
 // cap log2(e) (the fold of the cap formula above); without, `scale_log2`
 // is scale log2(e) and `cap_log2` is not read.
-template <int HD, bool CAP>
+template <int HD, bool CAP, bool BOUND>
 __global__ void __launch_bounds__(TC_THREADS, 1) fa_bf16_kernel(
     const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
-    int Sq, int Sk, int H, int KV, int causal, int window, float scale_log2,
-    float cap_log2) {
+    int Sq, int Sk, int kv_len, int H, int KV, int causal, int window,
+    float scale_log2, float cap_log2) {
   using L = TcSmem<HD>;
   constexpr int BK = L::BK, STAGES = L::STAGES;
   extern __shared__ uint8_t tc_raw[];
@@ -357,6 +378,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1) fa_bf16_kernel(
     const int kmin = q0 - window + 1;   // first key of the first query's band
     if (window > 0 && kmin > 0) kb_lo = kmin / BK;
   }
+  if (BOUND) kb_hi = min(kb_hi, (kv_len - 1) / BK);   // no tile past it
   const int n_tiles = kb_hi - kb_lo + 1;
 
   auto load_kv = [&](int stage, int kb) {
@@ -364,10 +386,18 @@ __global__ void __launch_bounds__(TC_THREADS, 1) fa_bf16_kernel(
     const int row = b * Sk + kb * BK;
 #pragma unroll
     for (int p = 0; p < L::PANELS; ++p) {
-      tma_load_3d(Ks + stage * L::KV_BYTES + p * L::KV_PANEL, &tk,
-                  &full[stage], p * 64, kvh, row);
-      tma_load_3d(Vs + stage * L::KV_BYTES + p * L::KV_PANEL, &tv,
-                  &full[stage], p * 64, kvh, row);
+      if (BOUND) {   // rows past kv_len are outside the (hd, KV, kv_len, B)
+                     // maps: zeros
+        tma_load_4d(Ks + stage * L::KV_BYTES + p * L::KV_PANEL, &tk,
+                    &full[stage], p * 64, kvh, kb * BK, b);
+        tma_load_4d(Vs + stage * L::KV_BYTES + p * L::KV_PANEL, &tv,
+                    &full[stage], p * 64, kvh, kb * BK, b);
+      } else {
+        tma_load_3d(Ks + stage * L::KV_BYTES + p * L::KV_PANEL, &tk,
+                    &full[stage], p * 64, kvh, row);
+        tma_load_3d(Vs + stage * L::KV_BYTES + p * L::KV_PANEL, &tv,
+                    &full[stage], p * 64, kvh, row);
+      }
     }
   };
   if (tid == 0) {
@@ -410,8 +440,9 @@ __global__ void __launch_bounds__(TC_THREADS, 1) fa_bf16_kernel(
     const int k0 = (kb_lo + it) * BK;
     const bool skip = causal && (k0 > qa + 63 ||
                                  (window > 0 && k0 + BK - 1 <= qa - window));
-    const bool masked = causal && (k0 + BK - 1 > qa ||
-                                   (window > 0 && k0 <= qa + 63 - window));
+    const bool masked = (causal && (k0 + BK - 1 > qa ||
+                                    (window > 0 && k0 <= qa + 63 - window)))
+                        || (BOUND && k0 + BK > kv_len);
     mbar_wait(&full[stage], parity);
     __syncwarp();
     if (!skip) {
@@ -441,7 +472,10 @@ __global__ void __launch_bounds__(TC_THREADS, 1) fa_bf16_kernel(
           if (masked) {
             const int qpos = row0 + 8 * (e / 2);
             const int kpos = k0 + 8 * i + 2 * (lane % 4) + e % 2;
-            if (kpos > qpos || (window > 0 && kpos <= qpos - window))
+            if (BOUND ? (causal && (kpos > qpos || (window > 0 &&
+                                                    kpos <= qpos - window)))
+                            || kpos >= kv_len
+                      : kpos > qpos || (window > 0 && kpos <= qpos - window))
               s = FA_NEG_INF;
           }
           sc[4 * i + e] = s;
@@ -548,41 +582,68 @@ static bool tile_map(CUtensorMap* map, const void* ptr, int hd, int heads,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD, bool CAP>
+// Keys or values (B, S, heads, hd) bf16 at `ptr` as the 4-D map (hd,
+// heads, rows, B) whose rows stop at `rows` <= S: a box that reaches past
+// them reads zeros there. 64 x 1 x `box_rows` x 1 boxes, 128-byte swizzle.
+static bool bounded_map(CUtensorMap* map, const void* ptr, int hd, int heads,
+                        int rows, int S, int B, int box_rows) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t row_bytes = static_cast<cuuint64_t>(heads) * hd * 2;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(hd) * 2, row_bytes,
+                                 row_bytes * static_cast<cuuint64_t>(S)};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD, bool CAP, bool BOUND>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
-                int Sq, int Sk, int H, int KV, int causal, int window,
-                float scale, float softcap, cudaStream_t st) {
+                int Sq, int Sk, int kv_len, int H, int KV, int causal,
+                int window, float scale, float softcap, cudaStream_t st) {
   constexpr int BK = TcCfg<HD>::BK;
   if (Sq % TC_BQ || Sk % BK) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
+  const long long kv_rows = static_cast<long long>(B) * Sk;
   if (!tile_map(&tq, q, HD, H, static_cast<long long>(B) * Sq, 64) ||
-      !tile_map(&tk, k, HD, KV, static_cast<long long>(B) * Sk, BK) ||
-      !tile_map(&tv, v, HD, KV, static_cast<long long>(B) * Sk, BK))
+      !(BOUND ? bounded_map(&tk, k, HD, KV, kv_len, Sk, B, BK)
+              : tile_map(&tk, k, HD, KV, kv_rows, BK)) ||
+      !(BOUND ? bounded_map(&tv, v, HD, KV, kv_len, Sk, B, BK)
+              : tile_map(&tv, v, HD, KV, kv_rows, BK)))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = TcSmem<HD>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      fa_bf16_kernel<HD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_bf16_kernel<HD, CAP, BOUND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(Sq / TC_BQ, B * H);
-  fa_bf16_kernel<HD, CAP><<<grid, TC_THREADS, smem, st>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV, causal,
-      window, CAP ? 2.f * scale * LOG2E / softcap : scale * LOG2E,
+  fa_bf16_kernel<HD, CAP, BOUND><<<grid, TC_THREADS, smem, st>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, kv_len, H, KV,
+      causal, window, CAP ? 2.f * scale * LOG2E / softcap : scale * LOG2E,
       softcap * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool BF16, bool CAP>
+template <bool BF16, bool CAP, bool BOUND>
 int launch_hd(const void* q, const void* k, const void* v, void* out, int B,
-              int Sq, int Sk, int H, int KV, int hd, int causal, int window,
-              float scale, float softcap, cudaStream_t st) {
+              int Sq, int Sk, int kv_len, int H, int KV, int hd, int causal,
+              int window, float scale, float softcap, cudaStream_t st) {
   switch (hd) {
 #define FA_CASE(D)                                                           \
   case D:                                                                    \
-    return BF16 ? launch_bf16<D, CAP>(q, k, v, out, B, Sq, Sk, H, KV,        \
-                                      causal, window, scale, softcap, st)    \
-                : launch_f32<D, CAP>(q, k, v, out, B, Sq, Sk, H, KV, causal, \
-                                     window, scale, softcap, st);
+    return BF16 ? launch_bf16<D, CAP, BOUND>(q, k, v, out, B, Sq, Sk, kv_len, \
+                                             H, KV, causal, window, scale,   \
+                                             softcap, st)                    \
+                : launch_f32<D, CAP, BOUND>(q, k, v, out, B, Sq, Sk, kv_len, \
+                                            H, KV, causal, window, scale,    \
+                                            softcap, st);
     FA_CASE(64)
     FA_CASE(128)
     FA_CASE(256)
@@ -597,28 +658,32 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int B,
 // q (B, Sq, H, hd), k and v (B, Sk, KV, hd), out (B, Sq, H, hd), all of one
 // dtype (is_bf16: bfloat16 on the tensor cores, else float32 on the CUDA
 // cores), contiguous, 16-byte aligned; Sq % 128 == 0, Sk % 128 == 0,
-// H % KV == 0, hd in {64, 128, 256}; softcap >= 0 (0: no cap).
+// 0 < kv_len <= Sk (keys at or past kv_len are not read), H % KV == 0,
+// hd in {64, 128, 256}; softcap >= 0 (0: no cap).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B,
-                                      int Sq, int Sk, int H, int KV, int hd,
-                                      int causal, int window, float scale,
-                                      float softcap, int is_bf16, int device,
-                                      void* stream) {
+                                      int Sq, int Sk, int kv_len, int H,
+                                      int KV, int hd, int causal, int window,
+                                      float scale, float softcap, int is_bf16,
+                                      int device, void* stream) {
   using namespace repro_torch;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (KV <= 0 || H % KV || !(softcap >= 0.f))
+  if (KV <= 0 || H % KV || !(softcap >= 0.f) || kv_len <= 0 || kv_len > Sk)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0 || H == 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
-  if (softcap > 0.f)
-    return is_bf16 ? launch_hd<true, true>(q, k, v, out, B, Sq, Sk, H, KV, hd,
-                                           causal, window, scale, softcap, st)
-                   : launch_hd<false, true>(q, k, v, out, B, Sq, Sk, H, KV,
-                                            hd, causal, window, scale,
-                                            softcap, st);
-  return is_bf16 ? launch_hd<true, false>(q, k, v, out, B, Sq, Sk, H, KV, hd,
-                                          causal, window, scale, 0.f, st)
-                 : launch_hd<false, false>(q, k, v, out, B, Sq, Sk, H, KV, hd,
-                                           causal, window, scale, 0.f, st);
+  // one instance per (dtype, cap, bound): no flag is tested at run time
+  const bool cap = softcap > 0.f, bound = kv_len < Sk;
+  using Launch = int (*)(const void*, const void*, const void*, void*, int,
+                         int, int, int, int, int, int, int, int, float,
+                         float, cudaStream_t);
+  static const Launch table[2][2][2] = {
+      {{launch_hd<false, false, false>, launch_hd<false, false, true>},
+       {launch_hd<false, true, false>, launch_hd<false, true, true>}},
+      {{launch_hd<true, false, false>, launch_hd<true, false, true>},
+       {launch_hd<true, true, false>, launch_hd<true, true, true>}}};
+  return table[is_bf16 != 0][cap][bound](q, k, v, out, B, Sq, Sk, kv_len, H,
+                                         KV, hd, causal, window, scale,
+                                         cap ? softcap : 0.f, st);
 }

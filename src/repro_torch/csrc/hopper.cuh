@@ -62,6 +62,20 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
       : "memory");
 }
 
+// The same for a 4-D tensor map: coordinates (c0, c1, c2, c3). Elements
+// of the box outside the map's extents land as zeros, and the bytes
+// counted on `bar` are the whole box's all the same.
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // wgmma descriptor of a 128-byte-swizzled operand at `p`: `lbo` and `sbo`
 // in bytes (K-major: sbo = 1024 between 8-row groups, lbo unused;
 // MN-major: lbo = the stride between 64-element panels, sbo = 1024

@@ -27,9 +27,13 @@ replayed between events.
 B1 and B2 run on step 1 of the first pubmed-like batch (full size, as in
 ``chip_smoke.py``), B3 on B1's propagated batch rows against x_inf = c *
 s; B4 on recurrentgemma-9b's ``local`` layer shape,
-q (2, 4096, 16, 256) and k, v (2, 4096, 1, 256) bf16, window 2048 (with
-no soft-cap; the two versions' outputs are also compared bit for bit,
-there and in f32 on the first 1024 positions); B5 on
+q (2, 4096, 16, 256) and k, v (2, 4096, 1, 256) bf16, window 2048, and
+at the global causal GQA shape of dbrx-132b and grok-1-314b, q (4, 2048,
+48, 128) and k, v (4, 2048, 8, 128), without and with grok's soft-cap of
+30 (q and k scaled by 6, so that logits pass the cap); the two versions'
+outputs are compared bit for bit in each case, in bf16 and in f32 on the
+first 1024 positions (the key bound, which a version since the bound
+takes after Sk, is Sk: nothing cut). B5 on
 rwkv6-3b's prefill shape, (B, T, H, hd) = (4, 2048, 40, 64) f32, each
 version in the layout it reads (a version that takes (B*H, T, hd) gets
 that copy, made outside the timing), and this version's B5 once more at
@@ -127,6 +131,18 @@ def graph_ms(fn, calls: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
+
+
+def b4_args(n: int, ops, out, B, S, H, KV, hd, W, cap):
+    """`flash_attention_launch`'s arguments before the device and the
+    stream, for a version whose entry point takes `n` arguments: 16 (PRs
+    12-18), 17 (PR 19: the soft-cap after the scale), 18 (the key bound
+    kv_len after Sk, here S: nothing is cut)."""
+    if n < 17 and cap:
+        raise ValueError("this version of B4 has no soft-cap")
+    return (*[t.data_ptr() for t in ops], out.data_ptr(), B, S, S,
+            *((S,) if n > 17 else ()), H, KV, hd, 1, W, 1.0 / hd ** 0.5,
+            *((cap,) if n > 16 else ()), int(ops[0].dtype == torch.bfloat16))
 
 
 def nap_operands(dev):
@@ -287,50 +303,63 @@ def main() -> int:
         raise RuntimeError("B3's flags differ from B2's")
     del b1_ref, b3_ref, outs
 
-    # ---- B4 at recurrentgemma-9b's local-layer shape
-    B, S, H, KV, hd, W = 2, 4096, 16, 1, 256, 2048
+    # ---- B4: recurrentgemma-9b's local layer (banded MQA, timed), and
+    # the global causal GQA shape of dbrx-132b / grok-1-314b with and
+    # without grok's cap (causal, capped)
     g = torch.Generator(device=dev).manual_seed(0)
-    q, k, v = (torch.randn((B, S, h, hd), generator=g, device=dev,
-                           dtype=torch.bfloat16) for h in (H, KV, KV))
-    b4_ref = ref_attention(q, k, v, window=W).float()
+    shapes = {"B4": (2, 4096, 16, 1, 256, 2048, 0.0),
+              "B4 causal": (4, 2048, 48, 8, 128, 0, 0.0),
+              "B4 capped": (4, 2048, 48, 8, 128, 0, 30.0)}
     b4_out = {}
-    for tag, lib in libs.items():
-        out = torch.empty_like(q)
-        # versions since the soft-cap take it after the scale: 0, no cap
-        cap = (0.0,) if n_args[tag]["flash_attention_launch"] > 16 else ()
+    for kern, (B, S, H, KV, hd, W, cap) in shapes.items():
+        if cap and min(n["flash_attention_launch"]
+                       for n in n_args.values()) < 17:
+            print(f"{kern}: the other version has no soft-cap; skipped")
+            continue
+        q, k, v = (torch.randn((B, S, h, hd), generator=g, device=dev,
+                               dtype=torch.bfloat16) for h in (H, KV, KV))
+        if cap:
+            q, k = 6.0 * q, 6.0 * k     # logits beyond the cap
+        ref = ref_attention(q, k, v, window=W, softcap=cap).float()
+        for tag, lib in libs.items():
+            out = torch.empty_like(q)
 
-        # operands and shapes bound now: B5 below reuses k, v, B, H, hd
-        def b4(lib=lib, out=out, ops=(q, k, v), shape=(B, S, H, KV, hd, W),
-               cap=cap):
-            B, S, H, KV, hd, W = shape
-            build.check_launch("flash_attention", lib.flash_attention_launch(
-                *[t.data_ptr() for t in ops], out.data_ptr(), B, S, S, H, KV,
-                hd, 1, W, 1.0 / hd ** 0.5, *cap, int(ops[0].dtype ==
-                                                     torch.bfloat16), 0,
-                stream))
-        b4()
-        torch.cuda.synchronize()
-        err = float((out.float() - b4_ref).abs().max())
-        print(f"B4 {tag}: max abs err vs plain {err:.3g} of values up to "
-              f"{float(b4_ref.abs().max()):.3g}")
-        if not torch.allclose(out.float(), b4_ref, rtol=1e-2, atol=1e-2):
-            raise RuntimeError(f"B4 {tag} disagrees with its plain version")
-        calls[("B4", tag)] = b4
-        # and in f32 (the kernel of the f32 gates), on the first 1024 rows
-        o32 = [t[:, :1024].float().contiguous() for t in (q, k, v)]
-        out32 = torch.empty_like(o32[0])
-        b4(out=out32, ops=o32, shape=(B, 1024, H, KV, hd, W))
-        torch.cuda.synchronize()
-        b4_out[tag] = (out.clone(), out32)
-    del b4_ref
-    # bits of the two versions: equal since PR 13's kernel (the soft-cap
-    # compiled out at 0); an older B4 differs (printed, not raised)
-    print("B4 this == other bit for bit (bf16, f32): " + ", ".join(
-        str(torch.equal(a.view(torch.int16 if a.dtype == torch.bfloat16
-                               else torch.int32),
-                        b.view(torch.int16 if b.dtype == torch.bfloat16
-                               else torch.int32)))
-        for a, b in zip(b4_out["this"], b4_out["other"])), flush=True)
+            # operands and shapes bound now: B5 below reuses the names
+            def b4(lib=lib, tag=tag, out=out, ops=(q, k, v),
+                   shape=(B, S, H, KV, hd, W, cap)):
+                build.check_launch("flash_attention", lib.flash_attention_launch(
+                    *b4_args(n_args[tag]["flash_attention_launch"], ops, out,
+                             *shape), 0, stream))
+            b4()
+            torch.cuda.synchronize()
+            err = float((out.float() - ref).abs().max())
+            print(f"{kern} {tag}: max abs err vs plain {err:.3g} of values "
+                  f"up to {float(ref.abs().max()):.3g}")
+            if not torch.allclose(out.float(), ref, rtol=1e-2, atol=1e-2):
+                raise RuntimeError(f"{kern} {tag} disagrees with its plain "
+                                   f"version")
+            calls[(kern, tag)] = b4
+            # and in f32 (the kernel of the f32 gates), on the first 1024
+            # positions
+            o32 = [t[:, :1024].float().contiguous() for t in (q, k, v)]
+            out32 = torch.empty_like(o32[0])
+            b4(out=out32, ops=o32, shape=(B, 1024, H, KV, hd, W, cap))
+            torch.cuda.synchronize()
+            b4_out[(kern, tag)] = (out.clone(), out32)
+        del ref, q, k, v
+        # bits of the two versions: equal since PR 13's kernel (the cap
+        # compiled out at 0, the key bound inactive at kv_len == Sk); an
+        # older B4 differs (printed), one with the cap must not (raised)
+        same = [torch.equal(a.view(torch.int16 if a.dtype == torch.bfloat16
+                                   else torch.int32),
+                            b.view(torch.int16 if b.dtype == torch.bfloat16
+                                   else torch.int32))
+                for a, b in zip(b4_out[(kern, "this")],
+                                b4_out[(kern, "other")])]
+        print(f"{kern} this == other bit for bit (bf16, f32): "
+              f"{', '.join(map(str, same))}", flush=True)
+        if not all(same) and n_args["other"]["flash_attention_launch"] > 16:
+            raise RuntimeError(f"{kern}: the two versions' bits differ")
     del b4_out
 
     # ---- B5 at rwkv6-3b's prefill shape
@@ -393,7 +422,9 @@ def main() -> int:
     print(f"B3, device time (CUDA graph of 10 calls): other "
           f"{got['other'][0]:.4f} / {got['other'][1]:.4f} ms, this "
           f"{got['this'][0]:.4f} / {got['this'][1]:.4f} ms", flush=True)
-    for kern in ("B1", "B2", "B3", "B4", "B5"):
+    for kern in ("B1", "B2", "B3", "B4", "B4 causal", "B4 capped", "B5"):
+        if (kern, "this") not in calls:
+            continue
         for n in (10, 1):
             got = {"other": [], "this": []}
             for tag in ("other", "this", "this", "other"):

@@ -1,4 +1,5 @@
-"""Causal / banded online-softmax attention (kernel B4)."""
+"""Causal / banded / unmasked online-softmax attention with a key bound
+(kernel B4)."""
 BQ = 128           # sequence granularity of the wrapper (as the TPU kernel's)
 BK = 128
 HEAD_DIMS = (64, 128, 256)   # head dims the CUDA kernel is compiled for

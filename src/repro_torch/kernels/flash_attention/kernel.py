@@ -18,13 +18,17 @@ from repro_torch.kernels.flash_attention.ref import ref_attention
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    softcap: float = 0.0) -> torch.Tensor:
+                    softcap: float = 0.0, kv_len=None) -> torch.Tensor:
     """q (B, Sq, H, hd); k, v (B, Sk, KV, hd); Sq % BQ == 0 == Sk % BK,
-    H % KV == 0; float32 or bfloat16. Causal attention, banded to the last
-    `window` keys when window > 0 (no mask when not causal); softmax in
-    f32, output (B, Sq, H, hd) in q's dtype. softcap > 0 caps the scaled
-    logits to softcap * tanh(s / softcap) before the mask (grok-1); at 0
-    the kernels run compiled without the cap.
+    H % KV == 0; float32 or bfloat16. Causal attention (Sq == Sk), banded
+    to the last `window` keys when window > 0; not causal, any Sq and no
+    mask but the key bound. Softmax in f32, output (B, Sq, H, hd) in q's
+    dtype. softcap > 0 caps the scaled logits to softcap * tanh(s /
+    softcap) before the mask (grok-1); at 0 the kernels run compiled
+    without the cap. Keys at positions >= `kv_len` (0 < kv_len <= Sk;
+    None: Sk) take no part and are never read: the zero padding of a key
+    length that is not a multiple of BK (an encoder's 1500 frames); at
+    kv_len == Sk the kernels run compiled without the bound.
 
     On the card the dtype picks one of two hand-written kernels: bfloat16
     runs Q K^T and P V on the tensor cores (wgmma, f32 accumulation, P
@@ -36,6 +40,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if Sq % BQ or Sk % BK:
         raise ValueError(f"sequence lengths {Sq}, {Sk} must be multiples of "
                          f"{BQ}, {BK}")
+    if causal and Sq != Sk:
+        raise ValueError(f"causal attention needs Sq == Sk, got {Sq}, {Sk}")
+    kv_len = Sk if kv_len is None else int(kv_len)
+    if not 0 < kv_len <= Sk:
+        raise ValueError(f"kv_len {kv_len}: expected 0 < kv_len <= {Sk}")
     if KV == 0 or H % KV:
         raise ValueError(f"{H} query heads are not a multiple of {KV} "
                          f"key/value heads")
@@ -49,13 +58,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"softcap {softcap}: expected >= 0 (0: no cap)")
     if dev.type == "cpu":
         return ref_attention(q, k, v, causal=causal, window=window,
-                             softcap=softcap)
+                             softcap=softcap, kv_len=kv_len)
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd}: the CUDA kernel takes {HEAD_DIMS}")
     out = torch.empty_like(q)
     err = build.library().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
-        H, KV, hd, int(causal), window, 1.0 / hd ** 0.5, softcap,
+        kv_len, H, KV, hd, int(causal), window, 1.0 / hd ** 0.5, softcap,
         int(q.dtype == torch.bfloat16), dev.index, stream_of(dev))
     build.check_launch("flash_attention", err)
     flash_attention.launches += 1

@@ -8,18 +8,24 @@ from repro_torch.kernels.flash_attention import BK, BQ
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 
 
+def _pad_to(x, block: int):
+    """x (B, S, heads, hd) zero-padded along S to a multiple of `block`."""
+    S = x.shape[1]
+    return F.pad(x, (0, 0, 0, 0, 0, -(-S // block) * block - S)).contiguous()
+
+
 def gqa_flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                         softcap: float = 0.0):
-    """q (B, S, H, hd); k, v (B, S, KV, hd). Pads S with zeros to the block
-    size, runs the kernel, unpads. Unlike the JAX wrapper it does not
-    repeat the KV heads: the kernel indexes them. `softcap` as in
-    `flash_attention` (the causal mask keeps the padded keys out)."""
-    S = q.shape[1]
-    pad = -(-S // max(BQ, BK)) * max(BQ, BK) - S
-
-    def prep(x):
-        return F.pad(x, (0, 0, 0, 0, 0, pad)).contiguous()
-
-    out = flash_attention(prep(q), prep(k), prep(v), causal=causal,
-                          window=window, softcap=softcap)
-    return out[:, :S]
+    """q (B, Sq, H, hd); k, v (B, Sk, KV, hd). Pads the queries and the
+    keys with zeros, each to a multiple of the block size, runs the kernel
+    with the true Sk as its key bound, and cuts the queries back to Sq.
+    Unlike the JAX wrapper it does not repeat the KV heads: the kernel
+    indexes them. Causal attention takes Sq == Sk (the causal mask alone
+    would keep the padded keys out; the bound does too). `softcap` as in
+    `flash_attention`."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    block = max(BQ, BK)
+    out = flash_attention(_pad_to(q, block), _pad_to(k, block),
+                          _pad_to(v, block), causal=causal, window=window,
+                          softcap=softcap, kv_len=Sk)
+    return out[:, :Sq]

@@ -8,13 +8,20 @@ NEG_INF = -1.0e30
 
 
 def ref_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                  softcap: float = 0.0):
+                  softcap: float = 0.0, kv_len=None):
     """q (B, Sq, H, hd); k, v (B, Sk, KV, hd) with H % KV == 0. f32
     arithmetic, output in q's dtype. softcap > 0 caps the scaled logits
     to softcap * tanh(s / softcap) before the mask, as the reference's
-    `repro.nn.attention._sdpa` does (its Pallas kernel has no cap)."""
+    `repro.nn.attention._sdpa` does (its Pallas kernel has no cap).
+
+    Keys at positions >= `kv_len` (None: Sk) take no part, on top of the
+    causal / band mask: their logits would be -1e30, whose weight
+    exp(-1e30 - max) is exactly 0 in f32, so they are cut off before the
+    products and whatever they hold (padding, NaN) is never read."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
+    if kv_len is not None and kv_len < Sk:
+        k, v, Sk = k[:, :kv_len], v[:, :kv_len], int(kv_len)
     kf = k.float().repeat_interleave(H // KV, dim=2)
     vf = v.float().repeat_interleave(H // KV, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / (hd ** 0.5)

@@ -5,13 +5,16 @@
     requests through `repro_torch.serving.NAIServingEngine`.
   * LM mode: prefill a batch of synthetic prompts, then decode greedily,
     through `repro_torch.models.decoder_lm` (the full-sequence layers run
-    kernels B4/B5 on the card).
+    kernels B4/B5 on the card). VLM and encoder-decoder models get a
+    stub frontend drawn as the reference draws it (standard normal image
+    embeddings or audio frames, (B, N, d_model) in the model's dtype).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --gnn pubmed-like
     PYTHONPATH=src python -m repro_torch.launch.serve --gnn pubmed-like --requests 200 --epochs 20 --k 2 --scale 0.03 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b --tokens 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small --smoke --device cpu
 
 Both modes run on ``--device cuda`` unless told otherwise.
 """
@@ -27,6 +30,7 @@ from repro_torch.configs import ARCHS, get_config, smoke
 from repro_torch.data.tokens import synthetic_lm_batch
 from repro_torch.device import resolve_device
 from repro_torch.models import decoder_lm as M
+from repro_torch.nn.params import torch_dtype
 
 
 def serve_gnn(args) -> None:
@@ -61,8 +65,9 @@ def serve_gnn(args) -> None:
 
 
 def serve_lm(args) -> dict:
-    """Prefill `--batch` prompts of `--tokens` tokens, decode `--tokens`
-    more; returns the rates and the continuation."""
+    """Prefill `--batch` prompts of `--tokens` tokens (with the stub
+    frontend of a VLM or encoder-decoder), decode `--tokens` more; returns
+    the rates and the continuation."""
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
@@ -73,16 +78,22 @@ def serve_lm(args) -> dict:
     gen = torch.Generator(dev).manual_seed(args.seed)
     params = M.init_params(cfg, gen, device=dev)
     B, S = args.batch, args.tokens
-    prompt = synthetic_lm_batch(np.random.default_rng(args.seed), B, S,
-                                cfg.vocab_size)["tokens"]
+    rng = np.random.default_rng(args.seed)
+    prompt = synthetic_lm_batch(rng, B, S, cfg.vocab_size)["tokens"]
     tokens = torch.from_numpy(prompt).long().to(dev)
+    frontend = None
+    if cfg.is_encdec or cfg.num_image_tokens:
+        n = cfg.encoder_seq if cfg.is_encdec else cfg.num_image_tokens
+        frontend = torch.from_numpy(rng.standard_normal(
+            (B, n, cfg.d_model))).to(dev, torch_dtype(cfg.dtype))
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
     t0 = time.perf_counter()
-    logits, cache = M.prefill_step(cfg, params, tokens, length=2 * S)
+    logits, cache = M.prefill_step(cfg, params, tokens, frontend=frontend,
+                                   length=2 * S)
     tok = logits.argmax(-1, keepdim=True)
     sync()
     t_prefill = time.perf_counter() - t0

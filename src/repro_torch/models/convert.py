@@ -33,14 +33,19 @@ def lm_params_from_numpy(cfg, tree: Mapping[str, Any],
                          device="cuda") -> DecoderLM:
     """`tree` is the JAX package's `init_params` pytree after
     ``jax.tree.map(np.asarray, ...)``: {"embed", "blocks", "rem",
-    "final_norm", "lm_head"?}. ``blocks[j]`` stacks pattern position j
-    over the R repeats, so layer ``r * len(pattern) + j`` is ``blocks[j]``
-    at index r; the remainder layers follow from ``rem``."""
+    "final_norm", "lm_head"?, "encoder"?, "encoder_norm"?}. ``blocks[j]``
+    stacks pattern position j over the R repeats, so layer ``r *
+    len(pattern) + j`` is ``blocks[j]`` at index r; the remainder layers
+    follow from ``rem``. ``encoder`` stacks the `enc` layers over
+    `encoder_layers`, so encoder layer i is its index i. The scalar gates
+    of `xattn` come across as 0-d arrays."""
     model = DecoderLM(cfg, resolve_device(device))
     P, R = len(cfg.pattern), cfg.pattern_repeats
-    top = {k: tree[k] for k in ("embed", "final_norm", "lm_head")
-           if k in tree}
+    top = {k: tree[k] for k in ("embed", "final_norm", "lm_head",
+                                "encoder_norm") if k in tree}
     _copy(model.top, top, "params")
+    for i, layer in enumerate(model.encoder):
+        _copy(layer, _index(tree["encoder"], i), f"encoder[{i}]")
     for i, layer in enumerate(model.layers):
         if i < R * P:
             r, j = divmod(i, P)

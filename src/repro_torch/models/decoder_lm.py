@@ -8,15 +8,19 @@ is a loop. Caches are a list with one dict per layer.
 
 Public API:
     model_defs / init_params(cfg, generator, device)
-    forward(cfg, params, tokens, mode)         -> logits, aux
-    prefill_step(cfg, params, tokens, length)  -> last logits, cache
+    forward(cfg, params, tokens, frontend, mode)        -> logits, aux
+    prefill_step(cfg, params, tokens, frontend, length) -> last logits, cache
     init_cache(cfg, batch, length, device)
-    decode_step(cfg, params, cache, tokens, pos) -> logits, cache
+    seed_frontend_cache(cfg, params, cache, frontend)   -> cache
+    decode_step(cfg, params, cache, tokens, pos, frontend) -> logits, cache
 
 `aux` is the MoE load-balance loss summed over the `attn_moe` layers (0
 for models without them), as the reference's `forward` returns it.
-Encoder, frontend seeding, adaptive-depth exit heads, the loss and the
-sharding specs wait for ROADMAP A10.2-A10.5.
+`frontend` is the (B, N, d) stub of a VLM's image embeddings (N =
+`num_image_tokens`) or an encoder-decoder's audio frames (N =
+`encoder_seq`, run through the encoder's `enc` layers first); None for
+the other models. Adaptive-depth exit heads, the loss and the sharding
+specs wait for ROADMAP A10.3-A10.5.
 """
 from __future__ import annotations
 
@@ -27,28 +31,21 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.nn import attention as attn
 from repro_torch.nn import blocks as B
 from repro_torch.nn.basic import apply_norm, norm_defs
 from repro_torch.nn.params import ParamDef, ParamGroup, init_group, torch_dtype
 
 MODES = ("train", "eval")
-
-
-def _check_supported(cfg) -> None:
-    for kind in set(cfg.layer_kinds):
-        B.check_kind(kind)
-    if cfg.is_encdec or cfg.num_image_tokens or cfg.pos_embed != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: encoder / frontend / positional embeddings are not "
-            f"ported yet (ROADMAP A10.2)")
+STACKS = ("layers", "encoder")      # per-layer lists of parameter groups
 
 
 # ------------------------------------------------------------------- params
 def model_defs(cfg) -> Dict[str, Any]:
     """The trunk's parameter definitions, one entry per layer in depth
-    order under "layers" (the JAX package stacks them per pattern
-    position instead)."""
-    _check_supported(cfg)
+    order under "layers", and for an encoder-decoder one per encoder
+    layer under "encoder" with its final "encoder_norm" (the JAX package
+    stacks the layers per pattern position, and the encoder's, instead)."""
     d, V = cfg.d_model, cfg.vocab_size
     defs: Dict[str, Any] = {
         "embed": ParamDef((V, d), ("vocab", "embed"), "embed"),
@@ -57,25 +54,32 @@ def model_defs(cfg) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, V), ("embed", "vocab"))
+    if cfg.is_encdec:
+        defs["encoder"] = [B.layer_defs(cfg, "enc")
+                           for _ in range(cfg.encoder_layers)]
+        defs["encoder_norm"] = norm_defs(cfg)
     return defs
 
 
 class DecoderLM(nn.Module):
     """The model's parameters: `embed`, `layers[i]` (a `ParamGroup` under
     the JAX names of kind `cfg.layer_kinds[i]`), `final_norm`, `lm_head`
-    unless the embeddings are tied; ``model[name]`` reads them as the
-    functions below do."""
+    unless the embeddings are tied, and for an encoder-decoder
+    `encoder[i]` (`enc` layers) and `encoder_norm`; ``model[name]`` reads
+    them as the functions below do."""
 
     def __init__(self, cfg, device):
         super().__init__()
         defs = model_defs(cfg)
         self.top = ParamGroup({k: v for k, v in defs.items()
-                               if k != "layers"}, cfg.param_dtype, device)
+                               if k not in STACKS}, cfg.param_dtype, device)
         self.layers = nn.ModuleList(ParamGroup(d, cfg.param_dtype, device)
                                     for d in defs["layers"])
+        self.encoder = nn.ModuleList(ParamGroup(d, cfg.param_dtype, device)
+                                     for d in defs.get("encoder", ()))
 
     def __getitem__(self, name: str):
-        return self.layers if name == "layers" else self.top[name]
+        return getattr(self, name) if name in STACKS else self.top[name]
 
 
 def init_params(cfg, generator: torch.Generator, device="cuda") -> DecoderLM:
@@ -84,18 +88,33 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> DecoderLM:
     made on the card without a host copy)."""
     model = DecoderLM(cfg, resolve_device(device))
     init_group(model.top, generator)
-    for layer in model.layers:
+    for layer in (*model.layers, *model.encoder):
         init_group(layer, generator)
     return model.eval()
 
 
 # ------------------------------------------------------------------ helpers
-def _embed_tokens(cfg, params, tokens):
+def _sinusoid(positions, d: int):
+    """positions (B, S) -> (B, S, d) fixed sinusoidal embedding, f32."""
+    half = d // 2
+    freq = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                   device=positions.device)
+                     * (math.log(10000.0) / max(half - 1, 1)))
+    ang = positions.float()[..., None] * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _embed_tokens(cfg, params, tokens, positions=None):
+    """Token embeddings in the model's dtype, scaled by sqrt(d) where the
+    config says so, plus the sinusoidal position embedding of `positions`
+    (B, S) where `pos_embed == "sinusoidal"` (whisper)."""
     dtype = torch_dtype(cfg.dtype)
     x = params["embed"][tokens].to(dtype)
     if cfg.scale_embed_sqrt_d:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32
                              ).to(dtype)
+    if cfg.pos_embed == "sinusoidal":
+        x = x + _sinusoid(positions, cfg.d_model).to(dtype)
     return x
 
 
@@ -113,41 +132,68 @@ def _positions(tokens):
     return torch.arange(S, device=tokens.device)[None].expand(tokens.shape)
 
 
+# ------------------------------------------------------------------ encoder
+def _run_encoder(cfg, params, frontend):
+    """Stub frontend embeddings (B, Se, d) -> encoder output (B, Se, d):
+    the `enc` layers (bidirectional self-attention through B4), then
+    `encoder_norm`."""
+    x = frontend.to(torch_dtype(cfg.dtype))
+    positions = torch.arange(x.shape[1], device=x.device)[None].expand(
+        x.shape[:2])
+    for p in params["encoder"]:
+        x, _, _ = B.apply_layer(cfg, "enc", p, x, mode="train",
+                                positions=positions)
+    return apply_norm(cfg, params["encoder_norm"], x)
+
+
+def _frontend(cfg, params, frontend):
+    """What the cross-attention layers read: the encoder's output for an
+    encoder-decoder, else the frontend embeddings as given."""
+    return _run_encoder(cfg, params, frontend) if cfg.is_encdec else frontend
+
+
 # ------------------------------------------------------------------ forward
 @torch.no_grad()
-def forward(cfg, params, tokens, *, mode: str = "train"):
-    """tokens (B,S) integer. Returns (logits (B,S,V), aux). Inference only
+def forward(cfg, params, tokens, *, frontend=None, mode: str = "train"):
+    """tokens (B,S) integer; `frontend` (B, N, d) for VLM and
+    encoder-decoder models. Returns (logits (B,S,V), aux). Inference only
     (no dropout, no gradient); aux () f32 is the reference's MoE
     auxiliary loss summed over the layers."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: expected one of {MODES}")
     positions = _positions(tokens)
-    x = _embed_tokens(cfg, params, tokens)
+    x = _embed_tokens(cfg, params, tokens, positions)
+    frontend = _frontend(cfg, params, frontend)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, kind in zip(params["layers"], cfg.layer_kinds):
         x, _, aux = B.apply_layer(cfg, kind, p, x, mode="train",
-                                  positions=positions, aux=aux)
+                                  positions=positions, frontend=frontend,
+                                  aux=aux)
     x = apply_norm(cfg, params["final_norm"], x)
     return _project_logits(cfg, params, x), aux
 
 
 @torch.no_grad()
-def prefill_step(cfg, params, tokens, *, length: Optional[int] = None):
-    """Process a full prompt; returns (last-position logits (B, V), cache),
-    the cache ready for `decode_step` at pos = S. `length` (default S)
-    sizes the KV cache of global-attention layers, zero past S, so that
-    decoding can continue; windowed layers keep a ring of `window`."""
+def prefill_step(cfg, params, tokens, *, frontend=None,
+                 length: Optional[int] = None):
+    """Process a full prompt (and the `frontend`, as `forward` takes it);
+    returns (last-position logits (B, V), cache), the cache ready for
+    `decode_step` at pos = S. `length` (default S) sizes the self-attention
+    KV cache of global-attention layers, zero past S, so that decoding can
+    continue; windowed layers keep a ring of `window`, and the
+    cross-attention entries `xk` / `xv` keep the frontend's length."""
     S = tokens.shape[1]
     positions = _positions(tokens)
-    x = _embed_tokens(cfg, params, tokens)
+    x = _embed_tokens(cfg, params, tokens, positions)
+    frontend = _frontend(cfg, params, frontend)
     caches: List[dict] = []
     for p, kind in zip(params["layers"], cfg.layer_kinds):
         x, c, _ = B.apply_layer(cfg, kind, p, x, mode="prefill",
-                                positions=positions)
-        if (kind in ("attn", "attn_moe") and length is not None
+                                positions=positions, frontend=frontend)
+        if (kind in ("attn", "attn_moe", "encdec") and length is not None
                 and length > S):
-            c = {n: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, length - S))
-                 for n, t in c.items()}
+            c = dict(c, **{n: torch.nn.functional.pad(
+                c[n], (0, 0, 0, 0, 0, length - S)) for n in ("k", "v")})
         caches.append(c)
     x = apply_norm(cfg, params["final_norm"], x[:, -1:, :])
     return _project_logits(cfg, params, x)[:, 0, :], caches
@@ -162,11 +208,29 @@ def init_cache(cfg, batch: int, length: int, device="cuda") -> List[dict]:
 
 
 @torch.no_grad()
-def decode_step(cfg, params, cache, tokens, pos: int):
+def seed_frontend_cache(cfg, params, cache, frontend):
+    """Fill the `xk` / `xv` entries of a fresh decode cache from the
+    frontend embeddings (VLM) or the encoder's output (encoder-decoder),
+    for decoding from scratch without a prefill. Returns a new list; the
+    other entries are `cache`'s own buffers."""
+    frontend = _frontend(cfg, params, frontend)
+    out = []
+    for p, c, kind in zip(params["layers"], cache, cfg.layer_kinds):
+        if kind in ("xattn", "encdec"):
+            k, v = attn.project_kv(cfg, p["xattn"], frontend)
+            c = dict(c, xk=k.to(c["xk"].dtype), xv=v.to(c["xv"].dtype))
+        out.append(c)
+    return out
+
+
+@torch.no_grad()
+def decode_step(cfg, params, cache, tokens, pos: int, frontend=None):
     """One decode step. tokens (B,1) integer; pos (int) the absolute
-    position of the new token. Returns (logits (B,1,V), new cache); KV
-    buffers of `cache` are written in place."""
-    x = _embed_tokens(cfg, params, tokens)
+    position of the new token; `frontend` is not read (cross-attention
+    reads the cache's `xk` / `xv`), as in the reference. Returns (logits
+    (B,1,V), new cache); KV buffers of `cache` are written in place."""
+    positions = torch.full(tokens.shape, int(pos), device=tokens.device)
+    x = _embed_tokens(cfg, params, tokens, positions)
     new_cache = []
     for p, c, kind in zip(params["layers"], cache, cfg.layer_kinds):
         x, c, _ = B.apply_layer(cfg, kind, p, x, mode="decode", cache=c,

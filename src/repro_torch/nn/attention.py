@@ -1,12 +1,14 @@
-"""Causal self-attention with GQA/MQA, RoPE, sliding windows and KV caches
+"""Self/cross attention with GQA/MQA, RoPE, sliding windows and KV caches
 (`repro.nn.attention`).
 
 Shapes: x (B, S, d); q (B, S, H, hd); k/v (B, S, KV, hd). The full-
-sequence path runs through kernel B4 (`repro_torch.kernels.
-flash_attention`), at every S, causal and optionally banded, with the
-logit soft-cap where the config sets one; on CPU tensors its plain
-PyTorch version computes it. Decode uses the plain `_sdpa`.
-Cross-attention (`xattn`/`encdec`) waits for ROADMAP A10.2.
+sequence paths run through kernel B4 (`repro_torch.kernels.
+flash_attention`) at every S: self-attention causal and optionally
+banded, or bidirectional (`enc` layers), with the logit soft-cap where
+the config sets one; cross-attention (`xattn`, `encdec`) unmasked over
+the frontend's or the encoder's keys, whose length the kernel takes as
+its key bound. On CPU tensors its plain PyTorch version computes them.
+Decode (one query) uses the plain `_sdpa`, for cross-attention too.
 """
 from __future__ import annotations
 
@@ -19,7 +21,9 @@ from repro_torch.nn.params import ParamDef
 NEG_INF = -2.0e38
 
 
-def attn_defs(cfg):
+def attn_defs(cfg, cross: bool = False):
+    """The projections of self- or (`cross`) cross-attention: the same
+    shapes (the reference's `cross` changes nothing but its name)."""
     d, H, KV, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
     return {
@@ -77,16 +81,42 @@ def _project_qkv(cfg, p, x, positions):
     return q, k, v
 
 
-def self_attention(cfg, p, x, positions, *, window: int = 0):
-    """Full-sequence causal self attention (train / prefill), banded to
-    `window` keys when window > 0, with the logits soft-capped at
-    `cfg.attn_logit_softcap` when it is set (grok-1), through kernel B4.
-    Returns (out, (k, v))."""
+def self_attention(cfg, p, x, positions, *, window: int = 0,
+                   causal: bool = True):
+    """Full-sequence self attention (train / prefill) through kernel B4:
+    causal, banded to `window` keys when window > 0, or bidirectional
+    when not `causal` (`enc` layers; the reference passes an all-ones
+    mask), with the logits soft-capped at `cfg.attn_logit_softcap` when
+    it is set (grok-1). Returns (out, (k, v))."""
     q, k, v = _project_qkv(cfg, p, x, positions)
-    out = gqa_flash_attention(q, k, v, causal=True, window=window,
+    out = gqa_flash_attention(q, k, v, causal=causal, window=window,
                               softcap=cfg.attn_logit_softcap)
     out = torch.einsum("bshe,hed->bsd", out, p["wo"])
     return out, (k, v)
+
+
+def cross_attention(cfg, p, x, kv):
+    """x (B, Sq, d) attends, unmasked, to precomputed (k, v) (B, Se, KV,
+    hd) of the frontend or the encoder (no RoPE on cross-attention).
+    Several queries (train / prefill) go through kernel B4, not causal,
+    with Se as its key bound; one query (decode) through the plain
+    `_sdpa`, as decode self-attention does."""
+    k, v = kv
+    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+    if q.shape[1] == 1:
+        out = _sdpa(cfg, q, k, v, None)
+    else:
+        out = gqa_flash_attention(q, k, v, causal=False,
+                                  softcap=cfg.attn_logit_softcap)
+    return torch.einsum("bshe,hed->bsd", out, p["wo"])
+
+
+def project_kv(cfg, p, y):
+    """Frontend / encoder output y (B, Se, d) to the (k, v) that
+    cross-attention reads (no RoPE)."""
+    k = torch.einsum("bsd,dke->bske", y, p["wk"])
+    v = torch.einsum("bsd,dke->bske", y, p["wv"])
+    return k, v
 
 
 # ----------------------------------------------------------------- decoding

@@ -1,18 +1,23 @@
-"""Per-kind transformer blocks (`repro.nn.blocks`) for the kinds the port
-serves: `rwkv`, `rglru`, `local`, `attn` (`local` with window 0) and
-`attn_moe` (`attn` with the MoE FFN of `repro_torch.nn.moe`).
+"""Per-kind transformer blocks (`repro.nn.blocks`), one `layer_defs` /
+`apply_layer` pair for every kind of `repro_torch.common.LAYER_KINDS`:
+`rwkv`, `rglru`, `local`, `attn` (`local` with window 0), `attn_moe`
+(`attn` with the MoE FFN of `repro_torch.nn.moe`), `xattn` (gated
+cross-attention to the frontend's embeddings + gated MLP), `encdec`
+(causal self-attention, cross-attention to the encoder's output, MLP)
+and `enc` (bidirectional self-attention + MLP, the encoder's layer).
 
 apply_layer contract:
     x, cache, aux = apply_layer(cfg, kind, p, x, mode=..., positions=...,
-                                cache=..., pos=..., aux=...)
+                                cache=..., frontend=..., pos=..., aux=...)
   mode     : 'train' | 'prefill' | 'decode'
   cache    : kind-specific dict (see init_layer_cache); None for 'train'
+             and for `enc`, which caches nothing
+  frontend : (B, Se, d) frontend embeddings (`xattn`) or encoder output
+             (`encdec`) for the full modes; decode reads the cache's
+             `xk` / `xv` instead
   pos      : decode position (int)
   aux      : accumulated auxiliary loss (MoE load balance); `attn_moe`
              adds its layer's, the other kinds return it as given
-
-The other kinds (`xattn`, `encdec`, `enc`) raise NotImplementedError
-until ROADMAP A10.2 ports them.
 
 Two differences from the reference, both faults of the reference
 recorded in ROADMAP C:
@@ -33,21 +38,11 @@ from repro_torch.nn import rglru as rg
 from repro_torch.nn import rwkv as rk
 from repro_torch.nn.basic import apply_mlp, apply_norm, mlp_defs, norm_defs
 from repro_torch.nn.moe import apply_moe, apply_moe_decode, moe_defs
-
-PORTED_KINDS = ("attn", "attn_moe", "local", "rglru", "rwkv")
-
-
-def check_kind(kind: str) -> None:
-    if kind not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet (ROADMAP A10.2); the "
-            f"port serves {PORTED_KINDS}")
-
+from repro_torch.nn.params import ParamDef
 
 # --------------------------------------------------------------------- defs
 def layer_defs(cfg, kind: str):
-    check_kind(kind)
-    if kind in ("attn", "local"):
+    if kind in ("attn", "local", "enc"):
         return {"norm1": norm_defs(cfg), "attn": attn.attn_defs(cfg),
                 "norm2": norm_defs(cfg), "mlp": mlp_defs(cfg)}
     if kind == "attn_moe":
@@ -56,8 +51,21 @@ def layer_defs(cfg, kind: str):
     if kind == "rglru":
         return {"norm1": norm_defs(cfg), "rglru": rg.rglru_defs(cfg),
                 "norm2": norm_defs(cfg), "mlp": mlp_defs(cfg)}
-    return {"norm1": norm_defs(cfg), "norm2": norm_defs(cfg),
-            **rk.rwkv_defs(cfg)}
+    if kind == "rwkv":
+        return {"norm1": norm_defs(cfg), "norm2": norm_defs(cfg),
+                **rk.rwkv_defs(cfg)}
+    if kind == "xattn":
+        return {"norm1": norm_defs(cfg),
+                "xattn": attn.attn_defs(cfg, cross=True),
+                "gate_attn": ParamDef((), (), "zeros"),
+                "norm2": norm_defs(cfg), "mlp": mlp_defs(cfg),
+                "gate_mlp": ParamDef((), (), "zeros")}
+    if kind == "encdec":
+        return {"norm1": norm_defs(cfg), "attn": attn.attn_defs(cfg),
+                "normx": norm_defs(cfg),
+                "xattn": attn.attn_defs(cfg, cross=True),
+                "norm2": norm_defs(cfg), "mlp": mlp_defs(cfg)}
+    raise ValueError(f"unknown layer kind {kind!r}")
 
 
 def _window(cfg, kind: str) -> int:
@@ -67,16 +75,28 @@ def _window(cfg, kind: str) -> int:
 # -------------------------------------------------------------------- cache
 def init_layer_cache(cfg, kind: str, batch: int, length: int, dtype, device):
     """`length` = max decode length (KV cache size). Windowed layers use a
-    ring buffer of `min(window, length)`."""
-    check_kind(kind)
+    ring buffer of `min(window, length)`. Cross-attention keeps the
+    frontend's keys and values as `xk` / `xv`: `num_image_tokens` of them
+    (`xattn`) or `encoder_seq` (`encdec`, beside its self-attention's
+    `k` / `v`)."""
     if kind in ("attn", "attn_moe"):
         return attn.init_kv_cache(cfg, batch, length, dtype, device)
+    if kind == "encdec":
+        c = attn.init_kv_cache(cfg, batch, length, dtype, device)
+        x = attn.init_kv_cache(cfg, batch, cfg.encoder_seq, dtype, device)
+        return dict(c, xk=x["k"], xv=x["v"])
     if kind == "local":
         w = min(cfg.sliding_window or length, length)
         return attn.init_kv_cache(cfg, batch, w, dtype, device)
     if kind == "rglru":
         return rg.init_rglru_cache(cfg, batch, dtype, device)
-    return rk.init_rwkv_cache(cfg, batch, dtype, device)
+    if kind == "rwkv":
+        return rk.init_rwkv_cache(cfg, batch, dtype, device)
+    if kind == "xattn":
+        x = attn.init_kv_cache(cfg, batch, cfg.num_image_tokens, dtype,
+                               device)
+        return {"xk": x["k"], "xv": x["v"]}
+    raise ValueError(kind)
 
 
 def ring_cache(t: torch.Tensor, window: int) -> torch.Tensor:
@@ -93,11 +113,11 @@ def ring_cache(t: torch.Tensor, window: int) -> torch.Tensor:
 
 # -------------------------------------------------------------------- apply
 def apply_layer(cfg, kind: str, p, x, *, mode: str = "train",
-                positions=None, cache=None, pos=None, aux=0.0):
-    check_kind(kind)
+                positions=None, cache=None, frontend=None, pos=None,
+                aux=0.0):
     if mode == "decode":
         return _decode_layer(cfg, kind, p, x, cache, pos, aux)
-    return _full_layer(cfg, kind, p, x, positions, mode, aux)
+    return _full_layer(cfg, kind, p, x, positions, frontend, mode, aux)
 
 
 def _ffn(cfg, kind, p, xn, aux, decode=False):
@@ -110,7 +130,17 @@ def _ffn(cfg, kind, p, xn, aux, decode=False):
     return h, aux + moe_aux
 
 
-def _full_layer(cfg, kind, p, x, positions, mode, aux):
+def _gated_xattn(cfg, p, x, kv):
+    """`xattn`: x + tanh(gate_attn) * cross-attention, then x +
+    tanh(gate_mlp) * MLP."""
+    h = attn.cross_attention(cfg, p["xattn"], apply_norm(cfg, p["norm1"], x),
+                             kv)
+    x = x + torch.tanh(p["gate_attn"]) * h
+    h = apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+    return x + torch.tanh(p["gate_mlp"]) * h
+
+
+def _full_layer(cfg, kind, p, x, positions, frontend, mode, aux):
     new_cache = None
     if kind == "rwkv":
         xt = apply_norm(cfg, p["norm1"], x)
@@ -131,17 +161,33 @@ def _full_layer(cfg, kind, p, x, positions, mode, aux):
             new_cache = {"h": h_last, "conv": conv_tail}
         return x, new_cache, aux
 
+    if kind == "xattn":
+        xk, xv = attn.project_kv(cfg, p["xattn"], frontend)
+        x = _gated_xattn(cfg, p, x, (xk, xv))
+        if mode == "prefill":
+            new_cache = {"xk": xk, "xv": xv}
+        return x, new_cache, aux
+
+    # attention-style kinds
     window = _window(cfg, kind)
     h, (k, v) = attn.self_attention(cfg, p["attn"],
                                     apply_norm(cfg, p["norm1"], x),
-                                    positions, window=window)
+                                    positions, window=window,
+                                    causal=kind != "enc")
     x = x + h
+    if kind == "encdec":
+        xk, xv = attn.project_kv(cfg, p["xattn"], frontend)
+        x = x + attn.cross_attention(cfg, p["xattn"],
+                                     apply_norm(cfg, p["normx"], x),
+                                     (xk, xv))
     h, aux = _ffn(cfg, kind, p, apply_norm(cfg, p["norm2"], x), aux)
     x = x + h
-    if mode == "prefill":
+    if mode == "prefill" and kind != "enc":
         if window:
             k, v = ring_cache(k, window), ring_cache(v, window)
         new_cache = {"k": k, "v": v}
+        if kind == "encdec":
+            new_cache.update(xk=xk, xv=xv)
     return x, new_cache, aux
 
 
@@ -162,10 +208,18 @@ def _decode_layer(cfg, kind, p, x, cache, pos, aux):
         x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
         return x, new_cache, aux
 
-    h, new_cache = attn.decode_self_attention(
-        cfg, p["attn"], apply_norm(cfg, p["norm1"], x), cache, pos,
-        window=_window(cfg, kind))
+    if kind == "xattn":
+        return _gated_xattn(cfg, p, x, (cache["xk"], cache["xv"])), cache, aux
+
+    h, kv = attn.decode_self_attention(
+        cfg, p["attn"], apply_norm(cfg, p["norm1"], x),
+        {"k": cache["k"], "v": cache["v"]}, pos, window=_window(cfg, kind))
     x = x + h
+    new_cache = dict(cache, **kv)
+    if kind == "encdec":
+        x = x + attn.cross_attention(cfg, p["xattn"],
+                                     apply_norm(cfg, p["normx"], x),
+                                     (cache["xk"], cache["xv"]))
     h, aux = _ffn(cfg, kind, p, apply_norm(cfg, p["norm2"], x), aux,
                   decode=True)
     return x + h, new_cache, aux

@@ -5,7 +5,10 @@ with CUDA-generator dropout, its heads served), and D = 2 and 4 shards
 on the one card equal to one device bit for bit on B1 + B3 and B2. Marked `cuda`;
 each test skips (from its fixture) where no GPU is present. B4 with
 grok's logit soft-cap against its plain version, and dbrx/grok MoE smoke
-models through B4 on the card against the CPU (1e-3). Run on a GPU
+models through B4 on the card against the CPU (1e-3); B4 with a key
+bound (cross-attention and bidirectional shapes, NaN in the cut keys
+leaving the bits unchanged) and the VLM / encoder-decoder smoke models
+on the card against the CPU (1e-3). Run on a GPU
 machine with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -444,6 +447,119 @@ def test_flash_attention_softcap_zero_is_the_uncapped_kernel(cuda, dtype):
     assert not torch.equal(a, flash_attention(q, k, v, softcap=5.0))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,H,KV,Sq,Sk,kv_len,causal", [
+    (64, 12, 12, 256, 1536, 1500, False),    # whisper's cross-attention
+    (64, 12, 12, 1536, 1536, 1500, False),   # whisper's encoder
+    (128, 32, 8, 256, 1664, 1600, False),    # llama-3.2-vision's xattn
+    (128, 4, 2, 384, 128, 1, False),         # one key
+    (64, 4, 1, 128, 256, 129, False),        # one key of the last block
+    (128, 8, 2, 384, 384, 300, True),        # causal with a bound
+])
+def test_flash_attention_kv_len_matches_plain(cuda, dtype, hd, H, KV, Sq,
+                                              Sk, kv_len, causal):
+    """The key bound on the card: the kernel against its plain version
+    with the same bound, and with NaN in every key and value at or past
+    kv_len the same bits as with zeros there (the padding is never read)."""
+    g = torch.Generator().manual_seed(Sk + kv_len + hd)
+    B = 2
+    q = torch.randn((B, Sq, H, hd), generator=g).to(cuda, dtype)
+    k = torch.randn((B, Sk, KV, hd), generator=g).to(cuda, dtype)
+    v = torch.randn((B, Sk, KV, hd), generator=g).to(cuda, dtype)
+    k[:, kv_len:], v[:, kv_len:] = 0, 0
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = ref_attention(q, k, v, causal=causal, kv_len=kv_len)
+    tol = dict(rtol=1e-4, atol=2e-5) if dtype == torch.float32 \
+        else dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    k[:, kv_len:], v[:, kv_len:] = float("nan"), float("nan")
+    nan = flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    assert torch.equal(nan, out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 256])
+def test_gqa_flash_attention_cross_unpadded_on_card(cuda, dtype, hd):
+    """Cross-attention through the wrapper: Sq 200 and Sk 1500, each
+    padded to a multiple of 128, the true Sk as the bound, against the
+    plain version on the unpadded operands. The causal path at S = 2200
+    (padded to 2304, bounded at 2200; at hd 256 the bf16 kernel's tiles
+    are 64 keys, so the bound also cuts a tile) gives the bits of the
+    unbounded kernel on the zero-padded operands in every real row."""
+    g = torch.Generator().manual_seed(11)
+    q = torch.randn((2, 200, 4, hd), generator=g).to(cuda, dtype)
+    k = torch.randn((2, 1500, 4, hd), generator=g).to(cuda, dtype)
+    v = torch.randn((2, 1500, 4, hd), generator=g).to(cuda, dtype)
+    out = gqa_flash_attention(q, k, v, causal=False)
+    assert out.shape == q.shape
+    ref = ref_attention(q, k, v, causal=False)
+    tol = dict(rtol=1e-4, atol=2e-5) if dtype == torch.float32 \
+        else dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    x = torch.randn((2, 2200, 4, hd), generator=g).to(cuda, dtype)
+    xp = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, 104))
+    assert torch.equal(gqa_flash_attention(x, x, x),
+                       flash_attention(xp, xp, xp)[:, :2200])
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-small"])
+def test_encdec_prefill_and_decode_on_card_match_cpu(cuda, arch):
+    """A VLM / encoder-decoder smoke model (head dim 64, which the kernel
+    takes; the xattn gates set to 1) in f32: prefill with a stub frontend
+    through B4 (self, bidirectional and cross-attention) and 3 decode
+    steps on the card against the same on the CPU (plain versions),
+    logits within 1e-3 relative L2; `seed_frontend_cache` equal to the
+    prefill's xk / xv."""
+    import dataclasses
+    from repro_torch.configs import ARCHS, smoke
+    from repro_torch.models import decoder_lm as M
+    cfg = dataclasses.replace(smoke(ARCHS[arch]), head_dim=64)
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with torch.no_grad():
+        for p, kind in zip(cpu.layers, cfg.layer_kinds):
+            if kind == "xattn":
+                p["gate_attn"].fill_(1.0)
+                p["gate_mlp"].fill_(1.0)
+    card = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(cuda)
+    n = cfg.encoder_seq if cfg.is_encdec else cfg.num_image_tokens
+    fe = torch.randn((3, n, cfg.d_model),
+                     generator=torch.Generator().manual_seed(2))
+    toks = torch.randint(0, cfg.vocab_size, (3, 40),
+                         generator=torch.Generator().manual_seed(1))
+    n_b4 = (sum(k in ("attn", "xattn") for k in cfg.layer_kinds)
+            + 2 * cfg.layer_kinds.count("encdec") + cfg.encoder_layers)
+    out = {}
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        before = flash_attention.launches
+        t, f = toks.to(dev), fe.to(dev)
+        last, cache = M.prefill_step(cfg, model, t, frontend=f, length=43)
+        assert flash_attention.launches - before == (n_b4 if dev == "cuda"
+                                                     else 0)
+        seeded = M.seed_frontend_cache(cfg, model, M.init_cache(
+            cfg, 3, 43, device=dev), f)
+        for c, sc, kind in zip(cache, seeded, cfg.layer_kinds):
+            if kind in ("xattn", "encdec"):
+                assert torch.equal(c["xk"], sc["xk"])
+                assert torch.equal(c["xv"], sc["xv"])
+        steps = []
+        tok = last.argmax(-1, keepdim=True).cpu()
+        for pos in range(40, 43):
+            lg, cache = M.decode_step(cfg, model, cache, tok.to(dev), pos)
+            steps.append(lg[:, 0].cpu())
+        out[dev] = (last.cpu(), steps)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+    (p0, s0), (p1, s1) = out["cpu"], out["cuda"]
+    assert rel(p1, p0) < 1e-3
+    assert all(rel(b, a) < 1e-3 for a, b in zip(s0, s1))
+
+
 @pytest.mark.parametrize("arch", ["dbrx-132b", "grok-1-314b"])
 def test_moe_prefill_and_decode_on_card_match_cpu(cuda, arch):
     """A 2-layer MoE smoke model (head dim 64, which the kernel takes) in
@@ -483,7 +599,8 @@ def test_moe_prefill_and_decode_on_card_match_cpu(cuda, arch):
 
 
 @pytest.mark.parametrize("arch", ["dbrx-132b", "grok-1-314b",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "whisper-small",
+                                  "llama-3.2-vision-11b"])
 def test_serve_lm_smoke_cli_on_card(cuda, arch):
     """`launch.serve --arch ... --smoke` on the card by default (its smoke
     config takes head dim 64, which B4 is compiled for)."""

@@ -48,6 +48,19 @@ def test_serve_lm_moe_cli(arch):
     assert "[serve-lm] sample continuation:" in out.stdout
 
 
+@pytest.mark.parametrize("arch", ["whisper-small", "llama-3.2-vision-11b"])
+def test_serve_lm_frontend_cli(arch):
+    """The encoder-decoder and VLM configs (ROADMAP A10.2) serve at
+    `smoke()` size with a stub frontend (16 audio frames through the
+    encoder, or 8 image embeddings): prefill, then greedy decode."""
+    out = _run(["repro_torch.launch.serve", "--arch", arch, "--smoke",
+                "--tokens", "8", "--batch", "2", "--device", "cpu"])
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert f"[serve-lm] {arch} on cpu: prefill 2x8 tokens" in out.stdout
+    assert "decode 7 steps" in out.stdout
+    assert "[serve-lm] sample continuation:" in out.stdout
+
+
 def test_train_lm_waits_for_a10_5():
     out = _run(["repro_torch.launch.train", "--arch", "rwkv6-3b"])
     assert out.returncode != 0

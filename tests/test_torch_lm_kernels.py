@@ -177,6 +177,33 @@ def test_flash_attention_softcap_matches_reference_sdpa(rng, window):
     assert np.abs(uncapped - want).max() > 0.1
 
 
+@pytest.mark.parametrize("Sq,Sk,kv_len,causal", [(128, 256, 256, False),
+                                                (256, 128, 100, False),
+                                                (128, 384, 300, False),
+                                                (256, 256, 200, True)])
+def test_flash_attention_kv_len(rng, Sq, Sk, kv_len, causal):
+    """The key bound: keys at or past kv_len take no part. Against the
+    reference's oracle on the keys cut to kv_len (and, where nothing is
+    cut, its Pallas kernel in interpret mode, which takes Sq != Sk); with
+    NaN in the cut keys and values the output is the same, bit for bit."""
+    q = rng.standard_normal((2, Sq, 64)).astype(np.float32)
+    k, v = (rng.standard_normal((2, Sk, 64)).astype(np.float32)
+            for _ in range(2))
+    tq, tk, tv = (torch.tensor(a)[:, :, None] for a in (q, k, v))
+    out = flash_attention(tq, tk, tv, causal=causal, kv_len=kv_len)[:, :, 0]
+    want = [jax_ref_attention(jnp.asarray(q), jnp.asarray(k[:, :kv_len]),
+                              jnp.asarray(v[:, :kv_len]), causal=causal)]
+    if kv_len == Sk:
+        want.append(jax_flash(*map(jnp.asarray, (q, k, v)), causal=causal,
+                              interpret=True))
+    for other in want:
+        np.testing.assert_allclose(out.numpy(), np.asarray(other),
+                                   rtol=2e-4, atol=2e-5)
+    tk[:, kv_len:], tv[:, kv_len:] = float("nan"), float("nan")
+    nan = flash_attention(tq, tk, tv, causal=causal, kv_len=kv_len)[:, :, 0]
+    assert torch.equal(nan, out)
+
+
 def test_flash_attention_refuses_bad_operands():
     q = torch.zeros((1, 128, 4, 32))
     with pytest.raises(ValueError, match="multiples"):
@@ -187,3 +214,10 @@ def test_flash_attention_refuses_bad_operands():
         flash_attention(q, q.double(), q)
     with pytest.raises(ValueError, match="softcap"):
         flash_attention(q, q, q, softcap=-1.0)
+    for kv_len in (0, 129):
+        with pytest.raises(ValueError, match="kv_len"):
+            flash_attention(q, q, q, causal=False, kv_len=kv_len)
+    k = torch.zeros((1, 256, 4, 32))
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        flash_attention(q, k, k)
+    assert flash_attention(q, k, k, causal=False).shape == q.shape

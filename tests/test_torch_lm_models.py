@@ -28,6 +28,7 @@ from repro.configs import ARCHS as JAX_ARCHS, smoke as jax_smoke
 from repro.models import decoder_lm as JM
 from repro.nn import blocks as JB
 from repro.nn.basic import apply_norm as jax_apply_norm
+from repro_torch.common import LAYER_KINDS
 from repro_torch.configs import ARCHS, smoke
 from repro_torch.models import decoder_lm as M
 from repro_torch.models.convert import lm_params_from_numpy
@@ -196,15 +197,48 @@ def test_layer_decode_mode_matches_reference(models, kind, pos):
 
 
 def test_unported_kinds_raise():
-    """`xattn`, `encdec` and `enc` (llama-3.2-vision, whisper) wait for
-    ROADMAP A10.2."""
-    for kind in ("xattn", "encdec", "enc"):
-        with pytest.raises(NotImplementedError, match="A10.2"):
-            TB.layer_defs(smoke(ARCHS["llama-3.2-vision-11b"]), kind)
-    for arch in ("llama-3.2-vision-11b", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="A10.2"):
-            M.init_params(smoke(ARCHS[arch]),
-                          torch.Generator().manual_seed(0), device="cpu")
+    """Every kind of the reference is ported (ROADMAP A10.2 added `xattn`,
+    `encdec` and `enc`); a kind that neither package knows raises
+    ValueError in both, from `layer_defs` and `init_layer_cache`."""
+    cfg = smoke(ARCHS["llama-3.2-vision-11b"])
+    jcfg = jax_smoke(JAX_ARCHS["llama-3.2-vision-11b"])
+    for layer_defs in (TB.layer_defs, JB.layer_defs):
+        with pytest.raises(ValueError, match="unknown layer kind"):
+            layer_defs(cfg if layer_defs is TB.layer_defs else jcfg, "conv")
+    with pytest.raises(ValueError):
+        TB.init_layer_cache(cfg, "conv", 1, 4, torch.float32, "cpu")
+    with pytest.raises(ValueError):
+        JB.init_layer_cache(jcfg, "conv", 1, 4, jnp.float32)
+
+
+@pytest.mark.parametrize("kind", LAYER_KINDS)
+def test_layer_defs_match_reference(kind):
+    """`layer_defs` of every kind has the reference's names and shapes
+    and initializers (at the smoke size of a config that holds the kind;
+    llama-3.2-vision's for `attn` and `xattn`), and the scalar
+    gates of `xattn` are initialized to 0 as the reference's are."""
+    arch = {"rwkv": "rwkv6-3b", "rglru": "recurrentgemma-9b",
+            "local": "recurrentgemma-9b", "attn_moe": "dbrx-132b",
+            "encdec": "whisper-small", "enc": "whisper-small"}.get(
+                kind, "llama-3.2-vision-11b")
+    jcfg, tcfg = jax_smoke(JAX_ARCHS[arch]), smoke(ARCHS[arch])
+
+    def flat(defs, prefix=""):
+        out = {}
+        for k, v in defs.items():
+            if isinstance(v, dict):
+                out.update(flat(v, f"{prefix}{k}."))
+            else:
+                out[prefix + k] = (tuple(v.shape), v.init)
+        return out
+    got, want = flat(TB.layer_defs(tcfg, kind)), flat(JB.layer_defs(jcfg,
+                                                                     kind))
+    assert got == want
+    if kind == "xattn":
+        assert got["gate_attn"] == got["gate_mlp"] == ((), "zeros")
+        p = M.init_params(tcfg, torch.Generator().manual_seed(0),
+                          device="cpu").layers[4]
+        assert float(p["gate_attn"]) == float(p["gate_mlp"]) == 0.0
 
 
 # ------------------------------------------------------------------- model
