@@ -146,6 +146,33 @@ fails (non-zero exit, no result line) on any failed check:
    of that layer's weights (the f32 llama would take 39.1 GB beside the
    bf16 one), beside the same layers through B4's f32 kernel and the
    bf16 model through `prefill_step` / `decode_step`.
+   Then the LM's train -> checkpoint -> adaptive serve path
+   (`adaptive_phase`, ROADMAP A10.3-A10.5). At smoke size: B4's f32
+   head-dim-32 instance against its plain version in all 12 (causal,
+   window, cap, bound) cases and timed at 4 x 2048 (`hd32_check`);
+   `launch.serve --arch granite-34b --smoke` on the card (B4 once) and
+   on the CPU giving the same continuation; one f32 training step of
+   granite smoke with exit heads on the card against the CPU (loss,
+   every gradient and updated parameter within 1e-4 relative); and
+   `launch.train --arch rwkv6-3b --smoke` for 6 steps (no B5 launch:
+   training runs `_wkv_chunked`), its checkpoint loaded back bit-equal,
+   then `--resume` to 12 steps. At full width: granite-34b (d 6144, 48
+   query heads and 1 KV head of 128, SwiGLU d_ff 24576, vocab 49152)
+   with its depth cut to 4 of 88 layers and exit heads at blocks 0-2,
+   bf16, random weights (conditioned as above; 2.838e9 parameters,
+   checked against `count_params`): 40 training steps of `loss_fn` with
+   the inception term (batch 8 x 128, lr 1e-3, in-place AdamW, per-block
+   remat; every gradient of the first step finite and nonzero, every
+   loss finite, the mean of the last 5 below the first 5's by more than
+   0.5), step ms, tokens/s, peak memory; then, the optimizer freed, B4
+   at the prefill's causal MQA shape (`attention_check`), the prefill 4
+   x 2048 (B4 once per layer), 32 decode steps at full depth and with
+   `adaptive_decode_step` at t_s 0, 0.35 and 1e9 on the prompts' next
+   tokens (t_s 0 bit-equal to `decode_step`), with ms per step, the
+   depth-FLOPs share saved, the exit histogram and the argmax agreement
+   with full depth; the adaptive engine (8 requests, 4 slots); and the
+   gates on 2 x 2200 tokens against the f32 plain prefill made one layer
+   at a time.
 5. train (`train_phase`, last, so that nothing it leaves behind runs
    beside the LM timings): the paper's training procedure (`train_nai`,
    Inception Distillation, `DistillConfig()`'s 300/200/200 epochs) on the
@@ -203,7 +230,9 @@ path; for bf16, MOE_BF16_REL, about twice what an H100 gave (bf16 and
 f32 chose the same experts there; a bf16 rounding that flips a near-tied
 top-k choice sends that token to another expert and moves the error).
 The cross-attention gates: 1e-3 for the f32 kernel path; for bf16,
-XATTN_BF16_REL, about twice what an H100 gave.
+XATTN_BF16_REL, about twice what an H100 gave. granite-34b's gates: 1e-3
+for the f32 kernel path; for bf16, GRANITE_BF16_REL, about twice what an
+H100 gave after the 40 training steps.
 
 The second-to-last line is a JSON object {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.
@@ -3086,6 +3115,491 @@ def xattn_phase(torch, dev, kernels, arch, smi_line):
     return launches["flash_attention"], [line for _, line in lines]
 
 
+GRANITE_LAYERS = 4            # of 88: the bf16 weights with the exit heads,
+                              # gradients and f32 moments fit the card
+GRANITE_EXITS = (0, 1, 2)     # exit heads, t_min 0, t_max 2 (the reference's
+                              # adaptive tests)
+# lr: 1e-3, between TrainConfig's 3e-4 (which left the lm loss at 7.19
+# after 40 steps on an H100) and the launcher's 3e-3
+GRANITE_TRAIN = dict(steps=40, batch=8, seq=128, lr=1e-3)
+GRANITE_T_S = (0.0, 0.35, 1e9)
+# bf16 against the f32 plain path after training: about twice the
+# 0.0017 an H100 gave (0.001615-0.001717 in two runs, lr 1e-3 and 3e-4)
+GRANITE_BF16_REL = 0.004
+
+
+def granite_param_count(cfg) -> tuple:
+    """(a layer's, embed + head + final norm, the exit heads') parameters
+    of a dense SwiGLU rmsnorm model with an untied head."""
+    d, H, KV, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.resolved_head_dim)
+    f, V, n = cfg.d_ff, cfg.vocab_size, len(cfg.adaptive.exit_layers)
+    per_layer = 2 * d * H * hd + 2 * d * KV * hd + 3 * d * f + 2 * d
+    return per_layer, 2 * V * d + d, n * d * d + n * d + V
+
+
+def hd32_check(torch, dev) -> str:
+    """B4's f32 head-dim-32 instance (the smoke configs') against its
+    plain version in each (cap, bound) instance, causal, banded and not
+    causal, then timed at granite smoke's prefill shape at 4 x 2048
+    (4 query heads, 1 kv head) beside the plain version and its bound at
+    the f32 peak. Tolerance: rtol 1e-4, atol 2e-5 (f32 softmax sums in
+    another order). With a causal mask and a key bound, the rows past
+    the bound are compared only where the band still reaches a key:
+    a row the band and the bound mask wholly is 0 from the kernel, which
+    skips its blocks, and the mean of v from the plain version's uniform
+    softmax over -1e30, and no model reads it (a causal layer's bound is
+    its true length, and the wrapper cuts the padded rows)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     ref_attention)
+    g = torch.Generator(dev).manual_seed(32)
+    for causal, window in ((True, 0), (True, 48), (False, 0)):
+        for cap in (0.0, 5.0):
+            for kv_len in (None, 200):
+                q = 3 * torch.randn((2, 256, 4, 32), generator=g, device=dev)
+                k = 3 * torch.randn((2, 256, 2, 32), generator=g, device=dev)
+                v = torch.randn((2, 256, 2, 32), generator=g, device=dev)
+                kw = dict(causal=causal, window=window, softcap=cap,
+                          kv_len=kv_len)
+                out, ref = flash_attention(q, k, v, **kw), ref_attention(
+                    q, k, v, **kw)
+                torch.cuda.synchronize()
+                if causal and kv_len and window:
+                    rows = kv_len + window - 1    # the band reaches a key
+                    out, ref = out[:, :rows], ref[:, :rows]
+                check(torch.allclose(out, ref, rtol=1e-4, atol=2e-5),
+                      f"flash_attention f32 hd 32 {kw} vs plain, max abs err "
+                      f"{float((out - ref).abs().max())}")
+    B_, S_, H, KV, hd = 4, 2048, 4, 1, 32
+    q = torch.randn((B_, S_, H, hd), generator=g, device=dev)
+    k = torch.randn((B_, S_, KV, hd), generator=g, device=dev)
+    v = torch.randn((B_, S_, KV, hd), generator=g, device=dev)
+    out, ref = flash_attention(q, k, v), ref_attention(q, k, v)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    check(torch.allclose(out, ref, rtol=1e-4, atol=2e-5),
+          f"flash_attention f32 hd 32 at {B_} x {S_} vs plain, max abs err "
+          f"{err}")
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    t = timings(torch, lambda: flash_attention(q, k, v),
+                lambda: ref_attention(q, k, v), library, plain_reps=5)
+    flops = 4 * B_ * H * band_pairs(S_, 0) * hd
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 4
+    ms, by = bound(nbytes, flops, PEAK_F32_FLOP_S)
+    line = (f"flash_attention f32 hd 32 (granite-34b smoke prefill, B {B_}, "
+            f"S {S_}, {H} q heads, {KV} kv head, causal): all 12 (causal, "
+            f"window, cap, bound) cases within rtol 1e-4 / atol 2e-5 of "
+            f"plain; max abs err {err:.3g}; kernel {t['ms']:.4f} ms "
+            f"({flops / t['ms'] / 1e9:.1f} TFLOP/s, {ms / t['ms']:.1%} of "
+            f"its bound {ms:.4f} ms, {by}, f32 peak), plain "
+            f"{t['plain_ms']:.4f} ms, SDPA (f32) {t['library_ms']:.4f} ms")
+    print(line)
+    return line
+
+
+def smoke_lm_checks(torch, dev, kernels) -> None:
+    """The LM's smoke-size checks on the card: `serve --smoke` (f32, head
+    dim 32, through B4's new instance) gives the CPU run's continuation
+    (ROADMAP C.7); one f32 training step of granite smoke with exit heads
+    (loss, every gradient, the updated parameters) within 1e-4 relative of
+    the same step on the CPU, TF32 off; `launch.train --arch rwkv6-3b
+    --smoke --steps 6 --ckpt` (B5 not launched: training runs
+    `_wkv_chunked`), its checkpoint loaded back bit-equal, then
+    `--resume` to 12 steps."""
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.common import AdaptiveDepthConfig, TrainConfig
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.data import synthetic_stream
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.models import decoder_lm as M
+    from repro_torch.optim import adamw_init, adamw_update_, make_schedule
+
+    t0 = time.perf_counter()
+    argv = ["--arch", "granite-34b", "--smoke", "--tokens", "40",
+            "--batch", "2"]
+    zero_counts(kernels)
+    on_card = serve.main(argv)
+    n_b4 = kernels["flash_attention"].launches
+    on_cpu = serve.main(argv + ["--device", "cpu"])
+    check(n_b4 == 1 and kernels["flash_attention"].launches == 1,
+          f"serve --smoke on the card launched B4 once ({n_b4})")
+    check(np.array_equal(on_card["continuation"], on_cpu["continuation"]),
+          "serve --arch granite-34b --smoke: the card's continuation is the "
+          "CPU's")
+    print(f"C.7: serve --arch granite-34b --smoke (f32, head dim 32) on the "
+          f"card and on the CPU: the same {on_cpu['continuation'].shape} "
+          f"continuation; B4 launched {n_b4} time on the card")
+
+    cfg = dataclasses.replace(
+        smoke(get_config("granite-34b")), num_layers=4,
+        adaptive=AdaptiveDepthConfig(enabled=True, exit_layers=GRANITE_EXITS,
+                                     t_min=0, t_max=2))
+    raw = next(synthetic_stream(0, 4, 64, cfg.vocab_size))
+    tc = TrainConfig(learning_rate=3e-3, warmup_steps=0, total_steps=10)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    for d in (torch.device("cpu"), dev):
+        model = M.init_params(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+        condition_weights(torch, cfg, model, torch.Generator())
+        model = model.to(d).requires_grad_(True)
+        loss, _ = M.loss_fn(cfg, model, lm_batch(cfg, raw, d))
+        loss.backward()
+        params = dict(model.named_parameters())
+        grads = {n: p.grad.detach().cpu() for n, p in params.items()}
+        opt = adamw_init(params, tc)
+        adamw_update_({n: p.grad for n, p in params.items()}, opt, params,
+                      tc, make_schedule(tc)(opt["count"]))
+        out.append((float(loss.detach()), grads,
+                    {n: p.detach().cpu() for n, p in params.items()}))
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    (l0, g0, p0), (l1, g1, p1) = out
+    worst = max(max(rel_l2(g1[n], g0[n]) for n in g0),
+                max(rel_l2(p1[n], p0[n]) for n in p0))
+    check(abs(l1 - l0) <= 1e-4 * abs(l0) and worst <= 1e-4,
+          f"granite smoke training step card vs CPU: loss {l1} vs {l0}, "
+          f"worst gradient / parameter relative L2 {worst}")
+    print(f"granite-34b smoke (4 layers, exits {GRANITE_EXITS}) one f32 "
+          f"training step, card vs CPU: loss {l1:.6f} vs {l0:.6f}, worst "
+          f"relative L2 of {len(g0)} gradients and updated parameters "
+          f"{worst:.3g} (limit 1e-4)")
+
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        ck = str(Path(tmp) / "rwkv.ckpt")
+        base = ["--arch", "rwkv6-3b", "--smoke", "--log-every", "3",
+                "--ckpt", ck]
+        zero_counts(kernels)
+        r6 = train.main(base + ["--steps", "6"])
+        check(kernels["wkv6"].launches == 0,
+              "LM training launched no B5 (no backward)")
+        like = {"params": dict(r6["model"].named_parameters()),
+                "opt": r6["opt"]}
+        back, step = load_checkpoint(ck, like)
+        same = all(torch.equal(a, b) for a, b in zip(
+            _leaves(back), _leaves(like)))
+        check(step == 6 and same, f"rwkv6-3b checkpoint of step {step} "
+              f"loads back bit-equal ({same})")
+        r12 = train.main(base + ["--steps", "12", "--resume"])
+        check(int(r12["opt"]["count"]) == 12 and all(
+            bool(torch.isfinite(p).all()) for p in r12["model"].parameters()),
+            "rwkv6-3b resumed to 12 steps, finite")
+    print(f"launch.train --arch rwkv6-3b --smoke on the card: 6 steps, "
+          f"checkpoint loaded back bit-equal, --resume to step 12; B5 not "
+          f"launched; smoke checks {time.perf_counter() - t0:.1f} s")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def adaptive_phase(torch, dev, kernels, smi_line):
+    """The LM's train -> serve path with adaptive depth (ROADMAP
+    A10.3-A10.5) on granite-34b at full width, its depth cut to
+    GRANITE_LAYERS, with exit heads at GRANITE_EXITS, bf16, random
+    weights from a CUDA generator seeded 0 (conditioned as
+    `condition_weights` says): after the smoke-size checks, 40 training
+    steps of `loss_fn` with the inception term (in-place AdamW) on
+    `synthetic_stream(0, 8, 128)`; then, the optimizer state freed, B4 on
+    the first layer's q, k, v at the prefill's causal MQA shape, the
+    prefill 4 x 2048 (B4 once per layer, the counted main path), 32
+    decode steps at full depth and with `adaptive_decode_step` at each
+    t_s of GRANITE_T_S, all on the prompts' next tokens (teacher
+    forcing), the adaptive engine, and
+    the gates on 2 x 2200 tokens against an f32 prefill through the plain
+    attention made one layer at a time. Returns (B4's launches in the
+    prefill, the lines for the summary)."""
+    from repro_torch.common import AdaptiveDepthConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.adaptive_depth import (adaptive_decode_step,
+                                                 saturation_distance)
+    from repro_torch.data import synthetic_stream
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.launch.train import lm_batch, lm_train_step
+    from repro_torch.models import decoder_lm as M
+    from repro_torch.nn import attention
+    from repro_torch.nn import blocks as TB
+    from repro_torch.nn.basic import apply_norm
+    from repro_torch.nn.params import count_params
+    from repro_torch.optim import adamw_init, adamw_update_, make_schedule
+    from repro_torch.serving import LMServingEngine
+
+    phase("adaptive granite-34b")
+    t_phase = time.perf_counter()
+    lines = [hd32_check(torch, dev)]
+    smoke_lm_checks(torch, dev, kernels)
+    torch.cuda.empty_cache()
+
+    full = get_config("granite-34b")
+    cfg = dataclasses.replace(
+        full, num_layers=GRANITE_LAYERS,
+        adaptive=AdaptiveDepthConfig(enabled=True, exit_layers=GRANITE_EXITS,
+                                     t_s=GRANITE_T_S[1], t_min=0, t_max=2))
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(0)
+    model = M.init_params(cfg, gen, device=dev)
+    condition_weights(torch, cfg, model, gen)
+    torch.cuda.synchronize()
+    per_layer, outer, exits = granite_param_count(cfg)
+    n_par = count_params(model)
+    check(n_par == cfg.num_layers * per_layer + outer + exits
+          and count_params(model.layers[0]) == per_layer,
+          f"granite-34b parameter count {n_par}")
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"granite-34b: {cfg.num_layers} of {full.num_layers} layers "
+          f"(reduced depth), d_model {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, SwiGLU d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, exit heads at blocks "
+          f"{GRANITE_EXITS}: {per_layer:.4g} parameters a layer, embed and "
+          f"head {outer:.4g}, exits {exits:.4g}, {n_par} in all "
+          f"({n_par:.4g}), {n_bytes} bytes ({cfg.param_dtype}); made in "
+          f"{time.perf_counter() - t0:.1f}s")
+
+    # ---- train: loss_fn with the inception term, in-place AdamW
+    tr = GRANITE_TRAIN
+    tc = TrainConfig(learning_rate=tr["lr"], warmup_steps=tr["steps"] // 10,
+                     total_steps=tr["steps"], weight_decay=0.01)
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    opt = adamw_init(params, tc)
+    sched = make_schedule(tc)
+    stream = synthetic_stream(0, tr["batch"], tr["seq"], cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, last = [], [], None
+    for i in range(tr["steps"]):
+        batch = lm_batch(cfg, next(stream), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:      # the first step by hand, to read every gradient
+            loss, m = M.loss_fn(cfg, model, batch)
+            loss.backward()
+            bad = [n for n, p in params.items()
+                   if p.grad is None or not bool(torch.isfinite(p.grad).all())
+                   or not bool((p.grad != 0).any())]
+            check(not bad, f"every parameter gets a finite, nonzero gradient "
+                  f"(not: {bad})")
+            m = {k: v.detach() for k, v in m.items()}
+            m.update(adamw_update_({n: p.grad for n, p in params.items()},
+                                   opt, params, tc, sched(opt["count"])))
+            for p in params.values():
+                p.grad = None
+        else:
+            m = lm_train_step(cfg, model, opt, tc, sched, batch)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t0)
+        last = m
+    train_peak = torch.cuda.max_memory_allocated()
+    ms = 1e3 * float(np.median(step_s[5:]))
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    print(f"granite-34b train {tr['steps']} steps, batch {tr['batch']} x "
+          f"{tr['seq']}, lr {tr['lr']} (cosine, {tc.warmup_steps} warmup "
+          f"steps, wd 0.01, in-place AdamW, per-block remat): loss "
+          + ", ".join(f"{losses[i]:.3f}" for i in range(0, tr["steps"], 8))
+          + f", last {losses[-1]:.3f} (lm {float(last['lm_loss']):.3f}, "
+          f"inception {float(last['inception_loss']):.3f}); mean of the "
+          f"first 5 {first5:.3f}, last 5 {last5:.3f}; step {ms:.1f} ms "
+          f"(median of steps 5-{tr['steps'] - 1}), "
+          f"{tr['batch'] * tr['seq'] / ms * 1e3:.0f} tokens/s; peak memory "
+          f"{train_peak / 1e9:.2f} GB; {smi_line}")
+    check(all(np.isfinite(losses)), "every training loss finite")
+    check(last5 < first5 - 0.5, f"granite-34b loss falls by more than 0.5 "
+          f"({first5} -> {last5})")
+    del opt, params, last, m, batch
+    model.requires_grad_(False)
+    torch.cuda.empty_cache()
+
+    # ---- serve: B4 at the prefill's shape, prefill, decode at full depth
+    # and adaptive on the same input tokens
+    batch, seq, n_dec, gate_seq = 4, 2048, 32, 2200
+    prompts = torch.from_numpy(synthetic_lm_batch(
+        np.random.default_rng(0), batch, max(seq, gate_seq + 1),
+        cfg.vocab_size)["tokens"]).long().to(dev)
+    toks = prompts[:, :seq]
+    pos = torch.arange(seq, device=dev)[None].expand(batch, seq)
+    with torch.no_grad():
+        p = model.layers[0]
+        x = apply_norm(cfg, p["norm1"], M._embed_tokens(cfg, model, toks))
+        q, k, v = (a.contiguous() for a in attention._project_qkv(
+            cfg, p["attn"], x, pos))
+    attention_check(torch, dev, cfg, q, k, v, "flash_attention granite-34b")
+    del x, q, k, v
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    last, cache = M.prefill_step(cfg, model, toks, length=seq + n_dec)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    launches = launch_counts(kernels)
+    check(launches["flash_attention"] == cfg.num_layers and all(
+        v == 0 for n, v in launches.items() if n != "flash_attention"),
+        f"granite-34b prefill launched flash_attention once per layer "
+        f"({launches})")
+    check(bool(torch.isfinite(last).all()), "granite-34b prefill finite")
+    # decode the prompts' own continuation (teacher forcing: the Markov
+    # stream's next tokens, the same in every run), so that the argmax
+    # agreement compares predictions of varied inputs
+    inputs = [prompts[:, seq + t:seq + t + 1] for t in range(n_dec)]
+    tok = inputs[0]
+    # the first decode step's saturation distance after each block (the
+    # exit test's input), and one untimed step of each kind (the writes
+    # at position seq are made again by the timed runs)
+    with torch.no_grad():
+        x = M._embed_tokens(cfg, model, tok, torch.full_like(tok, seq))
+        dist = []
+        for p, c in zip(model.layers, cache):
+            x_new, _, _ = TB.apply_layer(cfg, "attn", p, x, mode="decode",
+                                         cache=c, pos=seq)
+            dist.append(saturation_distance(x_new, x))
+            x = x_new
+    M.decode_step(cfg, model, cache, tok, seq)
+    adaptive_decode_step(cfg, model, cache, tok, seq)
+    torch.cuda.synchronize()
+    ref = []
+    t0 = time.perf_counter()
+    for t in range(n_dec):
+        lg, cache = M.decode_step(cfg, model, cache, inputs[t], seq + t)
+        ref.append(lg)
+    torch.cuda.synchronize()
+    t_full = time.perf_counter() - t0
+    ref_arg = torch.stack([r[:, 0].argmax(-1) for r in ref])
+    print(f"granite-34b prefill {batch} x {seq}: {t_prefill:.3f} s, "
+          f"{batch * seq / t_prefill:.1f} tokens/s, flash_attention "
+          f"launches {launches['flash_attention']}; decode at full depth "
+          f"{1e3 * t_full / n_dec:.2f} ms per step; the first decode "
+          f"step's saturation distance after blocks 0-{len(dist) - 1}: "
+          + "; ".join(", ".join(f"{float(v):.3f}" for v in d) for d in dist))
+    dial = []
+    for t_s in GRANITE_T_S:
+        acfg = dataclasses.replace(cfg, adaptive=dataclasses.replace(
+            cfg.adaptive, t_s=t_s))
+        outs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(n_dec):
+            lg, cache, info = adaptive_decode_step(acfg, model, cache,
+                                                   inputs[t], seq + t)
+            outs.append((lg, info))
+        torch.cuda.synchronize()
+        t_ad = time.perf_counter() - t0
+        blocks = torch.stack([i["exit_block"] for _, i in outs])
+        saved = float(torch.stack([i["flops_saved_frac"]
+                                   for _, i in outs]).mean())
+        agree = float((torch.stack([lg[:, 0].argmax(-1) for lg, _ in outs])
+                       == ref_arg).float().mean())
+        hist = {int(b): int(n) for b, n in zip(*torch.unique(
+            blocks, return_counts=True))}
+        sat = torch.stack([i["saturation"] for _, i in outs]).float()
+        if t_s == 0.0:
+            same = all(torch.equal(lg, r) for (lg, _), r in zip(outs, ref))
+            check(same, "adaptive decode at t_s = 0 equals decode_step bit "
+                  "for bit")
+        check(all(bool(torch.isfinite(lg).all()) for lg, _ in outs),
+              f"adaptive logits finite at t_s {t_s}")
+        dial.append(f"t_s {t_s:g}: {1e3 * t_ad / n_dec:.2f} ms per step, "
+                    f"flops_saved_frac {saved:.4f}, exit blocks {hist} "
+                    f"(-1: full depth), saturation distance (the last "
+                    f"measured) quartiles {sat.quantile(0.25):.3f} / "
+                    f"{sat.median():.3f} / {sat.quantile(0.75):.3f}, argmax "
+                    f"agreement with full depth {agree:.3f}")
+    line = (f"granite-34b adaptive decode, {n_dec} steps x {batch} from the "
+            f"{seq}-token prefill's cache, the prompts' next tokens fed to "
+            f"each, each run after an untimed step (full depth's argmax "
+            f"takes {len(set(ref_arg.flatten().tolist()))} distinct "
+            f"values; it is the stream's next token at "
+            f"{float((ref_arg[:-1] == torch.cat(inputs[1:], 1).T).float().mean()):.3f}"
+            f" of the positions): full depth "
+            f"{1e3 * t_full / n_dec:.2f} ms per step; "
+            + "; ".join(dial) + f" (t_s 0 bit-equal to decode_step); "
+            f"{smi_line}")
+    print(line)
+    lines.append(line)
+    del cache, ref, inputs, last
+    torch.cuda.empty_cache()
+
+    eng = LMServingEngine(cfg, model, slots=4, max_len=128, adaptive=True,
+                          device=dev)
+    reqs = synthetic_lm_batch(np.random.default_rng(1), 8, 32,
+                              cfg.vocab_size)["tokens"]
+    for prompt in reqs:
+        eng.submit(prompt.tolist(), max_new=16)
+    t0 = time.perf_counter()
+    stats = eng.run_until_drained()
+    torch.cuda.synchronize()
+    t_eng = time.perf_counter() - t0
+    check(stats["completed"] == 8 and all(len(r.out) == 16
+                                          for r in eng.completed),
+          f"granite-34b adaptive engine served every request ({stats})")
+    print(f"granite-34b adaptive engine (t_s {cfg.adaptive.t_s}): 8 "
+          f"requests on 4 slots in {stats['ticks']} ticks, {t_eng:.3f} s, "
+          f"{8 * 16 / t_eng:.1f} generated tokens/s, mean depth-FLOPs "
+          f"saved {stats['mean_depth_flops_saved']:.4f}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # ---- gates: bf16 and the f32 kernel path against an f32 prefill
+    # through the plain attention, one layer at a time from f32 copies
+    B2 = 2
+    gtoks, nxt = prompts[:B2, :gate_seq], prompts[:B2, gate_seq:gate_seq + 1]
+    gpos = torch.arange(gate_seq, device=dev)[None].expand(B2, gate_seq)
+    npos = torch.full((B2, 1), gate_seq, device=dev)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    t0 = time.perf_counter()
+    last16, cache = M.prefill_step(cfg, model, gtoks, length=gate_seq + 1)
+    next16 = M.decode_step(cfg, model, cache, nxt, gate_seq)[0][:, 0]
+    del cache
+
+    def pad1(c):
+        return dict(c, **{n: torch.nn.functional.pad(c[n], (0, 0, 0, 0, 0, 1))
+                          for n in ("k", "v")})
+    with torch.no_grad():
+        xk = xr = M._embed_tokens(cfg32, model, gtoks, gpos)
+        yk = yr = M._embed_tokens(cfg32, model, nxt, npos)
+        for p16 in model.layers:
+            p32 = f32_copy(torch, p16)
+            xk, ck, _ = TB.apply_layer(cfg32, "attn", p32, xk,
+                                       mode="prefill", positions=gpos)
+            yk, _, _ = TB.apply_layer(cfg32, "attn", p32, yk, mode="decode",
+                                      cache=pad1(ck), pos=gate_seq)
+            xr, cr = plain_layer(torch, cfg32, "attn", p32, xr, gpos, None)
+            yr, _, _ = TB.apply_layer(cfg32, "attn", p32, yr, mode="decode",
+                                      cache=pad1(cr), pos=gate_seq)
+            del ck, cr, p32
+        top32 = {"final_norm": f32_copy(torch, model["final_norm"]),
+                 "lm_head": model["lm_head"].float()}
+
+        def head(x):
+            return M._project_logits(cfg32, top32, apply_norm(
+                cfg32, top32["final_norm"], x[:, -1:]))[:, 0]
+        lastk, nextk, lastr, nextr = (head(a) for a in (xk, yk, xr, yr))
+    torch.cuda.synchronize()
+    errs = {"f32 kernel prefill": rel_l2(lastk, lastr),
+            "f32 kernel decode from its cache": rel_l2(nextk, nextr),
+            "bf16 prefill": rel_l2(last16, lastr),
+            "bf16 decode from its cache": rel_l2(next16, nextr)}
+    print(f"granite-34b end to end on {B2} x {gate_seq} tokens + 1 "
+          f"({time.perf_counter() - t0:.1f} s), relative L2 error against "
+          f"the f32 prefill through the plain attention (layer by layer) and "
+          f"its decode step: " + ", ".join(f"{k} {v:.4g}"
+                                           for k, v in errs.items()))
+    for what, err in errs.items():
+        tol = F32_REL if what.startswith("f32") else GRANITE_BF16_REL
+        check(err < tol, f"granite-34b {what} vs the f32 plain prefill, "
+              f"relative L2 error {err} (limit {tol})")
+    del model, top32, xk, xr, yk, yr, last16, next16
+    torch.cuda.empty_cache()
+    print(f"adaptive granite-34b phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches["flash_attention"], lines
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3152,6 +3666,12 @@ def main() -> int:
         parts.append(f"{n} in one {arch} prefill of {shp['batch']} x "
                      f"{shp['seq']} tokens")
         bounded += lines
+    # the LM's train -> checkpoint -> adaptive serve path (ROADMAP
+    # A10.3-A10.5) on granite-34b at full width; B4's row adds its prefill
+    n, lines = adaptive_phase(torch, dev, kernels, smi_line)
+    b4["launches"] += n
+    parts.append(f"{n} in one granite-34b prefill of 4 x 2048 tokens")
+    bounded += lines
     b4["note"] = f"({', '.join(parts)})"
     # training last, so that nothing it leaves behind (pinned pools, its
     # subprocesses) runs beside the LM phases' timings

@@ -7,9 +7,9 @@ Primitives implement Eqs. (2)-(6) of the paper:
   * self-attention ensemble teacher over the top-r exits   (Eq. 5)
   * online loss   (1-λ)·CE + λ·T²·KD(student, ensemble)    (Eq. 6)
 
-Used by `repro_torch.gnn.distill`. The transformer flavour
-(`transformer_inception_loss`) waits for the LM exit heads (ROADMAP
-A10.3).
+Used by `repro_torch.gnn.distill` (one classifier per propagation order)
+and by `repro_torch.models.decoder_lm.loss_fn` (the early-exit heads of
+the LM, `transformer_inception_loss`).
 """
 from __future__ import annotations
 
@@ -69,3 +69,39 @@ def online_loss(student_logits, ens_logits, labels, *, temperature, lam,
     kd = soft_ce(student_logits, ens_logits, temperature)
     ce = hard_ce(student_logits, labels, label_mask)
     return (1.0 - lam) * ce + lam * temperature ** 2 * kd
+
+
+# ------------------------------------------------------- transformer flavor
+def transformer_inception_loss(cfg, params, states, final_logits, labels):
+    """Inception Distillation of the LM's early-exit heads.
+
+    states: the R per-block hidden states (B, S, d) of `forward(...,
+    collect_states=True)`; final_logits (B, S, V) the trunk's output;
+    labels (B, S-1). Each exit head (on its block's state, all positions
+    but the last) takes the offline loss against the detached trunk
+    logits and the online loss against the ensemble of the last
+    `ensemble_r` of (exits + trunk), which is not detached; the sum is
+    divided by the number of exits. Returns (loss, {"inception_loss"})."""
+    from repro_torch.models.decoder_lm import exit_logits as head
+
+    ad = cfg.adaptive
+    exits = []
+    for i, blk in enumerate(ad.exit_layers):
+        z = head(cfg, params, states[blk][:, :-1], i)
+        exits.append(z.reshape(-1, z.shape[-1]))
+    teacher = final_logits[:, :-1].reshape(-1, final_logits.shape[-1])
+    flat_labels = labels.reshape(-1)
+
+    total = torch.zeros((), dtype=torch.float32, device=teacher.device)
+    for z in exits:
+        total = total + offline_loss(z, teacher, flat_labels,
+                                     temperature=ad.temperature, lam=ad.lam)
+    # online: the ensemble over the top-r heads (the deepest exits and
+    # the trunk)
+    pool = (exits + [teacher])[-max(ad.ensemble_r, 1):]
+    ens = ensemble_teacher(pool, params["exits"]["ens_s"])
+    for z in exits:
+        total = total + online_loss(z, ens, flat_labels,
+                                    temperature=ad.temperature, lam=ad.lam)
+    total = total / max(len(exits), 1)
+    return total, {"inception_loss": total}

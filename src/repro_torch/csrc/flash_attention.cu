@@ -69,7 +69,12 @@
 // score tile, and the 4-wide output column groups tx + 16g, 64
 // accumulators at hd 256. Q (pre-scaled), K and V tiles are staged in
 // shared memory with rows padded by 4 floats; f32 FMAs on the CUDA cores.
-// The cap is the reference's formula, tanhf(s / cap) * cap.
+// The cap is the reference's formula, tanhf(s / cap) * cap. Head dim 32
+// (the `smoke()` configs, all f32) has too few columns for 16 threads of
+// 4: there thread tx owns the 2-wide column pair 2tx, 2tx + 1 (float2
+// loads and stores), a separate branch, so the instances at 64-256 are
+// the code they were. No bf16 config has head dim 32, and the bf16
+// kernel has no instance for it.
 //
 // The cap in the bf16 kernel: scale and log2(e) no longer fold into one
 // multiply. With z = s_raw * scale / cap, it computes
@@ -123,6 +128,7 @@ __global__ void __launch_bounds__(FA_THREADS, 1) fa_f32_kernel(
   constexpr int LD = HD + 4;        // padded smem row (floats)
   constexpr int PLD = FA_BK + 4;
   constexpr int NG = HD / 64;       // 4-wide column groups per thread
+  constexpr int CW = HD == 32 ? 2 : NG * 4;   // output columns per thread
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* Ks = Qs + FA_BQ * LD;
@@ -140,14 +146,14 @@ __global__ void __launch_bounds__(FA_THREADS, 1) fa_f32_kernel(
   const float* kb = k + static_cast<long long>(b) * Sk * kv_ld + kvh * HD;
   const float* vb = v + static_cast<long long>(b) * Sk * kv_ld + kvh * HD;
 
-  float acc[4][NG * 4];
+  float acc[4][CW];
   float m[4], l[4];
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     m[a] = FA_NEG_INF;
     l[a] = 0.f;
 #pragma unroll
-    for (int e = 0; e < NG * 4; ++e) acc[a][e] = 0.f;
+    for (int e = 0; e < CW; ++e) acc[a][e] = 0.f;
   }
   stage<HD, false>(qb, q_ld, Qs, scale, FA_BQ);
 
@@ -218,7 +224,7 @@ __global__ void __launch_bounds__(FA_THREADS, 1) fa_f32_kernel(
       l[a] = l[a] * corr + rsum;
       m[a] = m_new;
 #pragma unroll
-      for (int e = 0; e < NG * 4; ++e) acc[a][e] *= corr;
+      for (int e = 0; e < CW; ++e) acc[a][e] *= corr;
     }
     __syncthreads();
 
@@ -227,6 +233,16 @@ __global__ void __launch_bounds__(FA_THREADS, 1) fa_f32_kernel(
       float p[4];
 #pragma unroll
       for (int a = 0; a < 4; ++a) p[a] = Ps[(4 * ty + a) * PLD + j];
+      if constexpr (HD == 32) {
+        const float2 vv =
+            *reinterpret_cast<const float2*>(Vs + j * LD + 2 * tx);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          acc[a][0] = fmaf(p[a], vv.x, acc[a][0]);
+          acc[a][1] = fmaf(p[a], vv.y, acc[a][1]);
+        }
+        continue;
+      }
 #pragma unroll
       for (int g = 0; g < NG; ++g) {
         const float4 vv =
@@ -246,6 +262,11 @@ __global__ void __launch_bounds__(FA_THREADS, 1) fa_f32_kernel(
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const float inv = 1.f / fmaxf(l[a], 1e-30f);
+    if constexpr (HD == 32) {
+      *reinterpret_cast<float2*>(ob + (4 * ty + a) * q_ld + 2 * tx) =
+          make_float2(acc[a][0] * inv, acc[a][1] * inv);
+      continue;
+    }
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
       float4 x;
@@ -648,6 +669,13 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int B,
     FA_CASE(128)
     FA_CASE(256)
 #undef FA_CASE
+    case 32:   // f32 only (the smoke configs); the bf16 kernel has no 32
+      if constexpr (BF16)
+        return static_cast<int>(cudaErrorInvalidValue);
+      else
+        return launch_f32<32, CAP, BOUND>(q, k, v, out, B, Sq, Sk, kv_len, H,
+                                          KV, causal, window, scale, softcap,
+                                          st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -659,7 +687,7 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int B,
 // dtype (is_bf16: bfloat16 on the tensor cores, else float32 on the CUDA
 // cores), contiguous, 16-byte aligned; Sq % 128 == 0, Sk % 128 == 0,
 // 0 < kv_len <= Sk (keys at or past kv_len are not read), H % KV == 0,
-// hd in {64, 128, 256}; softcap >= 0 (0: no cap).
+// hd in {64, 128, 256}, or 32 in float32; softcap >= 0 (0: no cap).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B,
                                       int Sq, int Sk, int kv_len, int H,

@@ -3,7 +3,9 @@
 A wrapper takes its kernel's plain PyTorch version only when every tensor
 lies on the CPU; on CUDA tensors it launches the kernel or raises. Mixed
 devices, wrong dtypes, shapes or strides raise `ValueError` before any
-pointer reaches native code.
+pointer reaches native code. A kernel without a backward refuses inputs
+that require grad while grad mode is on (`refuse_grad`), on the CPU too,
+so that a loss built on it cannot silently lose its gradient.
 """
 from __future__ import annotations
 
@@ -45,3 +47,17 @@ def stream_of(dev: torch.device) -> int:
     """Raw handle of PyTorch's current stream on `dev` (kernels launch
     there and never synchronise)."""
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def refuse_grad(kernel: str, **tensors: torch.Tensor) -> None:
+    """Raise when grad mode is on and any of `tensors` requires grad: the
+    kernel (and its plain version, in its place on the CPU) is inference
+    only, and detaching would drop the gradient without a word."""
+    if torch.is_grad_enabled():
+        need = [k for k, t in tensors.items() if t.requires_grad]
+        if need:
+            raise RuntimeError(
+                f"{kernel} has no backward, and {', '.join(need)} "
+                f"require(s) grad: train through the differentiable layer "
+                f"path (apply_layer(differentiable=True)) or run under "
+                f"torch.no_grad()")

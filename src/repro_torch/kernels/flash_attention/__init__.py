@@ -2,7 +2,9 @@
 (kernel B4)."""
 BQ = 128           # sequence granularity of the wrapper (as the TPU kernel's)
 BK = 128
-HEAD_DIMS = (64, 128, 256)   # head dims the CUDA kernel is compiled for
+# head dims the CUDA kernels are compiled for, by dtype: the f32 kernel
+# also takes the smoke configs' 32 (all f32); no bf16 config has 32
+HEAD_DIMS = {"float32": (32, 64, 128, 256), "bfloat16": (64, 128, 256)}
 
 from repro_torch.kernels.flash_attention.kernel import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import gqa_flash_attention  # noqa: E402

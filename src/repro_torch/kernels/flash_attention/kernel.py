@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.checks import check, kernel_device, stream_of
+from repro_torch.kernels.checks import (check, kernel_device,
+                                        refuse_grad, stream_of)
 from repro_torch.kernels.flash_attention import BK, BQ, HEAD_DIMS
 from repro_torch.kernels.flash_attention.ref import ref_attention
 
@@ -33,8 +34,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     On the card the dtype picks one of two hand-written kernels: bfloat16
     runs Q K^T and P V on the tensor cores (wgmma, f32 accumulation, P
     rounded to bf16); float32 runs f32 FMAs on the CUDA cores (no TF32).
-    Neither falls back to the other: a failed launch raises."""
+    Neither falls back to the other: a failed launch raises. The kernel
+    has no backward: with grad mode on, an input that requires grad
+    raises (training goes through `repro_torch.nn.attention._sdpa`)."""
     dev = kernel_device(q=q, k=k, v=v)
+    refuse_grad("flash_attention", q=q, k=k, v=v)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     if Sq % BQ or Sk % BK:
@@ -59,8 +63,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if dev.type == "cpu":
         return ref_attention(q, k, v, causal=causal, window=window,
                              softcap=softcap, kv_len=kv_len)
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd}: the CUDA kernel takes {HEAD_DIMS}")
+    dims = HEAD_DIMS[str(q.dtype).removeprefix("torch.")]
+    if hd not in dims:
+        raise ValueError(f"head dim {hd}: the CUDA kernel takes {dims} in "
+                         f"{q.dtype}")
     out = torch.empty_like(q)
     err = build.library().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,

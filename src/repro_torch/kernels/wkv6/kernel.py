@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.checks import check, kernel_device, stream_of
+from repro_torch.kernels.checks import (check, kernel_device,
+                                        refuse_grad, stream_of)
 from repro_torch.kernels.wkv6 import CHUNK, HEAD_DIMS
 from repro_torch.kernels.wkv6.ref import ref_wkv6
 
@@ -42,8 +43,10 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """r/k/v/logw (BH, T, hd) f32 with T % CHUNK == 0 and logw in
     [MIN_LOGW, 0]; u (BH, hd) f32. Zero initial state. Returns (out (BH, T,
     hd) f32, state (BH, hd, hd) f32), state[b, c, d] the key-c value-d
-    entry after the last step."""
+    entry after the last step. No backward: inputs that require grad
+    raise while grad mode is on (`checks.refuse_grad`)."""
     dev = kernel_device(r=r, k=k, v=v, logw=logw, u=u)
+    refuse_grad("wkv6", r=r, k=k, v=v, logw=logw, u=u)
     BH, T, hd = r.shape
     if T % CHUNK:
         raise ValueError(f"T = {T} is not a multiple of CHUNK = {CHUNK}")
@@ -62,6 +65,7 @@ def launch_heads(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     count as state-neutral); u (H, hd) f32. Returns (out (B, T, H, hd),
     state (B, H, hd, hd))."""
     dev = kernel_device(r=r, k=k, v=v, logw=logw, u=u)
+    refuse_grad("wkv6", r=r, k=k, v=v, logw=logw, u=u)
     if dev.type != "cuda":
         raise ValueError(f"launch_heads runs the CUDA kernel; got {dev}")
     B, T, H, hd = r.shape

@@ -72,11 +72,12 @@ def serve_lm(args) -> dict:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke(cfg)
-        if dev.type == "cuda":
-            # smoke()'s head dim is 32; B4 is compiled for 64, 128 and 256
-            cfg = cfg.scaled(head_dim=max(cfg.resolved_head_dim, 64))
-    gen = torch.Generator(dev).manual_seed(args.seed)
-    params = M.init_params(cfg, gen, device=dev)
+    # a smoke model is drawn on the host, so that its weights, and the
+    # continuation, are the same on every device; a full one on the card
+    gen = torch.Generator("cpu" if args.smoke else dev).manual_seed(
+        args.seed)
+    params = M.init_params(cfg, gen, device="cpu" if args.smoke else dev
+                           ).to(dev)
     B, S = args.batch, args.tokens
     rng = np.random.default_rng(args.seed)
     prompt = synthetic_lm_batch(rng, B, S, cfg.vocab_size)["tokens"]
@@ -136,7 +137,7 @@ def main(argv=None):
     if args.gnn:
         serve_gnn(args)
     elif args.arch:
-        serve_lm(args)
+        return serve_lm(args)
     else:
         ap.error("need --gnn or --arch")
 

@@ -21,19 +21,22 @@ def _copy(group: ParamGroup, tree: Mapping[str, Any], where: str) -> None:
         if isinstance(target, ParamGroup):
             _copy(target, sub, f"{where}.{name}")
             continue
-        a = np.asarray(sub)
-        if a.shape != tuple(target.shape):
-            raise ValueError(f"{where}.{name}: shape {a.shape}, expected "
-                             f"{tuple(target.shape)}")
-        target.copy_(torch.tensor(np.asarray(a, np.float32)))
+        a = (sub if isinstance(sub, torch.Tensor)
+             else torch.tensor(np.asarray(sub, np.float32)))
+        if tuple(a.shape) != tuple(target.shape):
+            raise ValueError(f"{where}.{name}: shape {tuple(a.shape)}, "
+                             f"expected {tuple(target.shape)}")
+        target.copy_(a)
 
 
 @torch.no_grad()
 def lm_params_from_numpy(cfg, tree: Mapping[str, Any],
                          device="cuda") -> DecoderLM:
     """`tree` is the JAX package's `init_params` pytree after
-    ``jax.tree.map(np.asarray, ...)``: {"embed", "blocks", "rem",
-    "final_norm", "lm_head"?, "encoder"?, "encoder_norm"?}. ``blocks[j]``
+    ``jax.tree.map(np.asarray, ...)`` (or with torch tensors for leaves,
+    as `repro_torch.checkpoint.read_tree` gives a checkpoint of it, bf16
+    included): {"embed", "blocks", "rem", "final_norm", "lm_head"?,
+    "encoder"?, "encoder_norm"?, "exits"?}. ``blocks[j]``
     stacks pattern position j over the R repeats, so layer ``r *
     len(pattern) + j`` is ``blocks[j]`` at index r; the remainder layers
     follow from ``rem``. ``encoder`` stacks the `enc` layers over
@@ -42,7 +45,7 @@ def lm_params_from_numpy(cfg, tree: Mapping[str, Any],
     model = DecoderLM(cfg, resolve_device(device))
     P, R = len(cfg.pattern), cfg.pattern_repeats
     top = {k: tree[k] for k in ("embed", "final_norm", "lm_head",
-                                "encoder_norm") if k in tree}
+                                "encoder_norm", "exits") if k in tree}
     _copy(model.top, top, "params")
     for i, layer in enumerate(model.encoder):
         _copy(layer, _index(tree["encoder"], i), f"encoder[{i}]")
@@ -60,4 +63,4 @@ def _index(tree, r: int):
     """The r-th slice of every array of a stacked subtree."""
     if isinstance(tree, Mapping):
         return {k: _index(v, r) for k, v in tree.items()}
-    return np.asarray(tree)[r]
+    return tree[r] if isinstance(tree, torch.Tensor) else np.asarray(tree)[r]

@@ -8,7 +8,10 @@ is a loop. Caches are a list with one dict per layer.
 
 Public API:
     model_defs / init_params(cfg, generator, device)
-    forward(cfg, params, tokens, frontend, mode)        -> logits, aux
+    forward(cfg, params, tokens, frontend, mode, collect_states,
+            differentiable, remat)          -> logits, aux[, states]
+    exit_logits(cfg, params, state, i)      -> logits of exit head i
+    softmax_xent / loss_fn(cfg, params, batch, remat) -> loss, metrics
     prefill_step(cfg, params, tokens, frontend, length) -> last logits, cache
     init_cache(cfg, batch, length, device)
     seed_frontend_cache(cfg, params, cache, frontend)   -> cache
@@ -19,16 +22,33 @@ for models without them), as the reference's `forward` returns it.
 `frontend` is the (B, N, d) stub of a VLM's image embeddings (N =
 `num_image_tokens`) or an encoder-decoder's audio frames (N =
 `encoder_seq`, run through the encoder's `enc` layers first); None for
-the other models. Adaptive-depth exit heads, the loss and the sharding
-specs wait for ROADMAP A10.3-A10.5.
+the other models.
+
+A block is one repeat of `cfg.pattern`: layers l*P .. l*P+P-1 for P =
+len(pattern); the `remainder` layers follow the R blocks. With
+`cfg.adaptive` enabled and exit layers named, the model carries the
+early-exit heads `exits` (per-exit adapter and norm gain, and the
+ensemble vector `ens_s`), read by `exit_logits` on a block's state,
+trained by `loss_fn`'s Inception Distillation term and served by
+`repro_torch.core.adaptive_depth`.
+
+Inference (`forward` by default, `prefill_step`, `decode_step`) runs
+without autograd through kernels B4 / B5. Training calls `forward(...,
+differentiable=True)` (what `loss_fn` does): the plain differentiable
+layer paths, each block rematerialised in the backward pass
+(`torch.utils.checkpoint`, the counterpart of the reference's
+`jax.checkpoint`) unless `remat=False`. The sharding specs wait for the
+LM sharding slice.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.nn import attention as attn
@@ -58,15 +78,28 @@ def model_defs(cfg) -> Dict[str, Any]:
         defs["encoder"] = [B.layer_defs(cfg, "enc")
                            for _ in range(cfg.encoder_layers)]
         defs["encoder_norm"] = norm_defs(cfg)
+    if has_exits(cfg):
+        n = len(cfg.adaptive.exit_layers)
+        defs["exits"] = {
+            "adapter": ParamDef((n, d, d), ("exit", "embed", None), "small"),
+            "norm_scale": ParamDef((n, d), ("exit", "embed"), "ones"),
+            # self-attention ensemble weight vector s (Eq. 5 of the paper)
+            "ens_s": ParamDef((V, 1), ("vocab", None), "small"),
+        }
     return defs
+
+
+def has_exits(cfg) -> bool:
+    """Does the model carry early-exit heads (`exits`)?"""
+    return bool(cfg.adaptive.enabled and cfg.adaptive.exit_layers)
 
 
 class DecoderLM(nn.Module):
     """The model's parameters: `embed`, `layers[i]` (a `ParamGroup` under
     the JAX names of kind `cfg.layer_kinds[i]`), `final_norm`, `lm_head`
-    unless the embeddings are tied, and for an encoder-decoder
-    `encoder[i]` (`enc` layers) and `encoder_norm`; ``model[name]`` reads
-    them as the functions below do."""
+    unless the embeddings are tied, for an encoder-decoder `encoder[i]`
+    (`enc` layers) and `encoder_norm`, and `exits` where `has_exits`;
+    ``model[name]`` reads them as the functions below do."""
 
     def __init__(self, cfg, device):
         super().__init__()
@@ -133,44 +166,134 @@ def _positions(tokens):
 
 
 # ------------------------------------------------------------------ encoder
-def _run_encoder(cfg, params, frontend):
+def _run_encoder(cfg, params, frontend, differentiable=False):
     """Stub frontend embeddings (B, Se, d) -> encoder output (B, Se, d):
-    the `enc` layers (bidirectional self-attention through B4), then
-    `encoder_norm`."""
+    the `enc` layers (bidirectional self-attention through B4, or its
+    plain path when `differentiable`), then `encoder_norm`."""
     x = frontend.to(torch_dtype(cfg.dtype))
     positions = torch.arange(x.shape[1], device=x.device)[None].expand(
         x.shape[:2])
     for p in params["encoder"]:
         x, _, _ = B.apply_layer(cfg, "enc", p, x, mode="train",
-                                positions=positions)
+                                positions=positions,
+                                differentiable=differentiable)
     return apply_norm(cfg, params["encoder_norm"], x)
 
 
-def _frontend(cfg, params, frontend):
+def _frontend(cfg, params, frontend, differentiable=False):
     """What the cross-attention layers read: the encoder's output for an
     encoder-decoder, else the frontend embeddings as given."""
-    return _run_encoder(cfg, params, frontend) if cfg.is_encdec else frontend
+    if cfg.is_encdec:
+        return _run_encoder(cfg, params, frontend, differentiable)
+    return frontend
 
 
 # ------------------------------------------------------------------ forward
-@torch.no_grad()
-def forward(cfg, params, tokens, *, frontend=None, mode: str = "train"):
+def forward(cfg, params, tokens, *, frontend=None, mode: str = "train",
+            collect_states: bool = False, differentiable: bool = False,
+            remat: bool = True):
     """tokens (B,S) integer; `frontend` (B, N, d) for VLM and
-    encoder-decoder models. Returns (logits (B,S,V), aux). Inference only
-    (no dropout, no gradient); aux () f32 is the reference's MoE
-    auxiliary loss summed over the layers."""
+    encoder-decoder models. Returns (logits (B,S,V), aux), and with
+    `collect_states` (logits, aux, states): states[l] (B, S, d) the
+    hidden state after block l, for l < R (the remainder layers'
+    outputs are not collected), as the reference's scan collects them.
+    aux () f32 is the reference's MoE auxiliary loss summed over the
+    layers.
+
+    By default inference: no autograd, kernels B4 / B5, no dropout.
+    `differentiable` runs the layers' plain differentiable paths under
+    the caller's grad mode, each block rematerialised in the backward
+    pass when `remat` and mode == "train" (the numbers are the same with
+    or without it)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: expected one of {MODES}")
-    positions = _positions(tokens)
-    x = _embed_tokens(cfg, params, tokens, positions)
-    frontend = _frontend(cfg, params, frontend)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p, kind in zip(params["layers"], cfg.layer_kinds):
-        x, _, aux = B.apply_layer(cfg, kind, p, x, mode="train",
-                                  positions=positions, frontend=frontend,
-                                  aux=aux)
-    x = apply_norm(cfg, params["final_norm"], x)
-    return _project_logits(cfg, params, x), aux
+    ctx = contextlib.nullcontext() if differentiable else torch.no_grad()
+    with ctx:
+        positions = _positions(tokens)
+        x = _embed_tokens(cfg, params, tokens, positions)
+        frontend = _frontend(cfg, params, frontend, differentiable)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        P, R = len(cfg.pattern), cfg.pattern_repeats
+        layers = list(zip(params["layers"], cfg.layer_kinds))
+
+        def run(x, aux, lo, hi):
+            for p, kind in layers[lo:hi]:
+                x, _, aux = B.apply_layer(cfg, kind, p, x, mode="train",
+                                          positions=positions,
+                                          frontend=frontend, aux=aux,
+                                          differentiable=differentiable)
+            return x, aux
+
+        states = []
+        use_remat = (differentiable and remat and mode == "train"
+                     and torch.is_grad_enabled())
+        for blk in range(R):
+            if use_remat:
+                x, aux = checkpoint(run, x, aux, blk * P, (blk + 1) * P,
+                                    use_reentrant=False)
+            else:
+                x, aux = run(x, aux, blk * P, (blk + 1) * P)
+            if collect_states:
+                states.append(x)
+        x, aux = run(x, aux, R * P, len(layers))
+        x = apply_norm(cfg, params["final_norm"], x)
+        logits = _project_logits(cfg, params, x)
+    if collect_states:
+        return logits, aux, states
+    return logits, aux
+
+
+def exit_logits(cfg, params, state, exit_index: int):
+    """Exit head `exit_index` on a block's state (..., d): the per-exit
+    adapter, an f32 rmsnorm (eps `norm_eps`) times the exit's gain, then
+    the shared unembedding (`_project_logits`)."""
+    e = params["exits"]
+    h = state @ e["adapter"][exit_index].to(state.dtype)
+    hf = h.float()
+    hf = hf * torch.rsqrt(torch.mean(torch.square(hf), -1, keepdim=True)
+                          + cfg.norm_eps)
+    h = (hf * e["norm_scale"][exit_index].float()).to(state.dtype)
+    return _project_logits(cfg, params, h)
+
+
+# --------------------------------------------------------------------- loss
+def softmax_xent(logits, labels, mask=None):
+    """logits (B,S,V) any dtype; labels (B,S) integer; mask (B,S)
+    optional. Mean next-token negative log-likelihood in f32."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.take_along_dim(lf, labels.long()[..., None], dim=-1)[..., 0]
+    nll = lse - ll
+    if mask is None:
+        return torch.mean(nll)
+    m = mask.float()
+    return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+
+
+def loss_fn(cfg, params, batch, *, remat: bool = True):
+    """Next-token prediction on batch = {"tokens" (B, S), optional
+    "frontend"} through the differentiable path: the LM loss plus the MoE
+    aux loss, plus the Inception Distillation term of the exit heads
+    where the model has them. Returns (loss, metrics)."""
+    tokens = batch["tokens"]
+    adaptive = has_exits(cfg)
+    out = forward(cfg, params, tokens, frontend=batch.get("frontend"),
+                  mode="train", collect_states=adaptive,
+                  differentiable=True, remat=remat)
+    logits, aux = out[0], out[1]
+    labels = tokens[:, 1:]
+    lm = softmax_xent(logits[:, :-1], labels)
+    loss = lm + aux
+    metrics = {"lm_loss": lm, "aux_loss": aux}
+    if adaptive:
+        from repro_torch.core.inception_distill import \
+            transformer_inception_loss
+        id_loss, id_metrics = transformer_inception_loss(
+            cfg, params, out[2], logits, labels)
+        loss = loss + id_loss
+        metrics.update(id_metrics)
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 @torch.no_grad()

@@ -9,6 +9,11 @@ the config sets one; cross-attention (`xattn`, `encdec`) unmasked over
 the frontend's or the encoder's keys, whose length the kernel takes as
 its key bound. On CPU tensors its plain PyTorch version computes them.
 Decode (one query) uses the plain `_sdpa`, for cross-attention too.
+
+B4 has no backward. Training asks for the differentiable path
+(`differentiable=True`), the reference's own training code: `_sdpa` with
+`causal_mask`, or `_chunked_sdpa` over query chunks above
+`CHUNK_THRESHOLD` tokens, in plain PyTorch that autograd differentiates.
 """
 from __future__ import annotations
 
@@ -71,6 +76,41 @@ def causal_mask(Sq: int, Sk: int, window: int = 0, offset: int = 0,
     return m[None]
 
 
+# Sequences longer than this are processed in query chunks on the
+# differentiable path: no (S, S) buffer is ever made, the per-chunk (B, H,
+# Q_CHUNK, S) logits are the only transient. Exact numerics.
+CHUNK_THRESHOLD = 8192
+Q_CHUNK = 512
+
+
+def _chunked_sdpa(cfg, q, k, v, *, window: int):
+    """Causal (optionally banded) `_sdpa` over query chunks of Q_CHUNK
+    (S % Q_CHUNK == 0), each against all S keys under its rows of the
+    mask, as the reference's `lax.scan` computes it."""
+    S = q.shape[1]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    outs = []
+    for off in range(0, S, Q_CHUNK):
+        qpos = off + torch.arange(Q_CHUNK, device=q.device)[:, None]
+        m = kpos <= qpos
+        if window and window > 0:
+            m &= kpos > qpos - window
+        outs.append(_sdpa(cfg, q[:, off:off + Q_CHUNK], k, v, m[None]))
+    return torch.cat(outs, dim=1)
+
+
+def _plain_self_attention(cfg, q, k, v, *, window: int, causal: bool):
+    """The differentiable full-sequence attention of the reference's
+    training path: unmasked when not `causal`, query chunks above
+    CHUNK_THRESHOLD, else one `_sdpa` under `causal_mask`."""
+    S = q.shape[1]
+    if not causal:
+        return _sdpa(cfg, q, k, v, None)
+    if S > CHUNK_THRESHOLD and S % Q_CHUNK == 0:
+        return _chunked_sdpa(cfg, q, k, v, window=window)
+    return _sdpa(cfg, q, k, v, causal_mask(S, S, window, device=q.device))
+
+
 def _project_qkv(cfg, p, x, positions):
     q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
     k = torch.einsum("bsd,dke->bske", x, p["wk"])
@@ -82,28 +122,33 @@ def _project_qkv(cfg, p, x, positions):
 
 
 def self_attention(cfg, p, x, positions, *, window: int = 0,
-                   causal: bool = True):
+                   causal: bool = True, differentiable: bool = False):
     """Full-sequence self attention (train / prefill) through kernel B4:
     causal, banded to `window` keys when window > 0, or bidirectional
     when not `causal` (`enc` layers; the reference passes an all-ones
     mask), with the logits soft-capped at `cfg.attn_logit_softcap` when
-    it is set (grok-1). Returns (out, (k, v))."""
+    it is set (grok-1); `differentiable` takes the plain path instead
+    (`_plain_self_attention`). Returns (out, (k, v))."""
     q, k, v = _project_qkv(cfg, p, x, positions)
-    out = gqa_flash_attention(q, k, v, causal=causal, window=window,
-                              softcap=cfg.attn_logit_softcap)
+    if differentiable:
+        out = _plain_self_attention(cfg, q, k, v, window=window,
+                                    causal=causal)
+    else:
+        out = gqa_flash_attention(q, k, v, causal=causal, window=window,
+                                  softcap=cfg.attn_logit_softcap)
     out = torch.einsum("bshe,hed->bsd", out, p["wo"])
     return out, (k, v)
 
 
-def cross_attention(cfg, p, x, kv):
+def cross_attention(cfg, p, x, kv, *, differentiable: bool = False):
     """x (B, Sq, d) attends, unmasked, to precomputed (k, v) (B, Se, KV,
     hd) of the frontend or the encoder (no RoPE on cross-attention).
     Several queries (train / prefill) go through kernel B4, not causal,
-    with Se as its key bound; one query (decode) through the plain
-    `_sdpa`, as decode self-attention does."""
+    with Se as its key bound; one query (decode), and the
+    `differentiable` path, through the plain `_sdpa`."""
     k, v = kv
     q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
-    if q.shape[1] == 1:
+    if q.shape[1] == 1 or differentiable:
         out = _sdpa(cfg, q, k, v, None)
     else:
         out = gqa_flash_attention(q, k, v, causal=False,

@@ -18,6 +18,9 @@ apply_layer contract:
   pos      : decode position (int)
   aux      : accumulated auxiliary loss (MoE load balance); `attn_moe`
              adds its layer's, the other kinds return it as given
+  differentiable : full modes only; attention and the WKV recurrence run
+             their plain differentiable paths instead of kernels B4 / B5,
+             which have no backward (the trainer's `loss_fn` asks for it)
 
 Two differences from the reference, both faults of the reference
 recorded in ROADMAP C:
@@ -114,10 +117,11 @@ def ring_cache(t: torch.Tensor, window: int) -> torch.Tensor:
 # -------------------------------------------------------------------- apply
 def apply_layer(cfg, kind: str, p, x, *, mode: str = "train",
                 positions=None, cache=None, frontend=None, pos=None,
-                aux=0.0):
+                aux=0.0, differentiable: bool = False):
     if mode == "decode":
         return _decode_layer(cfg, kind, p, x, cache, pos, aux)
-    return _full_layer(cfg, kind, p, x, positions, frontend, mode, aux)
+    return _full_layer(cfg, kind, p, x, positions, frontend, mode, aux,
+                       differentiable)
 
 
 def _ffn(cfg, kind, p, xn, aux, decode=False):
@@ -130,21 +134,22 @@ def _ffn(cfg, kind, p, xn, aux, decode=False):
     return h, aux + moe_aux
 
 
-def _gated_xattn(cfg, p, x, kv):
+def _gated_xattn(cfg, p, x, kv, differentiable=False):
     """`xattn`: x + tanh(gate_attn) * cross-attention, then x +
     tanh(gate_mlp) * MLP."""
     h = attn.cross_attention(cfg, p["xattn"], apply_norm(cfg, p["norm1"], x),
-                             kv)
+                             kv, differentiable=differentiable)
     x = x + torch.tanh(p["gate_attn"]) * h
     h = apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
     return x + torch.tanh(p["gate_mlp"]) * h
 
 
-def _full_layer(cfg, kind, p, x, positions, frontend, mode, aux):
+def _full_layer(cfg, kind, p, x, positions, frontend, mode, aux,
+                differentiable):
     new_cache = None
     if kind == "rwkv":
         xt = apply_norm(cfg, p["norm1"], x)
-        h, state = rk.rwkv_time_mix_full(cfg, p["tmix"], xt)
+        h, state = rk.rwkv_time_mix_full(cfg, p["tmix"], xt, differentiable)
         x = x + h
         xn = apply_norm(cfg, p["norm2"], x)
         x = x + rk.rwkv_channel_mix_full(cfg, p["cmix"], xn)
@@ -163,7 +168,7 @@ def _full_layer(cfg, kind, p, x, positions, frontend, mode, aux):
 
     if kind == "xattn":
         xk, xv = attn.project_kv(cfg, p["xattn"], frontend)
-        x = _gated_xattn(cfg, p, x, (xk, xv))
+        x = _gated_xattn(cfg, p, x, (xk, xv), differentiable)
         if mode == "prefill":
             new_cache = {"xk": xk, "xv": xv}
         return x, new_cache, aux
@@ -173,13 +178,14 @@ def _full_layer(cfg, kind, p, x, positions, frontend, mode, aux):
     h, (k, v) = attn.self_attention(cfg, p["attn"],
                                     apply_norm(cfg, p["norm1"], x),
                                     positions, window=window,
-                                    causal=kind != "enc")
+                                    causal=kind != "enc",
+                                    differentiable=differentiable)
     x = x + h
     if kind == "encdec":
         xk, xv = attn.project_kv(cfg, p["xattn"], frontend)
         x = x + attn.cross_attention(cfg, p["xattn"],
                                      apply_norm(cfg, p["normx"], x),
-                                     (xk, xv))
+                                     (xk, xv), differentiable=differentiable)
     h, aux = _ffn(cfg, kind, p, apply_norm(cfg, p["norm2"], x), aux)
     x = x + h
     if mode == "prefill" and kind != "enc":

@@ -4,7 +4,9 @@ per-channel decay + channel-mix (`repro.nn.rwkv`).
 The full-sequence WKV recurrence runs through kernel B5
 (`repro_torch.kernels.wkv6`), the chunked factorization of the JAX
 package's `_wkv_chunked` with a zero initial state; on CPU tensors the
-kernel's plain PyTorch version computes it. As in the reference, the
+kernel's plain PyTorch version computes it. B5 has no backward: training
+(`differentiable=True`) runs `_wkv_chunked` here, the reference's own
+training code, in plain PyTorch that autograd differentiates. As in the reference, the
 ddlerp token-shift LoRA of full RWKV-6 is simplified to static
 interpolation weights; the data-dependent decay is implemented.
 """
@@ -82,6 +84,35 @@ def _group_norm(p, x, H, hd, eps=1e-5):
     return (xg.reshape(B, T, D) * p["ln_scale"].float()).to(x.dtype)
 
 
+def _wkv_chunked(r, k, v, logw, u, state):
+    """r/k/v (B, T, H, hd) f32; logw (B, T, H, hd) f32 (<= 0); u (H, hd);
+    state (B, H, hd, hd). T % CHUNK == 0. Returns (out (B, T, H, hd), new
+    state): the chunked factorization of the reference, one chunk at a
+    time."""
+    B, T, H, hd = r.shape
+    if T % CHUNK:
+        raise ValueError(f"T = {T} is not a multiple of CHUNK = {CHUNK}")
+    tri = torch.tril(torch.ones((CHUNK, CHUNK), dtype=torch.float32,
+                                device=r.device), diagonal=-1)
+    outs = []
+    for c0 in range(0, T, CHUNK):
+        rr, kk, vv, lw = (a[:, c0:c0 + CHUNK] for a in (r, k, v, logw))
+        Lc = torch.cumsum(lw, dim=1)              # inclusive log cumprod
+        P = torch.exp(Lc - lw)                    # prod_{s<t} w_s
+        rp = rr * P
+        kd = kk * torch.exp(-Lc)                  # k_s / D_s
+        A = torch.einsum("bthc,bshc->bhts", rp, kd) * tri[None, None]
+        diag = torch.einsum("bthc,bthc->bth", rr * u[None, None], kk)
+        outs.append(torch.einsum("bhts,bshc->bthc", A, vv)
+                    + diag[..., None] * vv
+                    + torch.einsum("bthc,bhcd->bthd", rp, state))
+        Dtot = torch.exp(Lc[:, -1])               # (B, H, hd)
+        kscale = kk * torch.exp(Lc[:, -1][:, None] - Lc)
+        state = state * Dtot[..., None] \
+            + torch.einsum("bshc,bshd->bhcd", kscale, vv)
+    return torch.cat(outs, dim=1), state
+
+
 def _tmix_project(cfg, p, x, x_prev):
     r = _lerp(x, x_prev, p["mu_r"]) @ p["w_r"]
     k = _lerp(x, x_prev, p["mu_k"]) @ p["w_k"]
@@ -111,13 +142,18 @@ def wkv_inputs(cfg, p, x):
     return rf, kf, vf, lw, p["u"].float().reshape(H, hd), g[:, :T]
 
 
-def rwkv_time_mix_full(cfg, p, x):
+def rwkv_time_mix_full(cfg, p, x, differentiable: bool = False):
     """x (B,T,d), zero initial state. Returns (y, final state (B,H,hd,hd)
-    f32); the recurrence runs in kernel B5."""
+    f32); the recurrence runs in kernel B5, or in `_wkv_chunked` when
+    `differentiable`."""
     B, T, d = x.shape
     H, hd = _heads(cfg)
     rf, kf, vf, lw, u, g = wkv_inputs(cfg, p, x)
-    out, state = wkv6_heads(rf, kf, vf, lw, u)
+    if differentiable:
+        out, state = _wkv_chunked(rf, kf, vf, lw, u, rf.new_zeros(
+            (B, H, hd, hd)))
+    else:
+        out, state = wkv6_heads(rf, kf, vf, lw, u)
     out = out[:, :T].reshape(B, T, H * hd).to(x.dtype)
     out = _group_norm(p, out, H, hd) * F.silu(g)
     return out @ p["w_o"], state

@@ -41,7 +41,23 @@ def adamw_update(grads: Tree, state: Mapping, params: Tree,
                  tc: TrainConfig, lr):
     """Returns (new_params, new_state, metrics); the inputs are left as
     they are. `lr` is a float or a 0-dim tensor (`make_schedule`). With
-    ``tc.grad_clip == 0`` the gradients are not clipped."""
+    ``tc.grad_clip == 0`` the gradients are not clipped. The arithmetic
+    is `adamw_update_`'s, on copies."""
+    new_p = {k: p.clone() for k, p in params.items()}
+    new_state = {"mu": {k: m.clone() for k, m in state["mu"].items()},
+                 "nu": {k: n.clone() for k, n in state["nu"].items()},
+                 "count": state["count"]}
+    metrics = adamw_update_(grads, new_state, new_p, tc, lr)
+    return new_p, new_state, metrics
+
+
+@torch.no_grad()
+def adamw_update_(grads: Tree, state: Dict, params: Tree, tc: TrainConfig,
+                  lr) -> Dict:
+    """The reference's AdamW step in place: each parameter and the
+    moments `state["mu"]`, `state["nu"]` are overwritten leaf by leaf (in
+    the reference's order of operations), and `state["count"]` is
+    replaced. Returns the metrics."""
     count = state["count"] + 1
     gn = global_norm(grads)
     scale = (torch.clamp(tc.grad_clip / (gn + 1e-9), max=1.0)
@@ -49,17 +65,25 @@ def adamw_update(grads: Tree, state: Mapping, params: Tree,
     c = count.float()
     bc1 = 1.0 - tc.beta1 ** c
     bc2 = 1.0 - tc.beta2 ** c
-    mdt = getattr(torch, tc.moment_dtype)
-    new_p, new_mu, new_nu = {}, {}, {}
     for k, p in params.items():
+        mu, nu = state["mu"][k], state["nu"][k]
         gf = grads[k].float() * scale
-        mu2 = tc.beta1 * state["mu"][k].float() + (1 - tc.beta1) * gf
-        nu2 = (tc.beta2 * state["nu"][k].float()
-               + (1 - tc.beta2) * torch.square(gf))
-        step = (mu2 / bc1) / (torch.sqrt(nu2 / bc2) + tc.eps)
+        m = mu if mu.dtype == torch.float32 else mu.float()
+        n = nu if nu.dtype == torch.float32 else nu.float()
+        m.mul_(tc.beta1).add_(gf * (1 - tc.beta1))
+        n.mul_(tc.beta2).add_(torch.square(gf).mul_(1 - tc.beta2))
+        del gf
+        step = torch.div(m, bc1).div_(torch.div(n, bc2).sqrt_().add_(tc.eps))
+        if m is not mu:
+            mu.copy_(m)
+            nu.copy_(n)
+        del m, n
         pf = p.float()
-        pf = pf - lr * (step + tc.weight_decay * pf)
-        new_p[k] = pf.to(p.dtype)
-        new_mu[k], new_nu[k] = mu2.to(mdt), nu2.to(mdt)
-    metrics = {"grad_norm": gn, "lr": lr}
-    return new_p, {"mu": new_mu, "nu": new_nu, "count": count}, metrics
+        step.add_(pf * tc.weight_decay).mul_(lr)
+        if pf is p:
+            p.sub_(step)
+        else:
+            p.copy_(pf.sub_(step))
+        del step, pf
+    state["count"] = count
+    return {"grad_norm": gn, "lr": lr}

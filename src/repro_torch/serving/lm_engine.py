@@ -1,10 +1,14 @@
-"""Continuous-batching LM decode engine (`repro.serving.lm_engine`).
+"""Continuous-batching LM decode engine with Adaptive-Depth Inference
+(`repro.serving.lm_engine`).
 
-A fixed pool of `slots` decodes in lock-step (one `decode_step` per
-tick); finished sequences free their slot, queued requests claim freed
-slots mid-flight. Prompts are consumed one token per tick, like the
-reference (decode-only, no prefill). Adaptive-depth decoding waits for
-ROADMAP A10.3. For MoE models (`attn_moe`) a tick routes the whole slot
+A fixed pool of `slots` decodes in lock-step (one `decode_step`, or with
+`adaptive` one `repro_torch.core.adaptive_depth.adaptive_decode_step`,
+per tick); finished sequences free their slot, queued requests claim
+freed slots mid-flight. Prompts are consumed one token per tick, like the
+reference (decode-only, no prefill). Adaptive depth records each tick's
+depth-FLOPs share saved (counted, not taken: every layer still runs),
+the paper's latency/accuracy dial carried over to token decoding; its
+mean is `mean_depth_flops_saved`. For MoE models (`attn_moe`) a tick routes the whole slot
 batch as one row, as the reference does: at up to 8 slots no expert can
 overflow its capacity (at least 8), but where one does, a lane's tokens
 depend on its neighbours, in both packages.
@@ -19,6 +23,7 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.adaptive_depth import adaptive_decode_step
 from repro_torch.device import resolve_device
 from repro_torch.models import decoder_lm as M
 
@@ -41,16 +46,18 @@ class _Slot:
 
 class LMServingEngine:
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 256,
-                 eos_id: int = -1, device="cuda"):
+                 adaptive: bool = False, eos_id: int = -1, device="cuda"):
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)
         self.slots = [_Slot() for _ in range(slots)]
         self.max_len = max_len
+        self.adaptive = adaptive and cfg.adaptive.enabled
         self.eos_id = eos_id
         self.queue: Deque[LMRequest] = deque()
         self.cache = M.init_cache(cfg, slots, max_len, self.device)
         self.ticks = 0
+        self.flops_saved: List[float] = []
         self.completed: List[LMRequest] = []
 
     # -------------------------------------------------------------- control
@@ -89,9 +96,15 @@ class LMServingEngine:
             toks[i, 0] = (s.pending.pop(0) if s.pending
                           else (s.req.out[-1] if s.req.out else 0))
         pos = self.ticks % self.max_len
-        logits, self.cache = M.decode_step(
-            self.cfg, self.params, self.cache,
-            torch.from_numpy(toks).to(self.device), pos)
+        tok = torch.from_numpy(toks).to(self.device)
+        if self.adaptive:
+            logits, self.cache, info = adaptive_decode_step(
+                self.cfg, self.params, self.cache, tok, pos)
+            self.flops_saved.append(float(info["flops_saved_frac"]))
+        else:
+            logits, self.cache = M.decode_step(self.cfg, self.params,
+                                               self.cache, tok, pos)
+            self.flops_saved.append(0.0)
         nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
         done = 0
         for i, s in enumerate(self.slots):
@@ -120,6 +133,6 @@ class LMServingEngine:
             "completed": len(self.completed),
             "ticks": self.ticks,
             "mean_latency_s": float(np.mean(lat)) if lat else 0.0,
-            # no adaptive depth in the port yet: nothing is saved
-            "mean_depth_flops_saved": 0.0,
+            "mean_depth_flops_saved": float(np.mean(self.flops_saved))
+            if self.flops_saved else 0.0,
         }

@@ -602,8 +602,8 @@ def test_moe_prefill_and_decode_on_card_match_cpu(cuda, arch):
                                   "recurrentgemma-9b", "whisper-small",
                                   "llama-3.2-vision-11b"])
 def test_serve_lm_smoke_cli_on_card(cuda, arch):
-    """`launch.serve --arch ... --smoke` on the card by default (its smoke
-    config takes head dim 64, which B4 is compiled for)."""
+    """`launch.serve --arch ... --smoke` on the card by default, at
+    smoke()'s head dim 32 (B4's f32 instance for it)."""
     import os
     import subprocess
     import sys
@@ -619,7 +619,10 @@ def test_serve_lm_smoke_cli_on_card(cuda, arch):
 
 
 def test_lm_kernels_refuse_bad_operands_on_cuda(cuda):
-    x = torch.zeros((2, 128, 1, 32), device=cuda)
+    x = torch.zeros((2, 128, 1, 32), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(x, x, x)        # hd 32 has an f32 instance only
+    x = torch.zeros((2, 128, 1, 48), device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(x, x, x)
     y = torch.zeros((2, 16, 48), device=cuda)
@@ -1014,3 +1017,127 @@ def test_sharded_propagation_bitwise_on_card(cuda, impl, D, gather_mode):
         assert torch.equal(s2[:, perm].view(torch.int32),
                            s1.view(torch.int32))
     assert torch.isnan(s1).any() and torch.isinf(s1).any()
+
+
+@pytest.mark.parametrize("causal,window,cap,bound", [
+    (c, w, cap, b) for c, w in ((True, 0), (True, 48), (False, 0))
+    for cap in (0.0, 5.0) for b in (False, True)])
+def test_flash_attention_f32_hd32_matches_plain(cuda, causal, window, cap,
+                                                bound):
+    """B4's f32 instance at head dim 32 (the smoke configs') in each of
+    its four (cap, bound) instances, causal, banded and not causal,
+    against the plain version at the f32 tolerance (rtol 1e-4, atol
+    2e-5); with the bound, NaN in the cut keys leaves the bits alone.
+    Banded with a bound, the rows that neither the band nor the bound
+    leave a key (qpos >= kv_len + window - 1) are not compared: the
+    kernel skips their blocks and writes 0, the plain version a uniform
+    softmax over -1e30 (the mean of v), and no model reads such a row (a
+    causal layer's bound is its true length; the wrapper cuts the padded
+    rows)."""
+    g = torch.Generator().manual_seed(32 + window + int(cap))
+    B, S, H, KV, hd = 2, 256, 4, 2, 32
+    q = (3.0 * torch.randn((B, S, H, hd), generator=g)).to(cuda)
+    k = (3.0 * torch.randn((B, S, KV, hd), generator=g)).to(cuda)
+    v = torch.randn((B, S, KV, hd), generator=g).to(cuda)
+    kv_len = 200 if bound else None
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window,
+                          softcap=cap, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = ref_attention(q, k, v, causal=causal, window=window, softcap=cap,
+                        kv_len=kv_len)
+    rows = kv_len + window - 1 if bound and window else S
+    torch.testing.assert_close(out[:, :rows], ref[:, :rows], rtol=1e-4,
+                               atol=2e-5)
+    if bound:
+        k[:, 200:], v[:, 200:] = float("nan"), float("nan")
+        again = flash_attention(q, k, v, causal=causal, window=window,
+                                softcap=cap, kv_len=kv_len)
+        assert torch.equal(again, out)
+
+
+def _adaptive_granite(layers=4):
+    """granite-34b smoke (f32, head dim 32) with exit heads at blocks
+    0-2, t_min 0, t_max 2, as the reference's adaptive tests."""
+    import dataclasses
+    from repro_torch.common import AdaptiveDepthConfig
+    from repro_torch.configs import ARCHS, smoke
+    return dataclasses.replace(
+        smoke(ARCHS["granite-34b"]), num_layers=layers,
+        adaptive=AdaptiveDepthConfig(enabled=True, exit_layers=(0, 1, 2),
+                                     t_s=0.9, t_min=0, t_max=2))
+
+
+def _soft_model(cfg, dev):
+    """Random weights with wq, wk, wv scaled to a fan-in of d (the
+    initializer takes it from the heads axis, so the softmax is near a
+    hard max, where f32 sums in another order move the gradients by
+    percents)."""
+    from repro_torch.models import decoder_lm as M
+    model = M.init_params(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    with torch.no_grad():
+        for p in model.layers:
+            p["attn"]["wq"].mul_((cfg.num_heads / cfg.d_model) ** 0.5)
+            for w in ("wk", "wv"):
+                p["attn"][w].mul_((cfg.num_kv_heads / cfg.d_model) ** 0.5)
+    return model.to(dev)
+
+
+def test_lm_training_step_on_card_matches_cpu(cuda):
+    """One f32 training step of granite smoke with exit heads (loss_fn
+    with the inception term through the differentiable path, then the
+    in-place AdamW) on the card against the CPU: the loss within 1e-4
+    relative, every gradient within 1e-4 relative L2, and so the updated
+    parameters (TF32 off)."""
+    from repro_torch.common import TrainConfig
+    from repro_torch.data import synthetic_stream
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.models import decoder_lm as M
+    from repro_torch.optim import adamw_init, adamw_update_, make_schedule
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _adaptive_granite()
+    raw = next(synthetic_stream(0, 4, 64, cfg.vocab_size))
+    tc = TrainConfig(learning_rate=3e-3, warmup_steps=0, total_steps=10)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        model = _soft_model(cfg, dev).requires_grad_(True)
+        loss, _ = M.loss_fn(cfg, model, lm_batch(cfg, raw, dev))
+        loss.backward()
+        params = dict(model.named_parameters())
+        grads = {k: p.grad.detach().cpu() for k, p in params.items()}
+        opt = adamw_init(params, tc)
+        adamw_update_({k: p.grad for k, p in params.items()}, opt, params,
+                      tc, make_schedule(tc)(opt["count"]))
+        out[dev.type] = (float(loss.detach()), grads,
+                         {k: p.detach().cpu() for k, p in params.items()})
+    (l0, g0, p0), (l1, g1, p1) = out["cpu"], out["cuda"]
+    assert abs(l1 - l0) <= 1e-4 * abs(l0)
+    for k in g0:
+        assert float((g1[k] - g0[k]).norm()) <= 1e-4 * float(g0[k].norm()), k
+        assert float((p1[k] - p0[k]).norm()) <= 1e-4 * float(p0[k].norm()), k
+
+
+def test_adaptive_decode_at_zero_threshold_is_decode_step_on_card(cuda):
+    """At t_s = 0 no token exits, and adaptive_decode_step's logits equal
+    decode_step's bit for bit on the card (the same layers in the same
+    order; the exit heads are computed and not taken)."""
+    import dataclasses
+    from repro_torch.core.adaptive_depth import adaptive_decode_step
+    from repro_torch.models import decoder_lm as M
+    cfg = _adaptive_granite()
+    cfg = dataclasses.replace(cfg, adaptive=dataclasses.replace(
+        cfg.adaptive, t_s=0.0))
+    model = _soft_model(cfg, cuda)
+    toks = torch.randint(0, cfg.vocab_size, (3, 128),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+    _, c1 = M.prefill_step(cfg, model, toks, length=136)
+    _, c2 = M.prefill_step(cfg, model, toks, length=136)
+    tok = toks[:, -1:]
+    for pos in range(128, 136):
+        want, c1 = M.decode_step(cfg, model, c1, tok, pos)
+        got, c2, info = adaptive_decode_step(cfg, model, c2, tok, pos)
+        assert torch.equal(got, want)
+        assert bool((info["exit_block"] == -1).all())
+        tok = want[:, 0].argmax(-1, keepdim=True)

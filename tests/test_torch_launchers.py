@@ -5,6 +5,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -62,6 +63,16 @@ def test_serve_lm_frontend_cli(arch):
 
 
 def test_train_lm_waits_for_a10_5():
+    """A10.5 has landed: `train --arch` trains on the CPU when asked (2
+    steps of rwkv6-3b smoke, losses finite) and, without `--device`,
+    asks for CUDA and raises here."""
     out = _run(["repro_torch.launch.train", "--arch", "rwkv6-3b"])
     assert out.returncode != 0
-    assert "NotImplementedError" in out.stderr and "A10.5" in out.stderr
+    assert "CUDA is not available" in out.stderr
+    out = _run(["repro_torch.launch.train", "--arch", "rwkv6-3b", "--smoke",
+                "--steps", "2", "--batch", "2", "--seq", "16",
+                "--log-every", "1", "--device", "cpu"])
+    assert out.returncode == 0, out.stderr[-2000:]
+    losses = [float(line.split("loss=")[1].split()[0])
+              for line in out.stdout.splitlines() if "loss=" in line]
+    assert len(losses) == 2 and all(np.isfinite(losses))

@@ -47,7 +47,8 @@ def test_import_scan_sees_the_whole_port():
             "store.py", "propcache.py", "ops.py", "distill.py",
             "baselines.py", "adamw.py", "inception_distill.py",
             "train.py", "faults.py", "frontend.py", "distributed.py",
-            "checkpoint.py", "full_graph_infer.py", "moe.py"} <= names
+            "checkpoint.py", "full_graph_infer.py", "moe.py",
+            "adaptive_depth.py", "ckpt.py", "tokens.py"} <= names
 
 
 def test_port_modules_load_no_jax_at_run_time():
@@ -55,7 +56,8 @@ def test_port_modules_load_no_jax_at_run_time():
     sampler, packing, loop, engine, faults, front-end, kernel wrappers),
     the store's generator program, the trainer (optimizer, losses,
     distillation, baselines), both launchers and the offline job (its
-    packing, checkpoints and CLI) pull in no module of JAX or of the JAX
+    packing, checkpoints and CLI), and the LM's training, checkpoint and
+    adaptive-depth modules pull in no module of JAX or of the JAX
     package."""
     import subprocess
     import sys
@@ -68,7 +70,9 @@ def test_port_modules_load_no_jax_at_run_time():
             "repro_torch.serving.faults, repro_torch.serving.frontend, "
             "repro_torch.gnn.distributed, repro_torch.launch.checkpoint, "
             "repro_torch.launch.full_graph_infer, repro_torch.launch.mesh, "
-            "repro_torch.nn.moe; "
+            "repro_torch.nn.moe, repro_torch.core.adaptive_depth, "
+            "repro_torch.checkpoint, repro_torch.data, "
+            "repro_torch.models.decoder_lm, repro_torch.models.convert; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
@@ -178,7 +182,11 @@ def test_lm_entry_points_default_to_cuda(monkeypatch):
         "init_cache": lambda: M.init_cache(cfg, 2, 8),
         "lm_params_from_numpy": lambda: lm_params_from_numpy(cfg, {}),
         "LMServingEngine": lambda: LMServingEngine(cfg, model),
+        "LMServingEngine(adaptive)": lambda: LMServingEngine(
+            cfg, model, adaptive=True),
         "serve": lambda: serve.main(["--arch", "rwkv6-3b", "--smoke"]),
+        "train --arch": lambda: train.main(["--arch", "rwkv6-3b",
+                                            "--smoke"]),
         "serve --gnn": lambda: serve.main(["--gnn", "pubmed-like"]),
         "train --gnn": lambda: train.main(["--gnn", "pubmed-like"]),
     }
@@ -188,3 +196,5 @@ def test_lm_entry_points_default_to_cuda(monkeypatch):
     LMServingEngine(cfg, model, device="cpu")
     serve.main(["--arch", "rwkv6-3b", "--smoke", "--device", "cpu",
                 "--tokens", "4", "--batch", "2"])
+    train.main(["--arch", "rwkv6-3b", "--smoke", "--device", "cpu",
+                "--steps", "1", "--batch", "1", "--seq", "8"])
