@@ -173,6 +173,28 @@ fails (non-zero exit, no result line) on any failed check:
    with full depth; the adaptive engine (8 requests, 4 slots); and the
    gates on 2 x 2200 tokens against the f32 plain prefill made one layer
    at a time.
+   Then the dense `attn` LMs tensor- and data-parallel (`sharded_lm_phase`,
+   ROADMAP A item 4) on ("data", "model") meshes of the one card repeated
+   (the sharded path and its exchanges, not the capacity of several
+   cards): first the analytic parameter bytes a position of the whole
+   mistral-large-123b (88 layers) at model 1, 4 and 8, from the fitted
+   shard shapes of `abstract_params`; then mistral-large-123b (d 12288,
+   96 / 8 heads of 128, d_ff 28672, vocab 32768) at full width with its
+   depth cut to 8 of 88 layers on the meshes (1, 1), (1, 2), (1, 4) and
+   (2, 2), and gemma-7b whole (28 layers, 16 heads of 256, tied
+   embedding, GeGLU) on (1, 1) and (1, 2); bf16, random weights drawn
+   anew for each mesh (conditioned as above) and placed by
+   `shard_params`. For each mesh: the bytes each position holds, measured
+   on the placed tensors; B4 on position 0's first-layer q, k, v at the
+   per-position shape (mistral: 96 / 8, 48 / 4, 24 / 2 heads) against its
+   plain version and timed beside SDPA; the main path inside `use_mesh`:
+   prefill 4 x 2048 (B4 once per layer and position), 16 decode steps fed
+   the (1, 1) mesh's greedy tokens, one more under the profiler (the
+   device time of each collective), and 4 requests through
+   `LMServingEngine`; prefill tokens/s, decode ms a step, the exchange's
+   bytes (the collectives' counter) and the relative L2 of the logits and
+   the argmax agreement against the (1, 1) mesh, which must stay under
+   SHARDED_BF16_REL.
 5. train (`train_phase`, last, so that nothing it leaves behind runs
    beside the LM timings): the paper's training procedure (`train_nai`,
    Inception Distillation, `DistillConfig()`'s 300/200/200 epochs) on the
@@ -3600,6 +3622,256 @@ def adaptive_phase(torch, dev, kernels, smi_line):
     return launches["flash_attention"], lines
 
 
+SHARDED_LAYERS = 8            # of mistral-large-123b's 88: 23.76 GB of bf16
+                              # weights, placed twice over at data = 2
+SHARDED_MESHES = {"mistral-large-123b": ((1, 1), (1, 2), (1, 4), (2, 2)),
+                  "gemma-7b": ((1, 1), (1, 2))}
+SHARDED_SHAPE = dict(batch=4, seq=2048, n_dec=16)
+# limit of the relative L2 distance of a sharded mesh's bf16 logits to the
+# (1, 1) mesh's (each position's partial products round to bf16 before the
+# f32 all-reduce, so the sums round otherwise): about twice the largest an
+# H100 gave (mistral 0.006314, gemma 0.01023; "NVIDIA H100 80GB HBM3,
+# 700.00 W")
+SHARDED_BF16_REL = 0.02
+
+
+def exchange_profile(torch, step, n: int = 2):
+    """One step's wall ms, device busy ms and the device ms of each
+    collective (the kernels and copies launched inside its
+    ``exchange.<op>`` range), from the profiler over `n` steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy, _, _ = device_spans(prof, wall)
+    ops = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("exchange."):
+            ops[e.name] = ops.get(e.name, 0.0) + e.device_time_total / 1e3
+    return 1e3 * wall / n, busy / n, {k: v / n for k, v in ops.items()}
+
+
+def position0_qkv(torch, cfg, params, toks, mesh):
+    """Mesh position 0's q, k and v of the first layer at the prefill's
+    shape, as the sharded path hands them to B4 (on a mesh of one
+    position, the unplaced path's)."""
+    from repro_torch.models import decoder_lm as M
+    from repro_torch.nn import attention
+    from repro_torch.nn.basic import apply_norm
+    from repro_torch.sharding import placement as pl
+    with torch.no_grad():
+        if len(mesh.devices) == 1:
+            lp = pl.local_tree(params)
+            p0 = lp["layers"][0]
+            x = apply_norm(cfg, p0["norm1"], M._embed_tokens(cfg, lp, toks))
+            qkv = attention._project_qkv(cfg, p0["attn"], x,
+                                         M._positions(toks))
+        else:
+            ts, positions = M._sharded_tokens(cfg, toks, mesh)
+            p0 = params["layers"][0]
+            x = apply_norm(cfg, p0["norm1"], M._embed_tokens(
+                cfg, params, ts, positions))
+            qs, ks, vs = attention._sharded_qkv(cfg, p0["attn"], x,
+                                                positions)
+            qkv = (qs.locals[0], attention._kv_for_heads(qs, ks, 0),
+                   attention._kv_for_heads(qs, vs, 0))
+        return tuple(a.contiguous() for a in qkv)
+
+
+def sharded_lm_phase(torch, dev, kernels, smi_line):
+    """The dense `attn` LMs tensor- and data-parallel (ROADMAP A item 4) on
+    ("data", "model") meshes of the one card repeated (`make_mesh((dev,) *
+    n, ...)`): the sharded path and its exchanges, not the capacity of n
+    cards. mistral-large-123b at full width, its depth cut to
+    SHARDED_LAYERS, on every mesh of SHARDED_MESHES, and gemma-7b whole;
+    bf16, random weights from a CUDA generator seeded 0 (conditioned as
+    `condition_weights` says), made anew for each mesh and placed by
+    `shard_params`. For each mesh: B4 on position 0's q, k, v of the first
+    layer at the per-position shape against its plain version
+    (`attention_check`); the main path inside `use_mesh`: prefill 4 x 2048
+    (B4 once per layer and position), 16 decode steps fed the (1, 1)
+    mesh's greedy tokens, one decode step under the profiler, and 4
+    requests through `LMServingEngine`. Prints prefill tokens/s, decode ms
+    a step, the exchange's bytes (counted) and device ms (traced), the
+    bytes placed per position, the relative L2 of the logits against (1,
+    1) and the greedy-token agreement with it; and the analytic
+    per-position parameter bytes of the full-depth model at model 4 and
+    8. Returns (B4's launches in the prefills, the lines for the
+    summary)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import decoder_lm as M
+    from repro_torch.nn.params import count_params, tree_bytes
+    from repro_torch.serving import LMServingEngine
+    from repro_torch.sharding import placement as pl
+    from repro_torch.sharding import use_mesh
+
+    phase("sharded lm")
+    t_phase = time.perf_counter()
+    lines = []
+    full = get_config("mistral-large-123b")
+    ab, specs = M.abstract_params(full), M.param_specs(full)
+    analytic = {m: tree_bytes(pl.abstract_placed(ab, specs, {"data": 1,
+                                                            "model": m}))
+                for m in (1, 4, 8)}
+    line = (f"mistral-large-123b at full depth ({full.num_layers} layers, "
+            f"{full.param_dtype}), analytic parameter bytes a position "
+            f"(tree_bytes of the fitted shard shapes, nothing allocated): "
+            + ", ".join(f"model {m}: {b} ({b / 1e9:.2f} GB)"
+                        for m, b in analytic.items())
+            + "; one card cannot measure capacity")
+    print(line)
+    lines.append(line)
+    sh = SHARDED_SHAPE
+    batch, seq, n_dec = sh["batch"], sh["seq"], sh["n_dec"]
+    b4_launches = 0
+    for arch, meshes in SHARDED_MESHES.items():
+        full = get_config(arch)
+        cfg = (dataclasses.replace(full, num_layers=SHARDED_LAYERS)
+               if arch == "mistral-large-123b" else full)
+        prompts = torch.from_numpy(synthetic_lm_batch(
+            np.random.default_rng(0), batch, seq + 1, cfg.vocab_size)[
+            "tokens"]).long().to(dev)
+        toks = prompts[:, :seq]
+        ref = None
+        for data, model_ax in meshes:
+            torch.cuda.empty_cache()
+            label = f"{arch} mesh (data {data}, model {model_ax})"
+            gen = torch.Generator(dev).manual_seed(0)
+            model = M.init_params(cfg, gen, device=dev)
+            condition_weights(torch, cfg, model, gen)
+            n_par = count_params(model)
+            mesh = make_mesh((dev,) * (data * model_ax),
+                             {"data": data, "model": model_ax})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params = pl.shard_params(model, mesh)
+            torch.cuda.synchronize()
+            t_place = time.perf_counter() - t0
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            placed = pl.position_bytes(params)
+            print(f"{label}: {mesh}; {cfg.num_layers} of {full.num_layers} "
+                  f"layers, d_model {cfg.d_model}, {cfg.num_heads}/"
+                  f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, "
+                  f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n_par} "
+                  f"parameters ({n_par:.4g}); placed in {t_place:.2f} s, "
+                  f"bytes a position (measured on the placed tensors) "
+                  f"{placed}")
+            with use_mesh(mesh) as scope:
+                # ---- B4 at the per-position shape, position 0's operands
+                q, k, v = position0_qkv(torch, cfg, params, toks, mesh)
+                attention_check(torch, dev, cfg, q, k, v,
+                                f"flash_attention {label}, position 0")
+                del q, k, v
+                torch.cuda.empty_cache()
+                # ---- the main path: prefill, decode, the engine
+                M.prefill_step(cfg, params, toks[:, :128])      # warm
+                torch.cuda.synchronize()
+                scope.exchange.clear()
+                zero_counts(kernels)
+                t0 = time.perf_counter()
+                last, cache = M.prefill_step(cfg, params, toks,
+                                             length=seq + n_dec + 1)
+                torch.cuda.synchronize()
+                t_prefill = time.perf_counter() - t0
+                launches = launch_counts(kernels)
+                pre_ex = {k: dict(v) for k, v in scope.exchange.items()}
+                want = cfg.num_layers * data * model_ax
+                check(launches["flash_attention"] == want and all(
+                    v == 0 for n, v in launches.items()
+                    if n != "flash_attention"),
+                    f"{label} prefill launched flash_attention once per "
+                    f"layer and position ({launches}, want {want})")
+                b4_launches += launches["flash_attention"]
+                feed = (last.argmax(-1, keepdim=True) if ref is None
+                        else ref["tokens"][0])
+                outs, fed = [last], [feed]
+                scope.exchange.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for t in range(n_dec):
+                    lg, cache = M.decode_step(cfg, params, cache, fed[-1],
+                                              seq + t)
+                    outs.append(lg[:, 0])
+                    fed.append(lg[:, 0].argmax(-1, keepdim=True)
+                               if ref is None else ref["tokens"][t + 1])
+                torch.cuda.synchronize()
+                t_decode = time.perf_counter() - t0
+                dec_ex = {k: dict(v) for k, v in scope.exchange.items()}
+                wall, busy, ex_ms = exchange_profile(
+                    torch, lambda: M.decode_step(cfg, params, cache,
+                                                 fed[n_dec], seq + n_dec))
+                check(all(bool(torch.isfinite(o).all()) for o in outs)
+                      and last.shape == (batch, cfg.vocab_size),
+                      f"{label} logits finite, shaped")
+                eng = LMServingEngine(cfg, params, slots=4, max_len=64,
+                                      device=dev)
+                reqs = synthetic_lm_batch(np.random.default_rng(1), 4, 8,
+                                          cfg.vocab_size)["tokens"]
+                for r in reqs:
+                    eng.submit(r.tolist(), max_new=8)
+                t0 = time.perf_counter()
+                stats = eng.run_until_drained()
+                torch.cuda.synchronize()
+                t_eng = time.perf_counter() - t0
+                check(stats["completed"] == 4 and all(
+                    len(r.out) == 8 for r in eng.completed),
+                    f"{label} engine served every request ({stats})")
+                served = sorted((r.rid, r.out) for r in eng.completed)
+                del eng
+            logits = torch.stack([o.float() for o in outs])
+            if ref is None:
+                ref = dict(logits=logits, tokens=fed, served=served)
+            err_pre = rel_l2(logits[0], ref["logits"][0])
+            err_dec = rel_l2(logits[1:], ref["logits"][1:])
+            agree = float((logits.argmax(-1) == ref["logits"].argmax(-1)
+                           ).float().mean())
+            eng_agree = float(np.mean([a == b for (_, x), (_, y) in zip(
+                served, ref["served"]) for a, b in zip(x, y)]))
+
+            def ex(d):
+                return (f"{sum(v['bytes'] for v in d.values())} bytes in "
+                        f"{sum(v['copies'] for v in d.values())} copies ("
+                        + ", ".join(f"{k} {v['calls']} calls {v['bytes']} B"
+                                    for k, v in sorted(d.items())) + ")")
+            line = (f"{label}: prefill {batch} x {seq} in {t_prefill:.3f} s, "
+                    f"{batch * seq / t_prefill:.1f} tokens/s, flash_attention "
+                    f"launches {launches['flash_attention']}, exchange "
+                    f"{ex(pre_ex)}; decode {1e3 * t_decode / n_dec:.2f} ms a "
+                    f"step, exchange a step {ex({k: {n: x // n_dec for n, x in v.items()} for k, v in dec_ex.items()})}"
+                    f"; traced decode step {wall:.2f} ms wall, device busy "
+                    f"{busy:.2f} ms, exchange device ms "
+                    + (", ".join(f"{k.split('.')[1]} {v:.4f}"
+                                 for k, v in sorted(ex_ms.items())) or "0")
+                    + f" (total {sum(ex_ms.values()):.4f}); engine 4 "
+                    f"requests in {stats['ticks']} ticks, {32 / t_eng:.1f} "
+                    f"generated tokens/s; bytes a position {placed}; "
+                    f"against (1, 1): relative L2 of the prefill logits "
+                    f"{err_pre:.4g}, of the {n_dec} decode steps' "
+                    f"{err_dec:.4g}, argmax agreement {agree:.4f}, engine "
+                    f"token agreement {eng_agree:.4f}; {smi_line}")
+            print(line)
+            lines.append(line)
+            check(err_pre < SHARDED_BF16_REL and err_dec < SHARDED_BF16_REL,
+                  f"{label} logits within {SHARDED_BF16_REL} of (1, 1) "
+                  f"({err_pre}, {err_dec})")
+            del params, cache, outs, logits, last, lg
+            gc.collect()
+            torch.cuda.empty_cache()
+    print(f"sharded lm phase: {time.perf_counter() - t_phase:.1f} s")
+    return b4_launches, lines
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3671,6 +3943,13 @@ def main() -> int:
     n, lines = adaptive_phase(torch, dev, kernels, smi_line)
     b4["launches"] += n
     parts.append(f"{n} in one granite-34b prefill of 4 x 2048 tokens")
+    bounded += lines
+    # the dense attn LMs tensor- and data-parallel (ROADMAP A item 4) on
+    # meshes of the one card; B4's row adds their prefills' launches
+    n, lines = sharded_lm_phase(torch, dev, kernels, smi_line)
+    b4["launches"] += n
+    parts.append(f"{n} in the sharded prefills of 4 x 2048 tokens (once "
+                 f"per layer and mesh position)")
     bounded += lines
     b4["note"] = f"({', '.join(parts)})"
     # training last, so that nothing it leaves behind (pinned pools, its

@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.nn import blocks as B
 from repro_torch.nn.basic import apply_norm
+from repro_torch.sharding import placement as pl
 
 
 def saturation_distance(x_new: torch.Tensor,
@@ -58,6 +59,9 @@ def adaptive_decode_step(cfg, params, cache, tokens, pos: int,
     buffers of `cache` are written in place, as `decode_step` does."""
     from repro_torch.models.decoder_lm import (_embed_tokens,
                                                _project_logits, exit_logits)
+    if pl.placed_mesh(params) is not None:
+        raise NotImplementedError("adaptive decoding of a placed model: not "
+                                  "sharded yet (ROADMAP A, item 4)")
     ad = cfg.adaptive
     if not ad.enabled:
         raise ValueError("adaptive_decode_step needs cfg.adaptive.enabled")

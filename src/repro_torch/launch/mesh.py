@@ -1,4 +1,5 @@
-"""Device meshes of the port (the serving half of `repro.launch.mesh`).
+"""Device meshes of the port (`repro.launch.mesh`, without the TPU pods'
+`make_production_mesh`).
 
 The port runs sharded work from ONE controlling process: the process packs
 every shard, holds an ordered list of devices, and moves blocks between
@@ -69,6 +70,21 @@ def make_mesh(devices: Sequence, shape: Dict[str, int]) -> DeviceMesh:
                              f"{torch.cuda.device_count()} GPUs exist")
     return DeviceMesh(devs, tuple(shape), tuple(int(v)
                                                 for v in shape.values()))
+
+
+def make_debug_mesh(n_devices: int = 1, *,
+                    devices: Optional[Sequence] = None) -> DeviceMesh:
+    """A ("data", "model") mesh of shape 1 x n: the first `n_devices`
+    GPUs, or the given `devices` (which may repeat one, e.g. ``("cpu",) *
+    4``), all on the model axis."""
+    if devices is None:
+        avail = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n_devices > avail:
+            raise ValueError(f"make_debug_mesh({n_devices}): only {avail} "
+                             f"GPUs available (pass devices= to place "
+                             f"several positions on one device)")
+        devices = [f"cuda:{i}" for i in range(n_devices)]
+    return make_mesh(devices, {"data": 1, "model": len(devices)})
 
 
 def make_serving_mesh(n_data: int = 0, *,

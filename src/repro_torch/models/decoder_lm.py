@@ -8,12 +8,14 @@ is a loop. Caches are a list with one dict per layer.
 
 Public API:
     model_defs / init_params(cfg, generator, device)
+    param_specs / abstract_params(cfg)      -> per-leaf specs / meta tensors
     forward(cfg, params, tokens, frontend, mode, collect_states,
             differentiable, remat)          -> logits, aux[, states]
     exit_logits(cfg, params, state, i)      -> logits of exit head i
     softmax_xent / loss_fn(cfg, params, batch, remat) -> loss, metrics
     prefill_step(cfg, params, tokens, frontend, length) -> last logits, cache
     init_cache(cfg, batch, length, device)
+    abstract_cache / cache_specs(cfg, batch, length)
     seed_frontend_cache(cfg, params, cache, frontend)   -> cache
     decode_step(cfg, params, cache, tokens, pos, frontend) -> logits, cache
 
@@ -37,12 +39,31 @@ without autograd through kernels B4 / B5. Training calls `forward(...,
 differentiable=True)` (what `loss_fn` does): the plain differentiable
 layer paths, each block rematerialised in the backward pass
 (`torch.utils.checkpoint`, the counterpart of the reference's
-`jax.checkpoint`) unless `remat=False`. The sharding specs wait for the
-LM sharding slice.
+`jax.checkpoint`) unless `remat=False`.
+
+Sharding (ROADMAP A item 4). `param_specs` gives each parameter's
+partition spec over a ("data", "model") mesh and `cache_specs` each
+cache entry's, in the port's layout: where the reference stacks the
+layers of pattern position i, here block l of kind i is layer
+``l * len(pattern) + i`` (the reference's ``blocks[i]`` at index l), the
+remainder layers follow (``rem``), and each leaf's spec is the
+reference's without its leading "layers" entry (which `fit_spec` freezes
+to None anyway). A model placed by `repro_torch.sharding.placement.
+shard_params` runs `forward`, `prefill_step` and `decode_step` inside
+`use_mesh(mesh)`: the batch split over "data", the `attn` layers
+tensor-parallel over "model" (vocab-parallel embedding and logits,
+column-parallel q / k / v and MLP inputs, row-parallel `wo` and
+`w_down` with an all-reduce, B4 once per position on its heads), the
+logits gathered onto the mesh's first device and the cache placed by
+`cache_specs`; `init_cache` inside `use_mesh` places the cache too. On
+a mesh of one position every function runs as unplaced on that
+position's tensors; on more, the other layer kinds, training and the
+frontends raise `NotImplementedError`.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 from typing import Any, Dict, List, Optional
 
@@ -54,7 +75,11 @@ from repro_torch.device import resolve_device
 from repro_torch.nn import attention as attn
 from repro_torch.nn import blocks as B
 from repro_torch.nn.basic import apply_norm, norm_defs
-from repro_torch.nn.params import ParamDef, ParamGroup, init_group, torch_dtype
+from repro_torch.nn.params import (ParamDef, ParamGroup, abstract_tree,
+                                   init_group, spec_tree, torch_dtype)
+from repro_torch.sharding import placement as pl
+from repro_torch.sharding.logical import (current_mesh, mesh_size,
+                                          named, spec as logical_spec)
 
 MODES = ("train", "eval")
 STACKS = ("layers", "encoder")      # per-layer lists of parameter groups
@@ -87,6 +112,17 @@ def model_defs(cfg) -> Dict[str, Any]:
             "ens_s": ParamDef((V, 1), ("vocab", None), "small"),
         }
     return defs
+
+
+def param_specs(cfg):
+    """Each parameter's partition spec, in `model_defs`' tree (the
+    reference's `param_specs` leaf for leaf, per layer)."""
+    return spec_tree(model_defs(cfg))
+
+
+def abstract_params(cfg):
+    """Each parameter as a `meta` tensor of its shape and dtype."""
+    return abstract_tree(model_defs(cfg), cfg.param_dtype)
 
 
 def has_exits(cfg) -> bool:
@@ -142,7 +178,16 @@ def _embed_tokens(cfg, params, tokens, positions=None):
     config says so, plus the sinusoidal position embedding of `positions`
     (B, S) where `pos_embed == "sinusoidal"` (whisper)."""
     dtype = torch_dtype(cfg.dtype)
-    x = params["embed"][tokens].to(dtype)
+    if pl.is_sharded(tokens):
+        return pl.local_map(
+            lambda e, p: _scale_embedding(cfg, e.to(dtype), p),
+            _lookup_sharded(params["embed"], tokens), positions)
+    return _scale_embedding(cfg, params["embed"][tokens].to(dtype),
+                            positions)
+
+
+def _scale_embedding(cfg, x, positions):
+    dtype = x.dtype
     if cfg.scale_embed_sqrt_d:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32
                              ).to(dtype)
@@ -151,13 +196,43 @@ def _embed_tokens(cfg, params, tokens, positions=None):
     return x
 
 
-def _project_logits(cfg, params, x):
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = x @ head.to(x.dtype)
+def _lookup_sharded(embed, tokens):
+    """Vocab-parallel lookup: each position looks up the ids in its rows
+    of `embed` (V, d) and gives the others zero; the all-reduce over the
+    vocab axis adds exactly one non-zero term, so the result is the
+    unsharded lookup bit for bit."""
+    parts = []
+    for i, (e, t) in enumerate(zip(embed.locals, tokens.locals)):
+        lo, n = embed.block(i, 0)
+        local = t - lo
+        inside = (local >= 0) & (local < n)
+        parts.append(torch.where(inside[..., None], e[local.clamp(0, n - 1)],
+                                 torch.zeros((), dtype=e.dtype,
+                                             device=e.device)))
+    x = pl.wrap(parts, (*tokens.spec, embed.spec[1]), embed.mesh)
+    return x if embed.spec[0] is None else pl.all_reduce_sum(x,
+                                                             embed.spec[0])
+
+
+def _soft_cap_logits(cfg, logits):
     if cfg.final_logit_softcap:
         logits = torch.tanh(logits / cfg.final_logit_softcap) \
             * cfg.final_logit_softcap
     return logits
+
+
+def _project_logits(cfg, params, x):
+    if pl.is_sharded(x):
+        # vocab-parallel: each position its columns, then an all-gather
+        tied = cfg.tie_embeddings
+        head = params["embed"] if tied else params["lm_head"]
+        vocab = head.spec[0] if tied else head.spec[1]
+        logits = pl.local_map(lambda x_, h: _soft_cap_logits(
+            cfg, x_ @ (h.T if tied else h).to(x_.dtype)), x, head,
+            spec=(*x.spec[:-1], vocab))
+        return logits if vocab is None else pl.all_gather(logits, vocab)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return _soft_cap_logits(cfg, x @ head.to(x.dtype))
 
 
 def _positions(tokens):
@@ -207,6 +282,13 @@ def forward(cfg, params, tokens, *, frontend=None, mode: str = "train",
     or without it)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: expected one of {MODES}")
+    mesh = pl.placed_mesh(params)
+    if mesh is not None and mesh_size(mesh) > 1:
+        _sharded_only(frontend=frontend, collect_states=collect_states,
+                      differentiable=differentiable)
+        return _sharded_forward(cfg, params, tokens, mesh)
+    if mesh is not None:
+        params = pl.local_tree(params)
     ctx = contextlib.nullcontext() if differentiable else torch.no_grad()
     with ctx:
         positions = _positions(tokens)
@@ -305,6 +387,17 @@ def prefill_step(cfg, params, tokens, *, frontend=None,
     KV cache of global-attention layers, zero past S, so that decoding can
     continue; windowed layers keep a ring of `window`, and the
     cross-attention entries `xk` / `xv` keep the frontend's length."""
+    mesh = pl.placed_mesh(params)
+    if mesh is not None and mesh_size(mesh) > 1:
+        _sharded_only(frontend=frontend)
+        return _sharded_prefill(cfg, params, tokens, length, mesh)
+    if mesh is not None:
+        logits, cache = prefill_step(cfg, pl.local_tree(params), tokens,
+                                     frontend=frontend, length=length)
+        specs = cache_specs(cfg, tokens.shape[0], length or tokens.shape[1])
+        return logits, [{n: pl.wrap((t,), pl.fitted(cs[n], t.shape, mesh),
+                                    mesh) for n, t in c.items()}
+                        for c, cs in zip(cache, specs)]
     S = tokens.shape[1]
     positions = _positions(tokens)
     x = _embed_tokens(cfg, params, tokens, positions)
@@ -324,10 +417,62 @@ def prefill_step(cfg, params, tokens, *, frontend=None,
 
 # ------------------------------------------------------------------- decode
 def init_cache(cfg, batch: int, length: int, device="cuda") -> List[dict]:
+    """One dict of zeroed buffers per layer (`blocks.init_layer_cache`).
+    Inside `use_mesh(mesh)` (`device` then being the mesh's first device)
+    each buffer is placed on the mesh by `cache_specs`, block by block."""
     dev = resolve_device(device)
+    mesh = current_mesh()
+    if mesh is None:
+        dtype = torch_dtype(cfg.dtype)
+        return [B.init_layer_cache(cfg, kind, batch, length, dtype, dev)
+                for kind in cfg.layer_kinds]
+    if dev != mesh.devices[0]:
+        raise ValueError(f"init_cache on {dev} inside use_mesh({mesh}): "
+                         f"pass the mesh's first device")
+    return [{n: pl.zeros(named(mesh, pl.fitted(cs[n], t.shape, mesh)),
+                         t.shape, t.dtype) for n, t in c.items()}
+            for c, cs in zip(abstract_cache(cfg, batch, length),
+                             cache_specs(cfg, batch, length))]
+
+
+def abstract_cache(cfg, batch: int, length: int) -> List[dict]:
+    """`init_cache`'s buffers as `meta` tensors (nothing allocated)."""
     dtype = torch_dtype(cfg.dtype)
-    return [B.init_layer_cache(cfg, kind, batch, length, dtype, dev)
+    return [B.init_layer_cache(cfg, kind, batch, length, dtype,
+                               torch.device("meta"))
             for kind in cfg.layer_kinds]
+
+
+_CACHE_LOGICAL = {
+    "h": ("batch", "rnn"),
+    "conv": ("batch", None, "rnn"),
+    "state": ("batch", "heads", None, None),
+    "x_t": ("batch", "embed"),
+    "x_c": ("batch", "embed"),
+}
+
+_TP_AXIS = 16  # production model-axis size
+
+
+def _kv_cache_logical(cfg):
+    """KV cache TP dim. NEVER the sequence dim: a seq-sharded cache turns
+    the per-step cache write into a whole-cache gather. Prefer kv_heads;
+    fall back to head_dim (the partial-logits all-reduce is small); else
+    replicate over model."""
+    if cfg.num_kv_heads % _TP_AXIS == 0:
+        return ("batch", "cache_seq", "kv_heads", None)
+    if cfg.resolved_head_dim % _TP_AXIS == 0:
+        return ("batch", "cache_seq", None, "cache_hd")
+    return ("batch", "cache_seq", None, None)
+
+
+def cache_specs(cfg, batch: int, length: int) -> List[dict]:
+    """Each cache entry's partition spec, one dict per layer (the
+    reference's per-layer spec, without its "layers" entry)."""
+    kv_logical = _kv_cache_logical(cfg)
+    return [{n: logical_spec(*(kv_logical if n in ("k", "v", "xk", "xv")
+                               else _CACHE_LOGICAL[n])) for n in c}
+            for c in abstract_cache(cfg, batch, length)]
 
 
 @torch.no_grad()
@@ -336,6 +481,8 @@ def seed_frontend_cache(cfg, params, cache, frontend):
     frontend embeddings (VLM) or the encoder's output (encoder-decoder),
     for decoding from scratch without a prefill. Returns a new list; the
     other entries are `cache`'s own buffers."""
+    if pl.placed_mesh(params) is not None:
+        _sharded_only(frontend=frontend)
     frontend = _frontend(cfg, params, frontend)
     out = []
     for p, c, kind in zip(params["layers"], cache, cfg.layer_kinds):
@@ -352,6 +499,16 @@ def decode_step(cfg, params, cache, tokens, pos: int, frontend=None):
     position of the new token; `frontend` is not read (cross-attention
     reads the cache's `xk` / `xv`), as in the reference. Returns (logits
     (B,1,V), new cache); KV buffers of `cache` are written in place."""
+    mesh = pl.placed_mesh(params)
+    if mesh is not None and mesh_size(mesh) > 1:
+        return _sharded_decode(cfg, params, cache, tokens, int(pos), mesh)
+    if mesh is not None:
+        _check_placed(cache)
+        logits, new = decode_step(cfg, pl.local_tree(params),
+                                  pl.local_tree(cache), tokens, pos)
+        return logits, [{n: dataclasses.replace(c[n], locals=(t,))
+                         for n, t in nc.items()}
+                        for c, nc in zip(cache, new)]
     positions = torch.full(tokens.shape, int(pos), device=tokens.device)
     x = _embed_tokens(cfg, params, tokens, positions)
     new_cache = []
@@ -361,3 +518,74 @@ def decode_step(cfg, params, cache, tokens, pos: int, frontend=None):
         new_cache.append(c)
     x = apply_norm(cfg, params["final_norm"], x)
     return _project_logits(cfg, params, x), new_cache
+
+
+# ------------------------------------------------------------------ sharded
+def _sharded_only(frontend=None, collect_states=False, differentiable=False):
+    """What the sharded path does not run yet raises (ROADMAP A, item 4)."""
+    asked = [n for n, v in (("frontend", frontend is not None),
+                            ("collect_states", collect_states),
+                            ("differentiable", differentiable)) if v]
+    if asked:
+        raise NotImplementedError(
+            f"{', '.join(asked)} on a mesh of more than one position: not "
+            f"sharded yet (ROADMAP A, item 4)")
+
+
+def _check_placed(cache):
+    if not all(pl.is_sharded(t) for c in cache for t in c.values()):
+        raise TypeError("a placed model decodes a placed cache: make it "
+                        "with init_cache inside use_mesh, or shard_cache")
+
+
+def _sharded_tokens(cfg, tokens, mesh):
+    """Tokens (B, S) split over "data", and their positions."""
+    toks = pl.shard_inputs(cfg, {"tokens": tokens}, mesh)["tokens"]
+    return toks, pl.local_map(_positions, toks)
+
+
+def _sharded_forward(cfg, params, tokens, mesh):
+    with torch.no_grad():
+        toks, positions = _sharded_tokens(cfg, tokens, mesh)
+        x = _embed_tokens(cfg, params, toks, positions)
+        aux = torch.zeros((), dtype=torch.float32, device=mesh.devices[0])
+        for p, kind in zip(params["layers"], cfg.layer_kinds):
+            x, _, aux = B.apply_layer(cfg, kind, p, x, mode="train",
+                                      positions=positions, aux=aux)
+        x = apply_norm(cfg, params["final_norm"], x)
+        return pl.gather(_project_logits(cfg, params, x)), aux
+
+
+@torch.no_grad()
+def _sharded_prefill(cfg, params, tokens, length, mesh):
+    Bsz, S = tokens.shape
+    toks, positions = _sharded_tokens(cfg, tokens, mesh)
+    x = _embed_tokens(cfg, params, toks, positions)
+    caches = []
+    for p, kind, cs in zip(params["layers"], cfg.layer_kinds,
+                           cache_specs(cfg, Bsz, length or S)):
+        x, c, _ = B.apply_layer(cfg, kind, p, x, mode="prefill",
+                                positions=positions)
+        if length is not None and length > S:
+            c = {n: pl.local_map(lambda t: torch.nn.functional.pad(
+                t, (0, 0, 0, 0, 0, length - S)), t) for n, t in c.items()}
+        caches.append({n: pl.relayout(t, pl.fitted(cs[n], t.shape, mesh))
+                       for n, t in c.items()})
+    x = apply_norm(cfg, params["final_norm"],
+                   pl.local_map(lambda t: t[:, -1:, :], x))
+    return pl.gather(_project_logits(cfg, params, x))[:, 0, :], caches
+
+
+@torch.no_grad()
+def _sharded_decode(cfg, params, cache, tokens, pos, mesh):
+    _check_placed(cache)
+    toks = pl.shard_inputs(cfg, {"tokens": tokens}, mesh)["tokens"]
+    positions = pl.local_map(lambda t: torch.full_like(t, pos), toks)
+    x = _embed_tokens(cfg, params, toks, positions)
+    new_cache = []
+    for p, c, kind in zip(params["layers"], cache, cfg.layer_kinds):
+        x, c, _ = B.apply_layer(cfg, kind, p, x, mode="decode", cache=c,
+                                pos=pos)
+        new_cache.append(c)
+    x = apply_norm(cfg, params["final_norm"], x)
+    return pl.gather(_project_logits(cfg, params, x)), new_cache

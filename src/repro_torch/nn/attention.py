@@ -14,6 +14,17 @@ B4 has no backward. Training asks for the differentiable path
 (`differentiable=True`), the reference's own training code: `_sdpa` with
 `causal_mask`, or `_chunked_sdpa` over query chunks above
 `CHUNK_THRESHOLD` tokens, in plain PyTorch that autograd differentiates.
+
+Tensor-parallel (x placed on a mesh, `repro_torch.sharding.placement`):
+q is column-parallel over the heads, k and v over the KV heads or, by
+`attn_defs`, the head dim; they are re-laid out so that each position
+holds whole head dims for RoPE, then B4 runs once per position on its
+own heads (the GQA groups stay whole), and `wo` is row-parallel with an
+all-reduce. Decode follows the cache's layout (`decoder_lm.cache_specs`):
+over KV heads each position attends its own heads; over the head dim (the
+reference's `cache_hd`) q, k and v take head-dim slices, the partial q.k
+logits are all-reduced before the softmax, P.v runs on each slice, and
+an all-to-all brings the heads back for `wo`.
 """
 from __future__ import annotations
 
@@ -22,19 +33,32 @@ import torch
 from repro_torch.kernels.flash_attention import gqa_flash_attention
 from repro_torch.nn.basic import rotary
 from repro_torch.nn.params import ParamDef
+from repro_torch.sharding import placement as pl
+from repro_torch.sharding.logical import fit_spec, spec
 
 NEG_INF = -2.0e38
 
 
 def attn_defs(cfg, cross: bool = False):
     """The projections of self- or (`cross`) cross-attention: the same
-    shapes (the reference's `cross` changes nothing but its name)."""
+    shapes (the reference's `cross` changes nothing but its name).
+
+    When the KV heads do not divide the production model axis (16) but
+    the query heads and the head dim do (GQA with 8 KV heads, MQA), wk
+    and wv are sharded over the head dim (`cache_hd`), the layout of the
+    KV cache, as in the reference."""
     d, H, KV, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
+    kv_nd = KV % 16 != 0
+    hd_tp = kv_nd and H % 16 == 0 and hd % 16 == 0
+    # kv_heads must be absent from the spec when cache_hd is used, or the
+    # duplicate-axis guard of `spec` drops the hd entry
+    kv_logical = ("embed", None, "cache_hd") if hd_tp \
+        else ("embed", "kv_heads", "head_dim")
     return {
         "wq": ParamDef((d, H, hd), ("embed", "heads", "head_dim")),
-        "wk": ParamDef((d, KV, hd), ("embed", "kv_heads", "head_dim")),
-        "wv": ParamDef((d, KV, hd), ("embed", "kv_heads", "head_dim")),
+        "wk": ParamDef((d, KV, hd), kv_logical),
+        "wv": ParamDef((d, KV, hd), kv_logical),
         "wo": ParamDef((H, hd, d), ("heads", "head_dim", "embed")),
     }
 
@@ -51,17 +75,27 @@ def _sdpa(cfg, q, k, v, mask):
     and softmax in f32, the weights rounded to v's dtype, f32 sums."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
-    G = H // KV
+    logits = torch.einsum("bqkgh,bskh->bkgqs",
+                          _scaled_q(q, KV, hd).float(), k.float())
+    w = _weights(cfg, logits, mask)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w.to(v.dtype).float(), v.float())
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def _scaled_q(q, KV: int, hd: int):
+    """q / sqrt(hd) in f32, rounded to q's dtype, as (B, Sq, KV, G, -1)."""
+    B, Sq, H = q.shape[:3]
     qf = (q.float() / torch.sqrt(torch.tensor(float(hd)))).to(q.dtype)
-    qf = qf.reshape(B, Sq, KV, G, hd)
-    logits = torch.einsum("bqkgh,bskh->bkgqs", qf.float(), k.float())
+    return qf.reshape(B, Sq, KV, H // KV, q.shape[-1])
+
+
+def _weights(cfg, logits, mask):
+    """Soft-capped, masked f32 logits (B, KV, G, Sq, Sk) -> softmax."""
     logits = _soft_cap(logits, cfg.attn_logit_softcap)
     if mask is not None:
         bias = torch.where(mask, 0.0, NEG_INF).float()
         logits = logits + bias[:, None, None, :, :]
-    w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgqs,bskh->bqkgh", w.to(v.dtype).float(), v.float())
-    return out.reshape(B, Sq, H, hd).to(q.dtype)
+    return torch.softmax(logits, dim=-1)
 
 
 def causal_mask(Sq: int, Sk: int, window: int = 0, offset: int = 0,
@@ -129,6 +163,9 @@ def self_attention(cfg, p, x, positions, *, window: int = 0,
     mask), with the logits soft-capped at `cfg.attn_logit_softcap` when
     it is set (grok-1); `differentiable` takes the plain path instead
     (`_plain_self_attention`). Returns (out, (k, v))."""
+    if pl.is_sharded(x):
+        return _sharded_self_attention(cfg, p, x, positions, window=window,
+                                       causal=causal)
     q, k, v = _project_qkv(cfg, p, x, positions)
     if differentiable:
         out = _plain_self_attention(cfg, q, k, v, window=window,
@@ -178,6 +215,9 @@ def decode_self_attention(cfg, p, x, cache, pos: int, *, window: int = 0):
     length `window` (position p in slot p % window). The new key and value
     are written into the cache's buffers in place (the JAX function
     returns updated copies); the returned dict holds the same buffers."""
+    if pl.is_sharded(x):
+        return _sharded_decode_self_attention(cfg, p, x, cache, pos,
+                                              window=window)
     B = x.shape[0]
     L = cache["k"].shape[1]
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
@@ -194,3 +234,98 @@ def decode_self_attention(cfg, p, x, cache, pos: int, *, window: int = 0):
     out = _sdpa(cfg, q, ck, cv, mask)
     out = torch.einsum("bshe,hed->bsd", out, p["wo"])
     return out, {"k": ck, "v": cv}
+
+
+# ------------------------------------------------------------------ sharded
+def _whole_head_dim(t):
+    """k or v (B, S, KV, hd) placed so that every position holds whole
+    head dims, which RoPE needs (it pairs dim i with i + hd / 2): the KV
+    heads over the model axis where they divide it, else replicated."""
+    return pl.relayout(t, fit_spec(spec("batch", "seq", "kv_heads", None),
+                                   t.shape, t.mesh, fallback=False))
+
+
+def _sharded_qkv(cfg, p, x, positions):
+    q = pl.einsum("bsd,dhe->bshe", x, p["wq"])
+    k = _whole_head_dim(pl.einsum("bsd,dke->bske", x, p["wk"]))
+    v = _whole_head_dim(pl.einsum("bsd,dke->bske", x, p["wv"]))
+    if cfg.use_rope:
+        q, k = (pl.local_map(lambda t_, p_: rotary(t_, p_, cfg.rope_theta),
+                             t, positions) for t in (q, k))
+    return q, k, v
+
+
+def _kv_for_heads(q, kv, i: int):
+    """Position i's keys or values for its query heads: its own block of
+    KV heads, or, where the KV heads are whole on every position (fewer
+    than the model axis), the one group that its query heads read."""
+    if kv.spec[2] is not None or q.spec[2] is None:
+        if kv.spec[2] != q.spec[2]:
+            raise NotImplementedError(f"query heads on {q.spec[2]}, KV "
+                                      f"heads on {kv.spec[2]}")
+        return kv.locals[i]
+    G = q.shape[2] // kv.shape[2]
+    start, size = q.block(i, 2)
+    g0 = start // G
+    if (start + size - 1) // G != g0:
+        raise NotImplementedError(
+            f"{size} query heads a position span two GQA groups of {G}; "
+            f"not sharded yet (ROADMAP A, item 4)")
+    return kv.locals[i][:, :, g0:g0 + 1]
+
+
+def _sharded_self_attention(cfg, p, x, positions, *, window: int,
+                            causal: bool):
+    q, k, v = _sharded_qkv(cfg, p, x, positions)
+    out = pl.wrap([gqa_flash_attention(
+        q.locals[i], _kv_for_heads(q, k, i), _kv_for_heads(q, v, i),
+        causal=causal, window=window, softcap=cfg.attn_logit_softcap)
+        for i in range(len(q.locals))], q.spec, q.mesh)
+    return pl.einsum("bshe,hed->bsd", out, p["wo"]), (k, v)
+
+
+def _sdpa_over_head_dim(cfg, q, k, v, mask, axis: str):
+    """`_sdpa` with the head dim split over `axis`: each position's
+    partial q.k logits, summed in f32 by `all_reduce_sum`, the softmax on
+    every position, then P.v on each position's head-dim slice."""
+    Sq, H, hd = q.shape[1:]
+    KV = k.shape[2]
+    logits = pl.local_map(lambda q_, k_: torch.einsum(
+        "bqkgh,bskh->bkgqs", _scaled_q(q_, KV, hd).float(), k_.float()),
+        q, k, spec=(q.spec[0], None, None, None, None))
+    w = pl.local_map(lambda lg: _weights(cfg, lg, mask(lg.device)),
+                     pl.all_reduce_sum(logits, axis))
+    return pl.local_map(lambda w_, v_: torch.einsum(
+        "bkgqs,bskh->bqkgh", w_.to(v_.dtype).float(), v_.float()).reshape(
+        w_.shape[0], Sq, H, -1).to(q.dtype), w, v, spec=q.spec)
+
+
+def _sharded_decode_self_attention(cfg, p, x, cache, pos: int, *,
+                                   window: int):
+    ck, cv = cache["k"], cache["v"]
+    positions = pl.local_map(lambda t: torch.full(
+        (t.shape[0], 1), pos, dtype=torch.int64, device=t.device), x,
+        spec=x.spec[:2])
+    q, k, v = _sharded_qkv(cfg, p, x, positions)
+    # the reference's constraint sites: q, k and v take the cache's layout
+    q, k, v = (pl.relayout(t, c.spec) for t, c in ((q, ck), (k, ck),
+                                                     (v, cv)))
+    slot = pos % window if window > 0 else pos
+    for kl, vl, ckl, cvl in zip(k.locals, v.locals, ck.locals, cv.locals):
+        ckl[:, slot] = kl[:, 0].to(ckl.dtype)
+        cvl[:, slot] = vl[:, 0].to(cvl.dtype)
+    L = ck.shape[1]
+    last = min(pos, L - 1) if window > 0 else pos
+
+    def mask(dev):
+        return (torch.arange(L, device=dev) <= last)[None, None]
+
+    if ck.spec[3] is None:
+        out = pl.local_map(lambda q_, k_, v_: _sdpa(cfg, q_, k_, v_,
+                                                    mask(q_.device)),
+                           q, ck, cv)
+    else:
+        out = _sdpa_over_head_dim(cfg, q, ck, cv, mask, ck.spec[3])
+    out = pl.relayout(out, fit_spec(spec("batch", "seq", "heads", None),
+                                    out.shape, out.mesh, fallback=False))
+    return pl.einsum("bshe,hed->bsd", out, p["wo"]), {"k": ck, "v": cv}

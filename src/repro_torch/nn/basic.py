@@ -1,11 +1,17 @@
 """Norms, rotary embeddings, dense MLPs — shared primitives
-(`repro.nn.basic`). Norms compute in f32 and return the input's dtype."""
+(`repro.nn.basic`). Norms compute in f32 and return the input's dtype.
+
+On placed activations (`repro_torch.sharding.placement.ShardedTensor`)
+norms run on every position's block with the replicated gains, and the
+MLP is tensor-parallel: `w_gate` / `w_up` column-parallel over "mlp",
+`w_down` row-parallel, its partial sums all-reduced."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.nn.params import ParamDef
+from repro_torch.sharding import placement as pl
 
 
 # --------------------------------------------------------------------- norms
@@ -22,6 +28,8 @@ def apply_norm(cfg, p, x):
     """The reference's f32 formula through PyTorch's fused norms (one
     kernel each instead of a chain of elementwise ops: decode is
     host-bound)."""
+    if pl.is_sharded(x):
+        return pl.local_map(lambda x_, p_: apply_norm(cfg, p_, x_), x, p)
     xf = x.float()
     if cfg.norm_kind == "layernorm":
         y = F.layer_norm(xf, (xf.shape[-1],), p["scale"].float(),
@@ -64,6 +72,15 @@ def gelu(x):
 
 
 def apply_mlp(cfg, p, x):
+    if pl.is_sharded(x):
+        up = pl.einsum("bsd,df->bsf", x, p["w_up"])
+        if cfg.mlp_kind == "gelu":
+            h = pl.local_map(gelu, up)
+        else:
+            act = F.silu if cfg.mlp_kind == "swiglu" else gelu
+            h = pl.local_map(lambda g, u: act(g) * u,
+                             pl.einsum("bsd,df->bsf", x, p["w_gate"]), up)
+        return pl.einsum("bsf,fd->bsd", h, p["w_down"])
     if cfg.mlp_kind == "swiglu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     elif cfg.mlp_kind == "geglu":

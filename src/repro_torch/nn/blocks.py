@@ -22,6 +22,12 @@ apply_layer contract:
              their plain differentiable paths instead of kernels B4 / B5,
              which have no backward (the trainer's `loss_fn` asks for it)
 
+On a mesh of more than one position (x a `placement.ShardedTensor`,
+`repro_torch.models.decoder_lm`'s sharded path) the `attn` kind runs
+tensor-parallel through the sharded branches of `apply_norm`,
+`self_attention`, `decode_self_attention` and `apply_mlp`; the other
+kinds raise `NotImplementedError` (ROADMAP A, item 4).
+
 Two differences from the reference, both faults of the reference
 recorded in ROADMAP C:
   * rwkv prefill caches the time-mix shift state as norm1 of the layer's
@@ -42,6 +48,9 @@ from repro_torch.nn import rwkv as rk
 from repro_torch.nn.basic import apply_mlp, apply_norm, mlp_defs, norm_defs
 from repro_torch.nn.moe import apply_moe, apply_moe_decode, moe_defs
 from repro_torch.nn.params import ParamDef
+from repro_torch.sharding import placement as pl
+
+SHARDED_KINDS = ("attn",)       # kinds that run on a mesh of > 1 position
 
 # --------------------------------------------------------------------- defs
 def layer_defs(cfg, kind: str):
@@ -118,6 +127,11 @@ def ring_cache(t: torch.Tensor, window: int) -> torch.Tensor:
 def apply_layer(cfg, kind: str, p, x, *, mode: str = "train",
                 positions=None, cache=None, frontend=None, pos=None,
                 aux=0.0, differentiable: bool = False):
+    if pl.is_sharded(x) and (kind not in SHARDED_KINDS or differentiable):
+        raise NotImplementedError(
+            f"layer kind {kind!r}{' (differentiable)' * differentiable} on "
+            f"a mesh of {len(x.locals)} positions: its sharded execution is "
+            f"queued (ROADMAP A, item 4)")
     if mode == "decode":
         return _decode_layer(cfg, kind, p, x, cache, pos, aux)
     return _full_layer(cfg, kind, p, x, positions, frontend, mode, aux,

@@ -6,8 +6,10 @@ an `nn.Module` whose parameters carry the JAX package's names, so the
 layer functions read ``p["w_r"]`` in both packages, and `init_group`
 fills it from an explicit `torch.Generator` with the reference's
 initializers and scales (the numbers differ: torch and jax generators
-give different streams from one seed). The sharding specs and abstract
-trees of the JAX module wait for the sharding slice.
+give different streams from one seed). From the same definitions
+`spec_tree` gives each leaf's partition spec and `abstract_tree` its
+shape and dtype as a `meta` tensor (PyTorch's `ShapeDtypeStruct`:
+nothing is allocated), whose bytes `tree_bytes` sums.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+from repro_torch.sharding.logical import spec as logical_spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,3 +100,33 @@ def init_group(group: ParamGroup, generator: torch.Generator) -> None:
 def count_params(module: nn.Module) -> int:
     """Number of parameter scalars of a module."""
     return sum(p.numel() for p in module.parameters())
+
+
+def _map_defs(fn, defs):
+    """fn over every `ParamDef` of a nested dict / list of them."""
+    if isinstance(defs, ParamDef):
+        return fn(defs)
+    if isinstance(defs, dict):
+        return {k: _map_defs(fn, v) for k, v in defs.items()}
+    return [_map_defs(fn, v) for v in defs]
+
+
+def spec_tree(defs):
+    """Each `ParamDef`'s partition spec, from its logical axes."""
+    return _map_defs(lambda d: logical_spec(*d.logical), defs)
+
+
+def abstract_tree(defs, dtype="float32"):
+    """Each `ParamDef` as a `meta` tensor of its shape and dtype."""
+    return _map_defs(lambda d: torch.empty(
+        d.shape, dtype=torch_dtype(d.dtype or dtype), device="meta"), defs)
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of the tensors of a nested dict / list (meta tensors count
+    what they would take)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return sum(tree_bytes(v) for v in tree)

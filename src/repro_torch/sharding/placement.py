@@ -1,0 +1,466 @@
+"""Placed tensors and their collectives: the single-controller counterpart
+of what GSPMD does for the reference (no counterpart file in `repro`).
+
+One process holds a `DeviceMesh` (`repro_torch.launch.mesh`) and, for each
+placed tensor, one local tensor per mesh position (row-major, the order of
+``mesh.devices``): the block of the global shape that the fitted spec
+gives the position (`logical.NamedSharding`). A position's block lives on
+its device and owns its memory; positions that the spec leaves replicated
+hold equal copies. A mesh may repeat a device (D positions on one card or
+on the CPU): the code and the exchanges are the same, so such a mesh shows
+correctness and the exchanges' cost, not the capacity of D cards.
+
+The collectives move blocks between positions by copies (`Tensor.to`, a
+peer copy between cards), in a fixed order of the positions along the
+axis, so that two runs give the same bits:
+
+* `all_reduce_sum`: every position receives every other's partial sum
+  and adds them all in f32, in axis order, rounding once to the partials'
+  dtype;
+* `all_gather`: every position concatenates every position's block along
+  the sharded dim;
+* `all_to_all`: a mesh axis moves from one dim to another (each position
+  sends the i-th slice of its block to the i-th position), as the
+  attention's heads <-> head-dim re-layout needs.
+
+Inside `use_mesh` each collective adds to the scope's `exchange` counter
+the blocks it copied from one position to another and their bytes, and
+runs under a ``exchange.<op>`` profiler range. `relayout` composes them;
+`einsum` runs a product position by position and all-reduces a
+contracted dim that is sharded (Megatron's row-parallel product).
+
+`shard_params`, `shard_cache` and `shard_inputs` place a model, a decode
+cache and a batch by `param_specs` (the `ParamDef`s' logical axes),
+`cache_specs` and `input_shardings`, each fitted with `fit_spec`. A
+placement for which `fit_spec` had to move an axis to a fallback dim
+raises `NotImplementedError`: no layer runs such a layout yet (ROADMAP A,
+item 4).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.sharding.logical import (P, NamedSharding, axis_product,
+                                          axis_sizes, current_mesh,
+                                          current_scope, entry_axes, fit_spec,
+                                          named, positions, spec)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedTensor:
+    """A global tensor of `shape` placed on `mesh` by `spec` (fitted):
+    ``locals[i]`` is mesh position i's block."""
+    locals: Tuple[torch.Tensor, ...]
+    spec: P
+    shape: Tuple[int, ...]
+    mesh: Any
+
+    @property
+    def sharding(self) -> NamedSharding:
+        return NamedSharding(self.mesh, self.spec)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.locals[0].dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def __add__(self, other: "ShardedTensor") -> "ShardedTensor":
+        """Elementwise sum of two tensors placed alike (the residual)."""
+        if not isinstance(other, ShardedTensor) or other.spec != self.spec:
+            raise ValueError(f"adding {other!r} to {self!r}")
+        return local_map(torch.add, self, other)
+
+    def block(self, i: int, dim: int) -> Tuple[int, int]:
+        """(start, size) of position i's block along `dim`."""
+        return self.sharding.block(_coords(self.mesh)[i], dim, self.shape)
+
+    def __repr__(self) -> str:
+        return (f"ShardedTensor(shape={self.shape}, spec={self.spec}, "
+                f"dtype={self.dtype}, {len(self.locals)} positions)")
+
+
+def is_sharded(x) -> bool:
+    return isinstance(x, ShardedTensor)
+
+
+def _coords(mesh) -> List[Dict[str, int]]:
+    return list(positions(mesh))
+
+
+def _padded(spec_: Sequence, ndim: int) -> List:
+    return list(spec_) + [None] * (ndim - len(spec_))
+
+
+def wrap(blocks: Sequence[torch.Tensor], spec_: Sequence, mesh
+         ) -> ShardedTensor:
+    """A placed tensor from its positions' blocks (the global shape
+    follows from the first block and the spec)."""
+    entries = _padded(spec_, blocks[0].dim())
+    shape = tuple(d * axis_product(mesh, e)
+                  for d, e in zip(blocks[0].shape, entries))
+    return ShardedTensor(tuple(blocks), P(*entries), shape, mesh)
+
+
+def local_tree(tree, i: int = 0):
+    """The same tree (dicts, lists, tuples) with each placed tensor
+    replaced by position i's block (on a mesh of one position: the global
+    tensors)."""
+    if isinstance(tree, ShardedTensor):
+        return tree.locals[i]
+    if isinstance(tree, dict):
+        return {k: local_tree(v, i) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(local_tree(v, i) for v in tree)
+    return tree
+
+
+def _leaves(tree):
+    """The leaves of nested dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _first_sharded(tree) -> Optional[ShardedTensor]:
+    return next((t for t in _leaves(tree) if isinstance(t, ShardedTensor)),
+                None)
+
+
+def local_map(fn, *args, spec: Optional[Sequence] = None) -> ShardedTensor:
+    """fn(*args) position by position: each placed tensor in `args`, or in
+    a dict / list of them, is replaced by the position's block, other
+    arguments are passed as they are. The result is placed by `spec`
+    (default: the first placed argument's)."""
+    st = _first_sharded(args)
+    n = len(st.locals)
+    outs = [fn(*(local_tree(a, i) for a in args)) for i in range(n)]
+    return wrap(outs, st.spec if spec is None else spec, st.mesh)
+
+
+# ------------------------------------------------------------ place, gather
+def fitted(s: P, shape: Sequence[int], mesh) -> P:
+    """`fit_spec` of `s` for `shape`; raises where the fit had to move an
+    axis to a fallback dim."""
+    out = fit_spec(s, shape, mesh)
+    if out != fit_spec(s, shape, mesh, fallback=False):
+        raise NotImplementedError(
+            f"placing shape {tuple(shape)} by {s} on mesh "
+            f"{axis_sizes(mesh)} needs fit_spec's fallback ({out}); no layer "
+            f"runs such a layout yet (ROADMAP A, item 4)")
+    return out
+
+
+def shard(x: torch.Tensor, sharding: NamedSharding) -> ShardedTensor:
+    """Place the global tensor `x`: each position receives a fresh copy of
+    its block on its device."""
+    mesh, shape = sharding.mesh, tuple(x.shape)
+    blocks = []
+    for c, dev in zip(_coords(mesh), mesh.devices):
+        part = x[sharding.index(c, shape)]
+        blocks.append(torch.empty(part.shape, dtype=x.dtype,
+                                  device=dev).copy_(part))
+    return ShardedTensor(tuple(blocks), P(*_padded(sharding.spec, x.dim())),
+                         shape, mesh)
+
+
+def zeros(sharding: NamedSharding, shape: Sequence[int],
+          dtype: torch.dtype) -> ShardedTensor:
+    """A placed tensor of zeros, allocated block by block."""
+    local = sharding.shard_shape(shape)
+    blocks = [torch.zeros(local, dtype=dtype, device=dev)
+              for dev in sharding.mesh.devices]
+    return ShardedTensor(tuple(blocks), P(*_padded(sharding.spec, len(shape))),
+                         tuple(shape), sharding.mesh)
+
+
+def gather(st: ShardedTensor, device=None) -> torch.Tensor:
+    """The global tensor on `device` (default: the mesh's first device),
+    each distinct block copied once."""
+    dev = st.mesh.devices[0] if device is None else torch.device(device)
+    out = torch.empty(st.shape, dtype=st.dtype, device=dev)
+    seen = set()
+    copies = nbytes = 0
+    for i, c in enumerate(_coords(st.mesh)):
+        idx = st.sharding.index(c, st.shape)
+        key = tuple((s.start, s.stop) for s in idx)
+        if key in seen:
+            continue
+        seen.add(key)
+        out[idx] = st.locals[i].to(dev)
+        if i:
+            copies += 1
+            nbytes += _nbytes(st.locals[i])
+    _record("gather", copies, nbytes)
+    return out
+
+
+def position_bytes(tree) -> List[int]:
+    """Bytes each mesh position holds of the placed tensors in `tree`."""
+    placed = [t for t in _leaves(tree) if isinstance(t, ShardedTensor)]
+    return [sum(_nbytes(t.locals[i]) for t in placed)
+            for i in range(len(placed[0].locals))]
+
+
+# ------------------------------------------------------------- collectives
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _record(op: str, copies: int, nbytes: int) -> None:
+    scope = current_scope()
+    if scope is not None and copies:
+        scope.record(op, copies, nbytes)
+
+
+def _groups(mesh, axis: str) -> List[List[int]]:
+    """The positions along `axis` for each value of the other axes, each
+    in axis order."""
+    groups: Dict[tuple, List[int]] = {}
+    for i, c in enumerate(_coords(mesh)):
+        key = tuple(v for a, v in c.items() if a != axis)
+        groups.setdefault(key, []).append(i)
+    return list(groups.values())
+
+
+def _dim_of(st: ShardedTensor, axis: str) -> Optional[int]:
+    for dim, e in enumerate(st.spec):
+        if axis in entry_axes(e):
+            if e != axis:
+                raise NotImplementedError(
+                    f"{axis} shares dim {dim} with other axes ({e}); the "
+                    f"collectives move single-axis dims only")
+            return dim
+    return None
+
+
+def all_reduce_sum(st: ShardedTensor, axis: str) -> ShardedTensor:
+    """Sum the positions' blocks (partial sums) along `axis`: every
+    position adds all of them in f32, in axis order, and rounds once to
+    their dtype. The spec (which must not use `axis`) is the result's."""
+    if _dim_of(st, axis) is not None:
+        raise ValueError(f"partial sums sharded over {axis} ({st.spec})")
+    n = axis_sizes(st.mesh)[axis]
+    if n == 1:
+        return st
+    devs = st.mesh.devices
+    out = [None] * len(st.locals)
+    with torch.profiler.record_function("exchange.all_reduce_sum"):
+        for group in _groups(st.mesh, axis):
+            for i in group:
+                acc = st.locals[group[0]].to(devs[i], torch.float32,
+                                             copy=True)
+                for j in group[1:]:
+                    acc.add_(st.locals[j].to(devs[i]))
+                out[i] = acc.to(st.dtype)
+    _record("all_reduce_sum", len(st.locals) * (n - 1),
+            len(st.locals) * (n - 1) * _nbytes(st.locals[0]))
+    return dataclasses.replace(st, locals=tuple(out))
+
+
+def all_gather(st: ShardedTensor, axis: str) -> ShardedTensor:
+    """Undo the split of the dim that `axis` shards: every position
+    concatenates the blocks along `axis`, in axis order."""
+    dim = _dim_of(st, axis)
+    n = axis_sizes(st.mesh)[axis]
+    if dim is None:
+        return st
+    entries = list(st.spec)
+    entries[dim] = None
+    if n == 1:
+        return wrap(st.locals, entries, st.mesh)
+    out = [None] * len(st.locals)
+    with torch.profiler.record_function("exchange.all_gather"):
+        for group in _groups(st.mesh, axis):
+            for i in group:
+                dev = st.mesh.devices[i]
+                out[i] = torch.cat([st.locals[j].to(dev) for j in group],
+                                   dim)
+    _record("all_gather", len(st.locals) * (n - 1),
+            len(st.locals) * (n - 1) * _nbytes(st.locals[0]))
+    return wrap(out, entries, st.mesh)
+
+
+def all_to_all(st: ShardedTensor, axis: str, to_dim: int) -> ShardedTensor:
+    """Move `axis` from the dim it shards to the unsharded `to_dim`: the
+    position at index r along the axis receives the r-th slice (along
+    `to_dim`) of every position's block, concatenated in axis order along
+    the old dim."""
+    dim = _dim_of(st, axis)
+    n = axis_sizes(st.mesh)[axis]
+    if dim is None or st.spec[to_dim] is not None:
+        raise ValueError(f"all_to_all of {axis} to dim {to_dim} from "
+                         f"{st.spec}")
+    if st.shape[to_dim] % n:
+        raise ValueError(f"dim {to_dim} ({st.shape[to_dim]}) does not "
+                         f"divide over {axis} ({n})")
+    entries = list(st.spec)
+    entries[dim], entries[to_dim] = None, axis
+    if n == 1:
+        return wrap(st.locals, entries, st.mesh)
+    out = [None] * len(st.locals)
+    with torch.profiler.record_function("exchange.all_to_all"):
+        for group in _groups(st.mesh, axis):
+            parts = [st.locals[j].chunk(n, to_dim) for j in group]
+            for r, i in enumerate(group):
+                dev = st.mesh.devices[i]
+                out[i] = torch.cat([p[r].to(dev) for p in parts], dim)
+    _record("all_to_all", len(st.locals) * (n - 1),
+            len(st.locals) * (n - 1) * _nbytes(st.locals[0]) // n)
+    return wrap(out, entries, st.mesh)
+
+
+def _split(st: ShardedTensor, axis: str, dim: int) -> ShardedTensor:
+    """Shard the replicated `dim` over `axis`: each position keeps (a
+    copy of) its slice; nothing crosses between positions."""
+    n = axis_sizes(st.mesh)[axis]
+    if st.shape[dim] % n:
+        raise ValueError(f"dim {dim} ({st.shape[dim]}) does not divide "
+                         f"over {axis} ({n})")
+    entries = list(st.spec)
+    entries[dim] = axis
+    if n == 1:
+        return wrap(st.locals, entries, st.mesh)
+    size = st.shape[dim] // n
+    coords = _coords(st.mesh)
+    out = [b.narrow(dim, coords[i][axis] * size, size).clone()
+           for i, b in enumerate(st.locals)]
+    return wrap(out, entries, st.mesh)
+
+
+def relayout(st: ShardedTensor, target: Sequence) -> ShardedTensor:
+    """Re-lay `st` out by `target` (a spec of single axes), one mesh axis
+    at a time: an axis leaving a dim is all-gathered, one moving between
+    dims goes all-to-all, and one arriving on a replicated dim is sliced
+    in place."""
+    target = _padded(target, st.ndim)
+    if list(st.spec) == target:
+        return st
+    for e in (*st.spec, *target):
+        if isinstance(e, tuple):
+            raise NotImplementedError(f"relayout of multi-axis dims "
+                                      f"({st.spec} -> {target})")
+    src = {e: d for d, e in enumerate(st.spec) if e is not None}
+    dst = {e: d for d, e in enumerate(target) if e is not None}
+    for a, d in src.items():                      # leave
+        if a not in dst:
+            st = all_gather(st, a)
+    for a, d in dst.items():                      # move
+        if a in src and src[a] != d:
+            if st.spec[d] is not None:
+                raise NotImplementedError(f"relayout {st.spec} -> {target}: "
+                                          f"dim {d} is taken")
+            st = all_to_all(st, a, d)
+    for a, d in dst.items():                      # arrive
+        if a not in src:
+            st = _split(st, a, d)
+    return st
+
+
+def einsum(eq: str, a: ShardedTensor, b: ShardedTensor) -> ShardedTensor:
+    """`torch.einsum(eq, a, b)` on placed operands, position by position.
+    A letter sharded in one operand and replicated in the other is sliced
+    there; an output letter keeps its axis; a contracted letter that is
+    sharded leaves partial sums, which `all_reduce_sum` adds."""
+    ins, out = eq.split("->")
+    la, lb = ins.split(",")
+    ea = dict(zip(la, _padded(a.spec, len(la))))
+    eb = dict(zip(lb, _padded(b.spec, len(lb))))
+    for k in set(la) & set(lb):
+        if ea[k] is not None and eb[k] is not None and ea[k] != eb[k]:
+            raise ValueError(f"einsum {eq}: letter {k} on {ea[k]} and "
+                             f"{eb[k]}; re-lay one operand out first")
+    a = relayout(a, [ea[k] if ea[k] is not None else eb.get(k) for k in la])
+    b = relayout(b, [eb[k] if eb[k] is not None else ea.get(k) for k in lb])
+    ea, eb = dict(zip(la, a.spec)), dict(zip(lb, b.spec))
+    entries = [ea.get(k) if ea.get(k) is not None else eb.get(k)
+               for k in out]
+    res = local_map(lambda x, y: torch.einsum(eq, x, y), a, b, spec=entries)
+    partial = {ax for k in (set(la) | set(lb)) - set(out)
+               for ax in entry_axes(ea.get(k) or eb.get(k))}
+    for ax in sorted(partial):
+        res = all_reduce_sum(res, ax)
+    return res
+
+
+# ------------------------------------------------------------- placements
+def abstract_placed(tree, specs, mesh):
+    """`meta` tensors of each position's block of the tensors in `tree`
+    (real or `meta`), placed by the matching `specs` on `mesh` (a
+    `DeviceMesh` or an {axis: size} mapping) as `named` fits them: what
+    a placement would hold per position, with nothing allocated."""
+    if isinstance(tree, dict):
+        return {k: abstract_placed(tree[k], specs[k], mesh) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return [abstract_placed(t, s, mesh) for t, s in zip(tree, specs)]
+    return torch.empty(named(mesh, specs, tree.shape).shard_shape(tree.shape),
+                       dtype=tree.dtype, device="meta")
+
+
+def _place_group(group, mesh) -> dict:
+    """A `ParamGroup` as a dict of placed tensors, each by its
+    `ParamDef`'s logical axes."""
+    out = {}
+    for name, d in group.defs.items():
+        t = group[name]
+        if isinstance(t, torch.nn.Module):
+            out[name] = _place_group(t, mesh)
+        else:
+            out[name] = shard(t.detach(), NamedSharding(
+                mesh, fitted(spec(*d.logical), t.shape, mesh)))
+    return out
+
+
+def shard_params(model, mesh) -> dict:
+    """A `DecoderLM`'s parameters placed on `mesh`: a dict of its top
+    entries ("embed", "final_norm", "lm_head", ...) and of "layers" /
+    "encoder" lists of per-layer dicts, every leaf a `ShardedTensor`
+    placed by its `ParamDef`'s logical axes (the leaf's entry of
+    `decoder_lm.param_specs`) fitted to the mesh. Every position gets its
+    own copy of its blocks; the model is left as it was."""
+    tree = _place_group(model.top, mesh)
+    tree["layers"] = [_place_group(g, mesh) for g in model.layers]
+    tree["encoder"] = [_place_group(g, mesh) for g in model.encoder]
+    return tree
+
+
+def shard_cache(cfg, cache: Sequence[dict], mesh) -> List[dict]:
+    """A decode cache (`decoder_lm.init_cache`'s list of per-layer dicts)
+    placed by `decoder_lm.cache_specs`."""
+    from repro_torch.models.decoder_lm import cache_specs
+    k0 = next(iter(cache[0].values()))
+    specs = cache_specs(cfg, k0.shape[0], 1)
+    return [{n: shard(t, NamedSharding(mesh, fitted(specs[i][n], t.shape,
+                                                    mesh)))
+             for n, t in c.items()} for i, c in enumerate(cache)]
+
+
+def shard_inputs(cfg, batch: Dict[str, torch.Tensor], mesh
+                 ) -> Dict[str, ShardedTensor]:
+    """Model inputs ({"tokens", "frontend"?}) placed by
+    `configs.input_shardings`: the batch split over ``data``."""
+    from repro_torch.configs import input_shardings
+    specs = input_shardings(cfg)
+    return {k: (v if is_sharded(v) else shard(v, NamedSharding(
+        mesh, fitted(specs[k], v.shape, mesh)))) for k, v in batch.items()}
+
+
+def placed_mesh(params):
+    """The mesh a placed parameter tree lives on (None for a module),
+    checked against the ambient `use_mesh`."""
+    st = _first_sharded(params) if isinstance(params, dict) else None
+    if st is None:
+        return None
+    if current_mesh() != st.mesh:
+        raise ValueError("a placed model runs inside use_mesh(its mesh); "
+                         f"the ambient mesh is {current_mesh()}")
+    return st.mesh

@@ -8,7 +8,10 @@ grok's logit soft-cap against its plain version, and dbrx/grok MoE smoke
 models through B4 on the card against the CPU (1e-3); B4 with a key
 bound (cross-attention and bidirectional shapes, NaN in the cut keys
 leaving the bits unchanged) and the VLM / encoder-decoder smoke models
-on the card against the CPU (1e-3). Run on a GPU
+on the card against the CPU (1e-3); the dense `attn` LMs tensor- and
+data-parallel on meshes of the card repeated against the unsharded model
+on the card (f32 1e-4, bf16 3e-2 relative L2; B4 once per layer and
+position; two sharded runs bitwise equal). Run on a GPU
 machine with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1141,3 +1144,57 @@ def test_adaptive_decode_at_zero_threshold_is_decode_step_on_card(cuda):
         assert torch.equal(got, want)
         assert bool((info["exit_block"] == -1).all())
         tok = want[:, 0].argmax(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("data,model", [(1, 2), (1, 4), (2, 2)])
+@pytest.mark.parametrize("kv,dtype", [(2, "float32"), (2, "bfloat16"),
+                                      (16, "bfloat16")])
+def test_sharded_dense_lm_on_card(cuda, data, model, kv, dtype):
+    """A 2-layer mistral-shaped smoke model with 16 query heads of 64 and 2
+    KV heads (wk / wv and the decode cache over the head dim) or 16 (the
+    cache over KV heads, gemma-7b's layout), placed on a mesh of the card
+    repeated: prefill (B4 once per layer and position, on the position's
+    heads) and 3 decode steps against the unsharded model on the card,
+    the logits within 1e-4 (f32) or 3e-2 (bf16: each position's partial
+    products round to bf16 before the f32 all-reduce) relative L2; two
+    sharded runs bitwise equal."""
+    import dataclasses
+    from repro_torch.configs import ARCHS, smoke
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import decoder_lm as M
+    from repro_torch.sharding import placement as pl
+    from repro_torch.sharding import use_mesh
+    cfg = dataclasses.replace(smoke(ARCHS["mistral-large-123b"]),
+                              num_layers=2, num_heads=16, num_kv_heads=kv,
+                              head_dim=64, dtype=dtype, param_dtype=dtype)
+    base = M.init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    with torch.no_grad():
+        for p in base.layers:
+            p["attn"]["wq"].mul_((cfg.num_heads / cfg.d_model) ** 0.5)
+            for w in ("wk", "wv"):
+                p["attn"][w].mul_((kv / cfg.d_model) ** 0.5)
+    toks = torch.randint(0, cfg.vocab_size, (4, 200),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+
+    def run(params):
+        last, cache = M.prefill_step(cfg, params, toks, length=203)
+        out = [last]
+        for pos in range(200, 203):
+            lg, cache = M.decode_step(cfg, params, cache, toks[:, :1], pos)
+            out.append(lg[:, 0])
+        return out
+
+    want = run(base)
+    mesh = make_mesh((cuda,) * (data * model), {"data": data,
+                                                "model": model})
+    params = pl.shard_params(base, mesh)
+    with use_mesh(mesh):
+        before = flash_attention.launches
+        got = run(params)
+        assert flash_attention.launches - before == 2 * data * model
+        again = run(params)
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    for a, b in zip(got, want):
+        assert float((a.float() - b.float()).norm() / b.float().norm()) < tol
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
