@@ -173,28 +173,33 @@ fails (non-zero exit, no result line) on any failed check:
    with full depth; the adaptive engine (8 requests, 4 slots); and the
    gates on 2 x 2200 tokens against the f32 plain prefill made one layer
    at a time.
-   Then the dense `attn` LMs tensor- and data-parallel (`sharded_lm_phase`,
-   ROADMAP A item 4) on ("data", "model") meshes of the one card repeated
+   Then the LMs tensor- and data-parallel (`sharded_lm_phase`, ROADMAP A
+   items 4 and 4a) on ("data", "model") meshes of the one card repeated
    (the sharded path and its exchanges, not the capacity of several
    cards): first the analytic parameter bytes a position of the whole
    mistral-large-123b (88 layers) at model 1, 4 and 8, from the fitted
    shard shapes of `abstract_params`; then mistral-large-123b (d 12288,
    96 / 8 heads of 128, d_ff 28672, vocab 32768) at full width with its
    depth cut to 8 of 88 layers on the meshes (1, 1), (1, 2), (1, 4) and
-   (2, 2), and gemma-7b whole (28 layers, 16 heads of 256, tied
-   embedding, GeGLU) on (1, 1) and (1, 2); bf16, random weights drawn
-   anew for each mesh (conditioned as above) and placed by
-   `shard_params`. For each mesh: the bytes each position holds, measured
-   on the placed tensors; B4 on position 0's first-layer q, k, v at the
-   per-position shape (mistral: 96 / 8, 48 / 4, 24 / 2 heads) against its
-   plain version and timed beside SDPA; the main path inside `use_mesh`:
-   prefill 4 x 2048 (B4 once per layer and position), 16 decode steps fed
-   the (1, 1) mesh's greedy tokens, one more under the profiler (the
-   device time of each collective), and 4 requests through
-   `LMServingEngine`; prefill tokens/s, decode ms a step, the exchange's
-   bytes (the collectives' counter) and the relative L2 of the logits and
-   the argmax agreement against the (1, 1) mesh, which must stay under
-   SHARDED_BF16_REL.
+   (2, 2), gemma-7b whole (28 layers, 16 heads of 256, tied embedding,
+   GeGLU) on (1, 1) and (1, 2), and on (1, 1), (1, 2) and (2, 2)
+   dbrx-132b (6 of 40 layers) and grok-1-314b (4 of 64) with their
+   experts FSDP over "data", rwkv6-3b and recurrentgemma-9b whole; bf16,
+   random weights drawn anew for each mesh (conditioned as above) and
+   placed by `shard_params`. For each mesh: the bytes each position
+   holds, measured on the placed tensors; B4 (B5 for rwkv) on position
+   0's operands of the first layer that runs it, at the per-position
+   shape, against its plain version and timed beside SDPA; the main path
+   inside `use_mesh`: prefill 4 x 2048 (the kernel once per layer and
+   position), 16 decode steps fed the (1, 1) mesh's greedy tokens, one
+   traced prefill and decode step (the device time of each collective),
+   and 4 requests through `LMServingEngine`; prefill tokens/s, decode ms
+   a step, the exchange's bytes (the collectives' counter), for MoE the
+   prefill's drops per layer (within MOE_DROP_GAP of the assignments of
+   (1, 1)'s), and the relative L2 of the logits and the argmax agreement
+   against the (1, 1) mesh, which must stay under the model's SHARDED_REL.
+   Last, rwkv6-3b whole in f32 on its meshes (`sharded_f32_check`),
+   whose logits must stay within F32_REL of (1, 1)'s.
 5. train (`train_phase`, last, so that nothing it leaves behind runs
    beside the LM timings): the paper's training procedure (`train_nai`,
    Inception Distillation, `DistillConfig()`'s 300/200/200 epochs) on the
@@ -2144,6 +2149,51 @@ def depth_logits(torch, cfg, model, toks, depths):
     return out
 
 
+def wkv_check(torch, rf, kf, vf, lw, u, label):
+    """B5 on real (B, T, H, hd) operands against its plain version, timed
+    beside it. Returns the kernel's row (name, source, error, timings,
+    bound)."""
+    from repro_torch.kernels.wkv6 import ref_wkv6, wkv6_heads
+    B_, T, H, hd = rf.shape
+    # the kernel reads the model's (B, T, H, hd) layout as the prefill
+    # hands it over; the plain version takes (B*H, T, hd)
+    flat = [a.transpose(1, 2).reshape(B_ * H, T, hd).contiguous()
+            for a in (rf, kf, vf, lw)]
+    uf = u[None].expand(B_, H, hd).reshape(B_ * H, hd).contiguous()
+    args = (*flat, uf)
+    out, state = wkv6_heads(rf, kf, vf, lw, u)
+    ref_out, ref_state = ref_wkv6(*args)
+    torch.cuda.synchronize()
+    ref_out = ref_out.reshape(B_, H, T, hd).transpose(1, 2)
+    ref_state = ref_state.reshape(B_, H, hd, hd)
+    err = float(max((out - ref_out).abs().max(),
+                    (state - ref_state).abs().max()))
+    scale = float(max(ref_out.abs().max(), ref_state.abs().max()))
+    # tolerance: 1e-5 of the largest value (f32 chunked factorization,
+    # another summation order)
+    check(torch.allclose(out, ref_out, rtol=1e-4, atol=1e-5 * scale)
+          and torch.allclose(state, ref_state, rtol=1e-4,
+                             atol=1e-5 * scale),
+          f"{label} vs plain, max abs err {err} (values up to {scale})")
+    n_el = B_ * H * T * hd
+    C = 16
+    flops = (B_ * H * (T // C)
+             * (4 * C * C * hd + 4 * C * hd * hd + 10 * C * hd))
+    nbytes = 5 * n_el * 4 + B_ * H * hd * 4 + B_ * H * hd * hd * 4
+    row = dict(name="wkv6", source="src/repro_torch/csrc/wkv6.cu",
+               replaces="src/repro/kernels/wkv6/kernel.py:60",
+               max_abs_err=err,
+               **timings(torch, lambda: wkv6_heads(rf, kf, vf, lw, u),
+                         lambda: ref_wkv6(*args), plain_reps=5),
+               bound=bound(nbytes, flops))
+    ms, by = row["bound"]
+    print(f"{label} operands: BH {B_ * H}, T {T}, hd {hd}; max abs err "
+          f"{err:.3g} of values up to {scale:.3g}; kernel {row['ms']:.4f} "
+          f"ms ({ms / row['ms']:.1%} of its bound {ms:.4f} ms, {by}), plain "
+          f"{row['plain_ms']:.4f} ms")
+    return row
+
+
 def lm_phases(torch, dev, kernels, arch, batch, seq, gate_seq, bf16_rel,
               smi_line):
     """The LM serving path of `arch` at full width and depth, bf16, random
@@ -2156,7 +2206,6 @@ def lm_phases(torch, dev, kernels, arch, batch, seq, gate_seq, bf16_rel,
     from repro_torch.data.tokens import synthetic_lm_batch
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      ref_attention)
-    from repro_torch.kernels.wkv6 import ref_wkv6, wkv6_heads
     from repro_torch.models import decoder_lm as M
     from repro_torch.nn import attention, rwkv
     from repro_torch.nn import blocks as TB
@@ -2190,42 +2239,8 @@ def lm_phases(torch, dev, kernels, arch, batch, seq, gate_seq, bf16_rel,
             p = model.layers[0]
             rf, kf, vf, lw, u, _ = rwkv.wkv_inputs(
                 cfg, p["tmix"], apply_norm(cfg, p["norm1"], x))
-            B_, T, H, hd = rf.shape
-            # the kernel reads the model's (B, T, H, hd) layout as the
-            # prefill hands it over; the plain version takes (B*H, T, hd)
-            flat = [a.transpose(1, 2).reshape(B_ * H, T, hd).contiguous()
-                    for a in (rf, kf, vf, lw)]
-            uf = u[None].expand(B_, H, hd).reshape(B_ * H, hd).contiguous()
-            args = (*flat, uf)
-            out, state = wkv6_heads(rf, kf, vf, lw, u)
-            ref_out, ref_state = ref_wkv6(*args)
-            torch.cuda.synchronize()
-            ref_out = ref_out.reshape(B_, H, T, hd).transpose(1, 2)
-            ref_state = ref_state.reshape(B_, H, hd, hd)
-            err = float(max((out - ref_out).abs().max(),
-                            (state - ref_state).abs().max()))
-            scale = float(max(ref_out.abs().max(), ref_state.abs().max()))
-            # tolerance: 1e-5 of the largest value (f32 chunked
-            # factorization, another summation order)
-            check(torch.allclose(out, ref_out, rtol=1e-4, atol=1e-5 * scale)
-                  and torch.allclose(state, ref_state, rtol=1e-4,
-                                     atol=1e-5 * scale),
-                  f"wkv6 vs plain, max abs err {err} (values up to {scale})")
-            n_el = B_ * H * T * hd
-            C = 16
-            flops = (B_ * H * (T // C)
-                     * (4 * C * C * hd + 4 * C * hd * hd + 10 * C * hd))
-            nbytes = 5 * n_el * 4 + B_ * H * hd * 4 + B_ * H * hd * hd * 4
-            print(f"wkv6 operands: BH {B_ * H}, T {T}, hd {hd}; max abs err "
-                  f"{err:.3g} of values up to {scale:.3g}")
-            row = dict(name=kname, source="src/repro_torch/csrc/wkv6.cu",
-                       replaces="src/repro/kernels/wkv6/kernel.py:60",
-                       max_abs_err=err,
-                       **timings(torch,
-                                 lambda: wkv6_heads(rf, kf, vf, lw, u),
-                                 lambda: ref_wkv6(*args), plain_reps=5),
-                       bound=bound(nbytes, flops))
-            del args, flat, rf, kf, vf, lw, out, ref_out
+            row = wkv_check(torch, rf, kf, vf, lw, u, "wkv6")
+            del rf, kf, vf, lw
         else:
             kname = "flash_attention"
             i_loc = cfg.layer_kinds.index("local")
@@ -2444,11 +2459,13 @@ def moe_layer(torch, cfg, p, x, pos, plain):
     return x + y, (k, v), moe.route(cfg, p["moe"], xn[:, -1:])[2][:, 0]
 
 
-def attention_check(torch, dev, cfg, q, k, v, label, cap_acts=False):
-    """B4 against its plain version on one layer's q, k, v, timed beside
-    the plain version, SDPA (causal, GQA; it has no soft-cap, so for a
-    capped config it computes the uncapped function) and the kernel with
-    the cap off; prints the largest |logit| and, with a cap, the kernel's
+def attention_check(torch, dev, cfg, q, k, v, label, cap_acts=False,
+                    window=0):
+    """B4 against its plain version on one layer's q, k, v, causal and
+    banded to `window` keys where it is set, timed beside the plain
+    version, SDPA (causal or under the band's mask, GQA; it has no
+    soft-cap, so for a capped config it computes the uncapped function)
+    and the kernel with the cap off; prints the largest |logit| and, with a cap, the kernel's
     distance to the uncapped plain version, which must be far outside the
     tolerance where `cap_acts`.
 
@@ -2460,8 +2477,9 @@ def attention_check(torch, dev, cfg, q, k, v, label, cap_acts=False):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      ref_attention)
     cap = cfg.attn_logit_softcap
-    out = flash_attention(q, k, v, softcap=cap)
-    ref = ref_attention(q, k, v, softcap=cap)
+    W = window
+    out = flash_attention(q, k, v, window=W, softcap=cap)
+    ref = ref_attention(q, k, v, window=W, softcap=cap)
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
     v_max = float(v.float().abs().max())
@@ -2474,34 +2492,41 @@ def attention_check(torch, dev, cfg, q, k, v, label, cap_acts=False):
     KV = k.shape[2]
     lg = torch.einsum("qhd,khd->hqk", q[0].float(),
                       k[0].float().repeat_interleave(H // KV, 1)) / hd ** 0.5
-    lg.masked_fill_(~torch.ones((S_, S_), dtype=torch.bool,
-                                device=dev).tril(), 0.0)
+    band = torch.ones((S_, S_), dtype=torch.bool, device=dev).tril()
+    if W:
+        band &= ~torch.ones_like(band).tril(-W)
+    lg.masked_fill_(~band, 0.0)
     max_logit = float(lg.abs().max())
     del lg
     line = (f"{label}: B {B_}, S {S_}, {H} q heads, {KV} kv heads, hd {hd}, "
-            f"causal, soft-cap {cap}; largest |logit| (batch 0) "
+            f"causal{f', window {W}' if W else ''}, soft-cap {cap}; largest |logit| (batch 0) "
             f"{max_logit:.4g}; max abs err vs plain {err:.3g} of values up "
             f"to {float(ref.float().abs().max()):.3g} (largest |v| "
             f"{v_max:.3g}, atol {atol:.3g})")
     if cap:
-        far = float((out.float() - ref_attention(q, k, v).float()
+        far = float((out.float() - ref_attention(q, k, v, window=W).float()
                      ).abs().max())
         line += f"; vs the uncapped plain version {far:.3g}"
         check(far > 10 * atol or not cap_acts,
               f"{label}: the cap acts (kernel {far} from the uncapped plain "
               f"version)")
     print(line)
-    flops = 4 * B_ * H * band_pairs(S_, 0) * hd
+    flops = 4 * B_ * H * band_pairs(S_, W) * hd
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
 
     def library():
+        if W:
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band, enable_gqa=True)
         return torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)
-    t = timings(torch, lambda: flash_attention(q, k, v, softcap=cap),
-                lambda: ref_attention(q, k, v, softcap=cap), library,
-                plain_reps=5)
-    t["uncapped_ms"] = time_ms(torch, lambda: flash_attention(q, k, v))
+    t = timings(torch, lambda: flash_attention(q, k, v, window=W,
+                                               softcap=cap),
+                lambda: ref_attention(q, k, v, window=W, softcap=cap),
+                library, plain_reps=5)
+    t["uncapped_ms"] = time_ms(torch, lambda: flash_attention(q, k, v,
+                                                              window=W))
     ms, by = bound(nbytes, flops, PEAK_BF16_FLOP_S)
     print(f"{label} timings: kernel {t['ms']:.4f} ms "
           f"({flops / t['ms'] / 1e9:.1f} TFLOP/s, {ms / t['ms']:.1%} of "
@@ -3622,10 +3647,15 @@ def adaptive_phase(torch, dev, kernels, smi_line):
     return launches["flash_attention"], lines
 
 
-SHARDED_LAYERS = 8            # of mistral-large-123b's 88: 23.76 GB of bf16
-                              # weights, placed twice over at data = 2
+SHARDED_LAYERS = {"mistral-large-123b": 8,    # of 88: 23.76 GB of bf16
+                  "dbrx-132b": 6,             # of 40 and 64, as in the MoE
+                  "grok-1-314b": 4}           # phases; the others whole
 SHARDED_MESHES = {"mistral-large-123b": ((1, 1), (1, 2), (1, 4), (2, 2)),
-                  "gemma-7b": ((1, 1), (1, 2))}
+                  "gemma-7b": ((1, 1), (1, 2)),
+                  "dbrx-132b": ((1, 1), (1, 2), (2, 2)),
+                  "grok-1-314b": ((1, 1), (1, 2), (2, 2)),
+                  "rwkv6-3b": ((1, 1), (1, 2), (2, 2)),
+                  "recurrentgemma-9b": ((1, 1), (1, 2), (2, 2))}
 SHARDED_SHAPE = dict(batch=4, seq=2048, n_dec=16)
 # limit of the relative L2 distance of a sharded mesh's bf16 logits to the
 # (1, 1) mesh's (each position's partial products round to bf16 before the
@@ -3633,21 +3663,39 @@ SHARDED_SHAPE = dict(batch=4, seq=2048, n_dec=16)
 # H100 gave (mistral 0.006314, gemma 0.01023; "NVIDIA H100 80GB HBM3,
 # 700.00 W")
 SHARDED_BF16_REL = 0.02
+# per model: about twice the largest an H100 gave for the MoE and recurrent
+# models (dbrx 0.00617, grok 0.00607, recurrentgemma 0.0123, rwkv 0.4723:
+# rwkv's bf16 rounding grows with depth, as against f32 (0.52 at 32
+# layers), so its limit only reports)
+SHARDED_REL = {"mistral-large-123b": SHARDED_BF16_REL,
+               "gemma-7b": SHARDED_BF16_REL,
+               "dbrx-132b": 0.0125, "grok-1-314b": 0.0125,
+               "rwkv6-3b": 0.95, "recurrentgemma-9b": 0.025}
+# the bf16 limit cannot see a wrong split of rwkv6-3b, so it runs again in
+# f32 (whole, prefill batch x seq and n_dec decode steps) on its meshes,
+# held against (1, 1) under F32_REL (an H100 gave 4.311e-4 and 3.768e-4
+# at (1, 2) and (2, 2), as large as the f32 prefill's distance to f32
+# token-by-token decoding at 32 layers, 4.227e-4; on a CPU smoke model a
+# channel mix that drops its all-reduce is 0.49 away)
+SHARDED_F32 = dict(arch="rwkv6-3b", batch=2, seq=1024, n_dec=4)
+# limit of the MoE prefill's drops against (1, 1)'s, as a share of the
+# assignments: the sum over layers of each layer's difference (the
+# routers see residuals rounded otherwise; an H100 gave 47 of 196,608
+# for dbrx and 13 of 65,536 for grok, "NVIDIA H100 80GB HBM3, 700.00 W")
+MOE_DROP_GAP = 1e-3
 
 
-def exchange_profile(torch, step, n: int = 2):
-    """One step's wall ms, device busy ms and the device ms of each
+def exchange_profile(torch, step):
+    """One traced step's wall ms, device busy ms and the device ms of each
     collective (the kernels and copies launched inside its
-    ``exchange.<op>`` range), from the profiler over `n` steps."""
+    ``exchange.<op>`` range), from the profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step()
+        step()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     busy, _, _ = device_spans(prof, wall)
@@ -3655,60 +3703,161 @@ def exchange_profile(torch, step, n: int = 2):
     for e in prof.events():
         if e.device_type == DeviceType.CPU and e.name.startswith("exchange."):
             ops[e.name] = ops.get(e.name, 0.0) + e.device_time_total / 1e3
-    return 1e3 * wall / n, busy / n, {k: v / n for k, v in ops.items()}
+    return 1e3 * wall, busy, ops
 
 
-def position0_qkv(torch, cfg, params, toks, mesh):
-    """Mesh position 0's q, k and v of the first layer at the prefill's
-    shape, as the sharded path hands them to B4 (on a mesh of one
-    position, the unplaced path's)."""
+KERNEL_KINDS = {"flash_attention": ("attn", "attn_moe", "local"),
+                "wkv6": ("rwkv",)}
+
+
+def position0_operands(torch, cfg, params, toks, mesh):
+    """Mesh position 0's operands of the first layer that runs a kernel, at
+    the prefill's shape, as the sharded path hands them over (on a mesh of
+    one position, the unplaced path's): q, k, v for B4, or r, k, v, logw,
+    u for B5; with the layer's kind."""
     from repro_torch.models import decoder_lm as M
-    from repro_torch.nn import attention
+    from repro_torch.nn import attention, rwkv
+    from repro_torch.nn import blocks as TB
     from repro_torch.nn.basic import apply_norm
     from repro_torch.sharding import placement as pl
+    one = len(mesh.devices) == 1
     with torch.no_grad():
-        if len(mesh.devices) == 1:
-            lp = pl.local_tree(params)
-            p0 = lp["layers"][0]
-            x = apply_norm(cfg, p0["norm1"], M._embed_tokens(cfg, lp, toks))
-            qkv = attention._project_qkv(cfg, p0["attn"], x,
-                                         M._positions(toks))
+        if one:
+            params = pl.local_tree(params)
+            ts, positions = toks, M._positions(toks)
         else:
             ts, positions = M._sharded_tokens(cfg, toks, mesh)
-            p0 = params["layers"][0]
-            x = apply_norm(cfg, p0["norm1"], M._embed_tokens(
-                cfg, params, ts, positions))
-            qs, ks, vs = attention._sharded_qkv(cfg, p0["attn"], x,
+        x = M._embed_tokens(cfg, params, ts, positions)
+        i, kind = next((i, k) for i, k in enumerate(cfg.layer_kinds)
+                       if k in KERNEL_KINDS["flash_attention"] + ("rwkv",))
+        for j in range(i):
+            x, _, _ = TB.apply_layer(cfg, cfg.layer_kinds[j],
+                                     params["layers"][j], x,
+                                     positions=positions)
+        p = params["layers"][i]
+        xn = apply_norm(cfg, p["norm1"], x)
+        if kind == "rwkv":
+            tmix = p["tmix"] if one else pl.local_tree(p["tmix"], 0)
+            ops = rwkv.wkv_inputs(cfg, tmix, xn if one else xn.locals[0])[:5]
+        elif one:
+            ops = attention._project_qkv(cfg, p["attn"], xn, positions)
+        else:
+            qs, ks, vs = attention._sharded_qkv(cfg, p["attn"], xn,
                                                 positions)
-            qkv = (qs.locals[0], attention._kv_for_heads(qs, ks, 0),
+            ops = (qs.locals[0], attention._kv_for_heads(qs, ks, 0),
                    attention._kv_for_heads(qs, vs, 0))
-        return tuple(a.contiguous() for a in qkv)
+        return tuple(a.contiguous() for a in ops), kind
 
 
-def sharded_lm_phase(torch, dev, kernels, smi_line):
-    """The dense `attn` LMs tensor- and data-parallel (ROADMAP A item 4) on
-    ("data", "model") meshes of the one card repeated (`make_mesh((dev,) *
-    n, ...)`): the sharded path and its exchanges, not the capacity of n
-    cards. mistral-large-123b at full width, its depth cut to
-    SHARDED_LAYERS, on every mesh of SHARDED_MESHES, and gemma-7b whole;
-    bf16, random weights from a CUDA generator seeded 0 (conditioned as
-    `condition_weights` says), made anew for each mesh and placed by
-    `shard_params`. For each mesh: B4 on position 0's q, k, v of the first
-    layer at the per-position shape against its plain version
-    (`attention_check`); the main path inside `use_mesh`: prefill 4 x 2048
-    (B4 once per layer and position), 16 decode steps fed the (1, 1)
-    mesh's greedy tokens, one decode step under the profiler, and 4
-    requests through `LMServingEngine`. Prints prefill tokens/s, decode ms
-    a step, the exchange's bytes (counted) and device ms (traced), the
-    bytes placed per position, the relative L2 of the logits against (1,
-    1) and the greedy-token agreement with it; and the analytic
-    per-position parameter bytes of the full-depth model at model 4 and
-    8. Returns (B4's launches in the prefills, the lines for the
-    summary)."""
+def sharded_f32_check(torch, dev, smi_line):
+    """SHARDED_F32's model whole in f32 (TF32 off), weights drawn as in
+    `sharded_lm_phase`, on each of its meshes of SHARDED_MESHES inside
+    `use_mesh`: a prefill of batch x seq tokens and n_dec decode steps fed
+    (1, 1)'s greedy tokens, the logits held against (1, 1)'s under F32_REL
+    relative L2 (in bf16 rwkv6-3b's rounding at full depth is as large as
+    what a wrong column split, head slice or all-reduce would change).
+    Returns the line for the summary."""
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import synthetic_lm_batch
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import decoder_lm as M
+    from repro_torch.sharding import placement as pl
+    from repro_torch.sharding import use_mesh
+
+    arch, batch, seq, n_dec = (SHARDED_F32[k] for k in
+                               ("arch", "batch", "seq", "n_dec"))
+    cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                              param_dtype="float32")
+    toks = torch.from_numpy(synthetic_lm_batch(
+        np.random.default_rng(2), batch, seq, cfg.vocab_size)[
+        "tokens"]).long().to(dev)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref, errs, t0 = None, {}, time.perf_counter()
+    try:
+        for data, model_ax in SHARDED_MESHES[arch]:
+            gen = torch.Generator(dev).manual_seed(0)
+            model = M.init_params(cfg, gen, device=dev)
+            condition_weights(torch, cfg, model, gen)
+            mesh = make_mesh((dev,) * (data * model_ax),
+                             {"data": data, "model": model_ax})
+            params = pl.shard_params(model, mesh, release=True)
+            del model
+            with use_mesh(mesh):
+                last, cache = M.prefill_step(cfg, params, toks,
+                                             length=seq + n_dec)
+                outs = [last]
+                fed = (ref["tokens"] if ref is not None
+                       else [last.argmax(-1, keepdim=True)])
+                for t in range(n_dec):
+                    lg, cache = M.decode_step(cfg, params, cache, fed[t],
+                                              seq + t)
+                    outs.append(lg[:, 0])
+                    if ref is None:
+                        fed.append(lg[:, 0].argmax(-1, keepdim=True))
+            logits = torch.stack(outs).float()
+            check(bool(torch.isfinite(logits).all()),
+                  f"{arch} f32 mesh ({data}, {model_ax}) logits finite")
+            if ref is None:
+                ref = dict(logits=logits, tokens=fed)
+            else:
+                errs[data, model_ax] = (
+                    rel_l2(logits[0], ref["logits"][0]),
+                    rel_l2(logits[1:], ref["logits"][1:]),
+                    float((logits.argmax(-1) == ref["logits"].argmax(-1)
+                           ).float().mean()))
+            del params, cache, outs, logits, last, lg
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    line = (f"{arch} whole in f32 on its meshes, prefill {batch} x {seq} "
+            f"and {n_dec} decode steps ({time.perf_counter() - t0:.1f} s), "
+            f"against (1, 1): " + "; ".join(
+                f"mesh (data {d}, model {m}) relative L2 of the prefill "
+                f"logits {pre:.4g}, of the decode steps' {dec:.4g}, argmax "
+                f"agreement {agree:.4f}"
+                for (d, m), (pre, dec, agree) in errs.items())
+            + f" (limit {F32_REL}); {smi_line}")
+    print(line)
+    for (d, m), (pre, dec, _) in errs.items():
+        check(pre < F32_REL and dec < F32_REL,
+              f"{arch} f32 mesh (data {d}, model {m}) logits within "
+              f"{F32_REL} of (1, 1) ({pre}, {dec})")
+    return line
+
+
+def sharded_lm_phase(torch, dev, kernels, smi_line):
+    """The LMs tensor- and data-parallel (ROADMAP A item 4, 4a) on ("data",
+    "model") meshes of the one card repeated (`make_mesh((dev,) * n,
+    ...)`): the sharded path and its exchanges, not the capacity of n
+    cards. Every model of SHARDED_MESHES at full width, its depth cut to
+    SHARDED_LAYERS where it is named there, on each of its meshes: the
+    dense `attn` models mistral-large-123b and gemma-7b, the MoE models
+    dbrx-132b and grok-1-314b (experts FSDP over "data"), rwkv6-3b and
+    recurrentgemma-9b; bf16, random weights from a CUDA generator seeded 0
+    (conditioned as `condition_weights` says), made anew for each mesh and
+    placed by `shard_params` (releasing the model as it goes). For each
+    mesh: the path's kernel (B4, or B5 for rwkv) on position 0's operands
+    of the first layer that runs it, at the per-position shape, against
+    its plain version (`attention_check`, `wkv_check`); the main path
+    inside `use_mesh`: prefill 4 x 2048 (the kernel once per layer and
+    position), a traced prefill, 16 decode steps fed the (1, 1) mesh's
+    greedy tokens, a traced decode step, and 4 requests through
+    `LMServingEngine`. Prints prefill tokens/s, decode ms a step, the
+    exchange's bytes (counted) and device ms (traced) for a prefill and
+    a step, the bytes placed per position, for MoE the share of
+    assignments dropped (held within MOE_DROP_GAP of (1, 1)'s), the
+    relative L2 of the logits against (1, 1) (held under SHARDED_REL) and
+    the greedy-token agreement with it; the analytic per-position
+    parameter bytes of the full-depth mistral at model 4 and 8; and
+    `sharded_f32_check`. Returns (each kernel's launches in the prefills,
+    the lines for the summary)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import decoder_lm as M
+    from repro_torch.nn import moe
     from repro_torch.nn.params import count_params, tree_bytes
     from repro_torch.serving import LMServingEngine
     from repro_torch.sharding import placement as pl
@@ -3732,11 +3881,15 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
     lines.append(line)
     sh = SHARDED_SHAPE
     batch, seq, n_dec = sh["batch"], sh["seq"], sh["n_dec"]
-    b4_launches = 0
+    total = {name: 0 for name in KERNEL_KINDS}
     for arch, meshes in SHARDED_MESHES.items():
+        t_arch = time.perf_counter()
         full = get_config(arch)
-        cfg = (dataclasses.replace(full, num_layers=SHARDED_LAYERS)
-               if arch == "mistral-large-123b" else full)
+        cfg = (dataclasses.replace(full, num_layers=SHARDED_LAYERS[arch])
+               if arch in SHARDED_LAYERS else full)
+        per_layer = {name: sum(k in kinds for k in cfg.layer_kinds)
+                     for name, kinds in KERNEL_KINDS.items()}
+        is_moe = "attn_moe" in cfg.layer_kinds
         prompts = torch.from_numpy(synthetic_lm_batch(
             np.random.default_rng(0), batch, seq + 1, cfg.vocab_size)[
             "tokens"]).long().to(dev)
@@ -3744,6 +3897,13 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
         ref = None
         for data, model_ax in meshes:
             torch.cuda.empty_cache()
+            secs, t_mark = {}, time.perf_counter()
+
+            def lap(what):
+                nonlocal t_mark
+                now = time.perf_counter()
+                secs[what] = round(now - t_mark, 2)
+                t_mark = now
             label = f"{arch} mesh (data {data}, model {model_ax})"
             gen = torch.Generator(dev).manual_seed(0)
             model = M.init_params(cfg, gen, device=dev)
@@ -3753,7 +3913,7 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
                              {"data": data, "model": model_ax})
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            params = pl.shard_params(model, mesh)
+            params = pl.shard_params(model, mesh, release=True)
             torch.cuda.synchronize()
             t_place = time.perf_counter() - t0
             del model
@@ -3761,24 +3921,35 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
             torch.cuda.empty_cache()
             placed = pl.position_bytes(params)
             print(f"{label}: {mesh}; {cfg.num_layers} of {full.num_layers} "
-                  f"layers, d_model {cfg.d_model}, {cfg.num_heads}/"
-                  f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, "
-                  f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n_par} "
-                  f"parameters ({n_par:.4g}); placed in {t_place:.2f} s, "
-                  f"bytes a position (measured on the placed tensors) "
-                  f"{placed}")
+                  f"layers {cfg.layer_kinds[:3]}..., d_model {cfg.d_model}, "
+                  f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+                  f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+                  f"{cfg.vocab_size}: {n_par} parameters ({n_par:.4g}); "
+                  f"placed in {t_place:.2f} s, bytes a position (measured "
+                  f"on the placed tensors) {placed}")
+            lap("make and place")
             with use_mesh(mesh) as scope:
-                # ---- B4 at the per-position shape, position 0's operands
-                q, k, v = position0_qkv(torch, cfg, params, toks, mesh)
-                attention_check(torch, dev, cfg, q, k, v,
-                                f"flash_attention {label}, position 0")
-                del q, k, v
+                # ---- the kernel at the per-position shape, position 0's
+                # operands
+                ops, kind = position0_operands(torch, cfg, params, toks,
+                                               mesh)
+                if kind == "rwkv":
+                    wkv_check(torch, *ops, f"wkv6 {label}, position 0")
+                else:
+                    attention_check(torch, dev, cfg, *ops,
+                                    f"flash_attention {label}, position 0",
+                                    window=(cfg.sliding_window
+                                            if kind == "local" else 0))
+                del ops
                 torch.cuda.empty_cache()
+                lap("kernel check")
                 # ---- the main path: prefill, decode, the engine
                 M.prefill_step(cfg, params, toks[:, :128])      # warm
                 torch.cuda.synchronize()
                 scope.exchange.clear()
                 zero_counts(kernels)
+                if is_moe:
+                    moe.apply_moe.drops = []
                 t0 = time.perf_counter()
                 last, cache = M.prefill_step(cfg, params, toks,
                                              length=seq + n_dec + 1)
@@ -3786,13 +3957,18 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
                 t_prefill = time.perf_counter() - t0
                 launches = launch_counts(kernels)
                 pre_ex = {k: dict(v) for k, v in scope.exchange.items()}
-                want = cfg.num_layers * data * model_ax
-                check(launches["flash_attention"] == want and all(
-                    v == 0 for n, v in launches.items()
-                    if n != "flash_attention"),
-                    f"{label} prefill launched flash_attention once per "
-                    f"layer and position ({launches}, want {want})")
-                b4_launches += launches["flash_attention"]
+                want = {name: n * data * model_ax
+                        for name, n in per_layer.items()}
+                check(all(launches[n] == want.get(n, 0) for n in launches),
+                      f"{label} prefill launched each kernel once per layer "
+                      f"that runs it and position ({launches}, want {want})")
+                for name in total:
+                    total[name] += launches[name]
+                drops = None
+                if is_moe:
+                    drops = [int(d) for d, _ in moe.apply_moe.drops]
+                    n_assign = sum(n for _, n in moe.apply_moe.drops)
+                    moe.apply_moe.drops = None
                 feed = (last.argmax(-1, keepdim=True) if ref is None
                         else ref["tokens"][0])
                 outs, fed = [last], [feed]
@@ -3808,9 +3984,17 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
                 torch.cuda.synchronize()
                 t_decode = time.perf_counter() - t0
                 dec_ex = {k: dict(v) for k, v in scope.exchange.items()}
+                lap("prefill and decode")
+                # one traced step each, warm from the steps above (the
+                # profiler's parse of a sharded step's events takes
+                # seconds)
                 wall, busy, ex_ms = exchange_profile(
                     torch, lambda: M.decode_step(cfg, params, cache,
                                                  fed[n_dec], seq + n_dec))
+                pre_wall, pre_busy, pre_ms = exchange_profile(
+                    torch, lambda: M.prefill_step(cfg, params, toks,
+                                                  length=seq + n_dec + 1))
+                lap("traced step and prefill")
                 check(all(bool(torch.isfinite(o).all()) for o in outs)
                       and last.shape == (batch, cfg.vocab_size),
                       f"{label} logits finite, shaped")
@@ -3829,9 +4013,11 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
                     f"{label} engine served every request ({stats})")
                 served = sorted((r.rid, r.out) for r in eng.completed)
                 del eng
+                lap("engine")
             logits = torch.stack([o.float() for o in outs])
             if ref is None:
-                ref = dict(logits=logits, tokens=fed, served=served)
+                ref = dict(logits=logits, tokens=fed, served=served,
+                           drops=drops)
             err_pre = rel_l2(logits[0], ref["logits"][0])
             err_dec = rel_l2(logits[1:], ref["logits"][1:])
             agree = float((logits.argmax(-1) == ref["logits"].argmax(-1)
@@ -3844,32 +4030,56 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
                         f"{sum(v['copies'] for v in d.values())} copies ("
                         + ", ".join(f"{k} {v['calls']} calls {v['bytes']} B"
                                     for k, v in sorted(d.items())) + ")")
+
+            def traced(ms):
+                return (", ".join(f"{k.split('.')[1]} {v:.4f}"
+                                  for k, v in sorted(ms.items())) or "0") \
+                    + f" (total {sum(ms.values()):.4f})"
+            kern = ", ".join(f"{n} launches {launches[n]}" for n in want
+                             if want[n])
+            gap = (None if drops is None else
+                   sum(abs(a - b) for a, b in zip(drops, ref["drops"])))
+            dropped = ("" if drops is None else
+                       f"; MoE assignments dropped in the prefill "
+                       f"{sum(drops)} of {n_assign} "
+                       f"({sum(drops) / n_assign:.4f}; per layer {drops}; "
+                       f"(1, 1) dropped {sum(ref['drops'])}, difference "
+                       f"{sum(drops) - sum(ref['drops'])}, layer by layer "
+                       f"{gap})")
             line = (f"{label}: prefill {batch} x {seq} in {t_prefill:.3f} s, "
-                    f"{batch * seq / t_prefill:.1f} tokens/s, flash_attention "
-                    f"launches {launches['flash_attention']}, exchange "
-                    f"{ex(pre_ex)}; decode {1e3 * t_decode / n_dec:.2f} ms a "
-                    f"step, exchange a step {ex({k: {n: x // n_dec for n, x in v.items()} for k, v in dec_ex.items()})}"
+                    f"{batch * seq / t_prefill:.1f} tokens/s, {kern}, "
+                    f"exchange {ex(pre_ex)}; traced prefill {pre_wall:.2f} "
+                    f"ms wall, device busy {pre_busy:.2f} ms, exchange "
+                    f"device ms {traced(pre_ms)}; decode "
+                    f"{1e3 * t_decode / n_dec:.2f} ms a step, exchange a "
+                    f"step {ex({k: {n: x // n_dec for n, x in v.items()} for k, v in dec_ex.items()})}"
                     f"; traced decode step {wall:.2f} ms wall, device busy "
-                    f"{busy:.2f} ms, exchange device ms "
-                    + (", ".join(f"{k.split('.')[1]} {v:.4f}"
-                                 for k, v in sorted(ex_ms.items())) or "0")
-                    + f" (total {sum(ex_ms.values()):.4f}); engine 4 "
-                    f"requests in {stats['ticks']} ticks, {32 / t_eng:.1f} "
-                    f"generated tokens/s; bytes a position {placed}; "
-                    f"against (1, 1): relative L2 of the prefill logits "
-                    f"{err_pre:.4g}, of the {n_dec} decode steps' "
-                    f"{err_dec:.4g}, argmax agreement {agree:.4f}, engine "
-                    f"token agreement {eng_agree:.4f}; {smi_line}")
+                    f"{busy:.2f} ms, exchange device ms {traced(ex_ms)}; "
+                    f"engine 4 requests in {stats['ticks']} ticks, "
+                    f"{32 / t_eng:.1f} generated tokens/s; bytes a position "
+                    f"{placed}{dropped}; against (1, 1): relative L2 of the "
+                    f"prefill logits {err_pre:.4g}, of the {n_dec} decode "
+                    f"steps' {err_dec:.4g}, argmax agreement {agree:.4f}, "
+                    f"engine token agreement {eng_agree:.4f}; {smi_line}")
             print(line)
             lines.append(line)
-            check(err_pre < SHARDED_BF16_REL and err_dec < SHARDED_BF16_REL,
-                  f"{label} logits within {SHARDED_BF16_REL} of (1, 1) "
+            print(f"{label} seconds: {secs}")
+            lim = SHARDED_REL[arch]
+            check(err_pre < lim and err_dec < lim,
+                  f"{label} logits within {lim} of (1, 1) "
                   f"({err_pre}, {err_dec})")
+            if drops is not None:
+                check(gap <= MOE_DROP_GAP * n_assign,
+                      f"{label} prefill drops within {MOE_DROP_GAP} of the "
+                      f"assignments of (1, 1)'s, layer by layer ({gap} of "
+                      f"{n_assign})")
             del params, cache, outs, logits, last, lg
             gc.collect()
             torch.cuda.empty_cache()
+        print(f"sharded lm {arch}: {time.perf_counter() - t_arch:.1f} s")
+    lines.append(sharded_f32_check(torch, dev, smi_line))
     print(f"sharded lm phase: {time.perf_counter() - t_phase:.1f} s")
-    return b4_launches, lines
+    return total, lines
 
 
 def main() -> int:
@@ -3947,9 +4157,14 @@ def main() -> int:
     # the dense attn LMs tensor- and data-parallel (ROADMAP A item 4) on
     # meshes of the one card; B4's row adds their prefills' launches
     n, lines = sharded_lm_phase(torch, dev, kernels, smi_line)
-    b4["launches"] += n
-    parts.append(f"{n} in the sharded prefills of 4 x 2048 tokens (once "
-                 f"per layer and mesh position)")
+    b4["launches"] += n["flash_attention"]
+    parts.append(f"{n['flash_attention']} in the sharded prefills of 4 x "
+                 f"2048 tokens (once per layer and mesh position)")
+    b5 = next(r for r in rows if r["name"] == "wkv6")
+    b5["launches"] += n["wkv6"]
+    b5["note"] = (f"({b5['launches'] - n['wkv6']} {b5['note']}, "
+                  f"{n['wkv6']} in the sharded rwkv6-3b prefills of 4 x "
+                  f"2048 tokens (once per layer and mesh position))")
     bounded += lines
     b4["note"] = f"({', '.join(parts)})"
     # training last, so that nothing it leaves behind (pinned pools, its

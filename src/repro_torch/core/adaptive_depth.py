@@ -61,7 +61,7 @@ def adaptive_decode_step(cfg, params, cache, tokens, pos: int,
                                                _project_logits, exit_logits)
     if pl.placed_mesh(params) is not None:
         raise NotImplementedError("adaptive decoding of a placed model: not "
-                                  "sharded yet (ROADMAP A, item 4)")
+                                  "sharded yet (ROADMAP A, item 4a)")
     ad = cfg.adaptive
     if not ad.enabled:
         raise ValueError("adaptive_decode_step needs cfg.adaptive.enabled")

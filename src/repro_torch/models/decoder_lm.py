@@ -50,15 +50,19 @@ remainder layers follow (``rem``), and each leaf's spec is the
 reference's without its leading "layers" entry (which `fit_spec` freezes
 to None anyway). A model placed by `repro_torch.sharding.placement.
 shard_params` runs `forward`, `prefill_step` and `decode_step` inside
-`use_mesh(mesh)`: the batch split over "data", the `attn` layers
-tensor-parallel over "model" (vocab-parallel embedding and logits,
-column-parallel q / k / v and MLP inputs, row-parallel `wo` and
+`use_mesh(mesh)`: the batch split over "data", the `attn` and `local`
+layers tensor-parallel over "model" (vocab-parallel embedding and
+logits, column-parallel q / k / v and MLP inputs, row-parallel `wo` and
 `w_down` with an all-reduce, B4 once per position on its heads), the
-logits gathered onto the mesh's first device and the cache placed by
-`cache_specs`; `init_cache` inside `use_mesh` places the cache too. On
-a mesh of one position every function runs as unplaced on that
-position's tensors; on more, the other layer kinds, training and the
-frontends raise `NotImplementedError`.
+`attn_moe` experts FSDP over "data" and tensor-parallel over "model"
+(`repro_torch.nn.moe`), `rwkv` over its heads (B5 once per position)
+and `rglru` over its channels, the logits gathered onto the mesh's first
+device and the cache placed by `cache_specs`; `init_cache` inside
+`use_mesh` places the cache too. On a mesh of one position every
+function runs as unplaced on that position's tensors; on more, the
+`xattn`, `enc` and `encdec` kinds, training, `collect_states`, the
+frontends and adaptive decoding raise `NotImplementedError` (ROADMAP A,
+item 4a).
 """
 from __future__ import annotations
 
@@ -522,14 +526,17 @@ def decode_step(cfg, params, cache, tokens, pos: int, frontend=None):
 
 # ------------------------------------------------------------------ sharded
 def _sharded_only(frontend=None, collect_states=False, differentiable=False):
-    """What the sharded path does not run yet raises (ROADMAP A, item 4)."""
+    """What the sharded path does not run yet raises (ROADMAP A, item 4a):
+    the frontends, `collect_states` and `differentiable` here; the
+    `xattn`, `enc` and `encdec` layers in `blocks.apply_layer`; adaptive
+    decoding in `core.adaptive_depth`."""
     asked = [n for n, v in (("frontend", frontend is not None),
                             ("collect_states", collect_states),
                             ("differentiable", differentiable)) if v]
     if asked:
         raise NotImplementedError(
             f"{', '.join(asked)} on a mesh of more than one position: not "
-            f"sharded yet (ROADMAP A, item 4)")
+            f"sharded yet (ROADMAP A, item 4a)")
 
 
 def _check_placed(cache):
@@ -566,7 +573,8 @@ def _sharded_prefill(cfg, params, tokens, length, mesh):
                            cache_specs(cfg, Bsz, length or S)):
         x, c, _ = B.apply_layer(cfg, kind, p, x, mode="prefill",
                                 positions=positions)
-        if length is not None and length > S:
+        if kind in ("attn", "attn_moe") and length is not None \
+                and length > S:
             c = {n: pl.local_map(lambda t: torch.nn.functional.pad(
                 t, (0, 0, 0, 0, 0, length - S)), t) for n, t in c.items()}
         caches.append({n: pl.relayout(t, pl.fitted(cs[n], t.shape, mesh))

@@ -23,10 +23,12 @@ apply_layer contract:
              which have no backward (the trainer's `loss_fn` asks for it)
 
 On a mesh of more than one position (x a `placement.ShardedTensor`,
-`repro_torch.models.decoder_lm`'s sharded path) the `attn` kind runs
-tensor-parallel through the sharded branches of `apply_norm`,
-`self_attention`, `decode_self_attention` and `apply_mlp`; the other
-kinds raise `NotImplementedError` (ROADMAP A, item 4).
+`repro_torch.models.decoder_lm`'s sharded path) the kinds of
+`SHARDED_KINDS` run through the sharded branches of `apply_norm`,
+`self_attention`, `decode_self_attention`, `apply_mlp`, `apply_moe`,
+`rwkv` and `rglru`, and `ring_cache` takes each position's block; the
+other kinds, and `differentiable`, raise `NotImplementedError` (ROADMAP
+A, item 4a).
 
 Two differences from the reference, both faults of the reference
 recorded in ROADMAP C:
@@ -50,7 +52,8 @@ from repro_torch.nn.moe import apply_moe, apply_moe_decode, moe_defs
 from repro_torch.nn.params import ParamDef
 from repro_torch.sharding import placement as pl
 
-SHARDED_KINDS = ("attn",)       # kinds that run on a mesh of > 1 position
+# kinds that run on a mesh of more than one position
+SHARDED_KINDS = ("attn", "attn_moe", "rwkv", "rglru", "local")
 
 # --------------------------------------------------------------------- defs
 def layer_defs(cfg, kind: str):
@@ -114,7 +117,10 @@ def init_layer_cache(cfg, kind: str, batch: int, length: int, dtype, device):
 def ring_cache(t: torch.Tensor, window: int) -> torch.Tensor:
     """Keys or values (B, S, KV, hd) of positions 0..S-1 as a ring buffer
     of length `window`: position p in slot p % window, the last `window`
-    positions kept, zero slots when S < window."""
+    positions kept, zero slots when S < window. A placed t (the sequence
+    never sharded) is ringed position by position."""
+    if pl.is_sharded(t):
+        return pl.local_map(lambda t_: ring_cache(t_, window), t)
     B, S = t.shape[:2]
     if S < window:
         ring = t.new_zeros((B, window) + t.shape[2:])
@@ -131,11 +137,19 @@ def apply_layer(cfg, kind: str, p, x, *, mode: str = "train",
         raise NotImplementedError(
             f"layer kind {kind!r}{' (differentiable)' * differentiable} on "
             f"a mesh of {len(x.locals)} positions: its sharded execution is "
-            f"queued (ROADMAP A, item 4)")
+            f"queued (ROADMAP A, item 4a)")
     if mode == "decode":
         return _decode_layer(cfg, kind, p, x, cache, pos, aux)
     return _full_layer(cfg, kind, p, x, positions, frontend, mode, aux,
                        differentiable)
+
+
+def _token(x, i: int):
+    """x[:, i] of (B, S, d) activations, placed or not."""
+    if pl.is_sharded(x):
+        return pl.local_map(lambda t: t[:, i], x, spec=(x.spec[0],
+                                                        x.spec[2]))
+    return x[:, i]
 
 
 def _ffn(cfg, kind, p, xn, aux, decode=False):
@@ -168,7 +182,8 @@ def _full_layer(cfg, kind, p, x, positions, frontend, mode, aux,
         xn = apply_norm(cfg, p["norm2"], x)
         x = x + rk.rwkv_channel_mix_full(cfg, p["cmix"], xn)
         if mode == "prefill":
-            new_cache = {"state": state, "x_t": xt[:, -1], "x_c": xn[:, -1]}
+            new_cache = {"state": state, "x_t": _token(xt, -1),
+                         "x_c": _token(xn, -1)}
         return x, new_cache, aux
 
     if kind == "rglru":
@@ -219,7 +234,8 @@ def _decode_layer(cfg, kind, p, x, cache, pos, aux):
         x = x + h
         xc = apply_norm(cfg, p["norm2"], x)
         x = x + rk.rwkv_cmix_decode(cfg, p["cmix"], xc, cache["x_c"])
-        return x, {"state": state, "x_t": xn[:, 0], "x_c": xc[:, 0]}, aux
+        return x, {"state": state, "x_t": _token(xn, 0),
+                   "x_c": _token(xc, 0)}, aux
 
     if kind == "rglru":
         h, new_cache = rg.rglru_decode(cfg, p["rglru"],

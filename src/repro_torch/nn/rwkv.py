@@ -9,6 +9,15 @@ kernel's plain PyTorch version computes it. B5 has no backward: training
 training code, in plain PyTorch that autograd differentiates. As in the reference, the
 ddlerp token-shift LoRA of full RWKV-6 is simplified to static
 interpolation weights; the data-dependent decay is implemented.
+
+On a mesh (x a `placement.ShardedTensor`, the batch over "data") the
+time mix is tensor-parallel over "rnn" (-> "model"): `w_r`, `w_k`, `w_v`,
+`w_g` and `w_lora_b` column-parallel, `w0`, `u` and `ln_scale` sliced,
+so each position holds whole heads and runs B5, the group norm and the
+gate on them; `w_o` is row-parallel with an all-reduce. In the channel
+mix `w_ck` is column-parallel over "mlp", `w_cv` row-parallel with an
+all-reduce, `w_cr` replicated. The state lies over the heads; the shift
+states `x_t` and `x_c` are replicated over "model".
 """
 from __future__ import annotations
 
@@ -17,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.wkv6 import CHUNK, wkv6_heads
 from repro_torch.nn.params import ParamDef
+from repro_torch.sharding import placement as pl
 
 LORA_R = 32
 # Per-step log-decay is clamped to >= MIN_LOGW so the intra-chunk
@@ -25,9 +35,11 @@ LORA_R = 32
 MIN_LOGW = -5.0
 
 
-def _heads(cfg):
+def _heads(cfg, p=None):
+    """(H, hd): the model's heads, or those of the time-mix weights `p`
+    (on a mesh, a position's)."""
     hd = cfg.rwkv_head_dim
-    H = cfg.d_model // hd
+    H = (cfg.d_model if p is None else p["u"].shape[0]) // hd
     return H, hd
 
 
@@ -127,7 +139,7 @@ def wkv_inputs(cfg, p, x):
     (B, T_pad, H, hd) f32 with T padded to CHUNK by state-neutral steps
     (k = 0, logw = 0), u (H, hd) f32, and the gate g (B, T, D)."""
     B, T, _ = x.shape
-    H, hd = _heads(cfg)
+    H, hd = _heads(cfg, p)
     pad = (-T) % CHUNK
     xp = F.pad(x, (0, 0, 0, pad))
     r, k, v, g, logw = _tmix_project(cfg, p, xp, _shift(xp))
@@ -142,12 +154,13 @@ def wkv_inputs(cfg, p, x):
     return rf, kf, vf, lw, p["u"].float().reshape(H, hd), g[:, :T]
 
 
-def rwkv_time_mix_full(cfg, p, x, differentiable: bool = False):
-    """x (B,T,d), zero initial state. Returns (y, final state (B,H,hd,hd)
-    f32); the recurrence runs in kernel B5, or in `_wkv_chunked` when
-    `differentiable`."""
-    B, T, d = x.shape
-    H, hd = _heads(cfg)
+def _mixed_heads(cfg, p, x, differentiable: bool = False):
+    """The time mix on x (B, T, d) up to `w_o`: the gated, group-normed
+    WKV output (B, T, D) of `p`'s heads, and the final state (B, H, hd,
+    hd) f32 (zero initial state), the recurrence in kernel B5, or in
+    `_wkv_chunked` when `differentiable`."""
+    B, T, _ = x.shape
+    H, hd = _heads(cfg, p)
     rf, kf, vf, lw, u, g = wkv_inputs(cfg, p, x)
     if differentiable:
         out, state = _wkv_chunked(rf, kf, vf, lw, u, rf.new_zeros(
@@ -155,15 +168,60 @@ def rwkv_time_mix_full(cfg, p, x, differentiable: bool = False):
     else:
         out, state = wkv6_heads(rf, kf, vf, lw, u)
     out = out[:, :T].reshape(B, T, H * hd).to(x.dtype)
-    out = _group_norm(p, out, H, hd) * F.silu(g)
+    return _group_norm(p, out, H, hd) * F.silu(g), state
+
+
+def _head_specs(cfg, x, p):
+    """On a mesh: the specs of the heads' output (B, T, D) and of the
+    state (B, H, hd, hd), the batch as x's, the heads as `w_r`'s
+    columns, which must hold whole heads."""
+    H, hd = _heads(cfg)
+    if p["u"].locals[0].shape[0] % hd:
+        raise NotImplementedError(
+            f"{H} rwkv heads over {p['w_r'].spec[1]}: a position would hold "
+            f"part of a head, and the state needs fit_spec's fallback; not "
+            f"sharded yet (ROADMAP A, item 4c)")
+    return (x.spec[0], None, p["w_r"].spec[1]), (x.spec[0], p["w_r"].spec[1],
+                                                  None, None)
+
+
+def rwkv_time_mix_full(cfg, p, x, differentiable: bool = False):
+    """x (B,T,d), zero initial state. Returns (y, final state (B,H,hd,hd)
+    f32); the recurrence runs in kernel B5, or in `_wkv_chunked` when
+    `differentiable`."""
+    if pl.is_sharded(x):
+        out, state = pl.local_map_n(
+            lambda x_, p_: _mixed_heads(cfg, p_, x_), x, p,
+            specs=_head_specs(cfg, x, p))
+        return pl.einsum("bte,ed->btd", out, p["w_o"]), state
+    out, state = _mixed_heads(cfg, p, x, differentiable)
     return out @ p["w_o"], state
 
 
+def _cmix_key(p, x, x_prev):
+    return torch.relu(_lerp(x, x_prev, p["mu_ck"]) @ p["w_ck"]).square()
+
+
+def _cmix_receptance(p, x, x_prev):
+    return torch.sigmoid(_lerp(x, x_prev, p["mu_cr"]) @ p["w_cr"])
+
+
+def _channel_mix(p, x, x_prev):
+    """sigmoid(r) * (relu(k)^2 @ w_cv) on x and its shifted `x_prev`
+    (B, T, d); on a mesh k is column-parallel, w_cv row-parallel."""
+    if pl.is_sharded(x):
+        kx = pl.local_map(_cmix_key, p, x, x_prev,
+                          spec=(x.spec[0], None, p["w_ck"].spec[1]))
+        return pl.local_map(torch.mul, pl.local_map(_cmix_receptance, p, x,
+                                                    x_prev, spec=x.spec),
+                            pl.einsum("btf,fd->btd", kx, p["w_cv"]))
+    return _cmix_receptance(p, x, x_prev) * (_cmix_key(p, x, x_prev)
+                                             @ p["w_cv"])
+
+
 def rwkv_channel_mix_full(cfg, p, x):
-    kx = _lerp(x, _shift(x), p["mu_ck"]) @ p["w_ck"]
-    kx = torch.relu(kx).square()
-    rx = torch.sigmoid(_lerp(x, _shift(x), p["mu_cr"]) @ p["w_cr"])
-    return rx * (kx @ p["w_cv"])
+    return _channel_mix(p, x, pl.local_map(_shift, x) if pl.is_sharded(x)
+                        else _shift(x))
 
 
 def init_rwkv_cache(cfg, batch: int, dtype, device) -> dict:
@@ -178,11 +236,11 @@ def init_rwkv_cache(cfg, batch: int, dtype, device) -> dict:
     }
 
 
-def rwkv_tmix_decode(cfg, p, x, state, x_prev):
-    """One token time-mix. x (B,1,d); state (B,H,hd,hd) f32; x_prev (B,d).
-    Returns (y (B,1,d), new_state)."""
+def _decode_heads(cfg, p, x, state, x_prev):
+    """One token of the time mix up to `w_o`: the gated, group-normed
+    output (B, 1, D) of `p`'s heads and the new state."""
     B = x.shape[0]
-    H, hd = _heads(cfg)
+    H, hd = _heads(cfg, p)
     r, k, v, g, logw = _tmix_project(cfg, p, x, x_prev[:, None, :])
     rf = r.float().reshape(B, H, hd)
     kf = k.float().reshape(B, H, hd)
@@ -193,13 +251,24 @@ def rwkv_tmix_decode(cfg, p, x, state, x_prev):
     out = torch.einsum("bhc,bhcd->bhd", rf, state + u[..., None] * kv)
     state = state * w[..., None] + kv
     out = out.reshape(B, 1, H * hd).to(x.dtype)
-    out = _group_norm(p, out, H, hd) * F.silu(g)
+    return _group_norm(p, out, H, hd) * F.silu(g), state
+
+
+def rwkv_tmix_decode(cfg, p, x, state, x_prev):
+    """One token time-mix. x (B,1,d); state (B,H,hd,hd) f32; x_prev (B,d).
+    Returns (y (B,1,d), new_state)."""
+    if pl.is_sharded(x):
+        out, state = pl.local_map_n(
+            lambda x_, p_, s_, xp: _decode_heads(cfg, p_, x_, s_, xp), x, p,
+            state, x_prev, specs=_head_specs(cfg, x, p))
+        return pl.einsum("bte,ed->btd", out, p["w_o"]), state
+    out, state = _decode_heads(cfg, p, x, state, x_prev)
     return out @ p["w_o"], state
 
 
 def rwkv_cmix_decode(cfg, p, x, x_prev):
     """One token channel-mix. x (B,1,d); x_prev (B,d)."""
-    xp = x_prev[:, None, :]
-    kx = torch.relu(_lerp(x, xp, p["mu_ck"]) @ p["w_ck"]).square()
-    rx = torch.sigmoid(_lerp(x, xp, p["mu_cr"]) @ p["w_cr"])
-    return rx * (kx @ p["w_cv"])
+    if pl.is_sharded(x):
+        return _channel_mix(p, x, pl.local_map(
+            lambda t: t[:, None], x_prev, spec=x.spec))
+    return _channel_mix(p, x, x_prev[:, None, :])

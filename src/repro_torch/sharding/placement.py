@@ -17,6 +17,9 @@ axis, so that two runs give the same bits:
 * `all_reduce_sum`: every position receives every other's partial sum
   and adds them all in f32, in axis order, rounding once to the partials'
   dtype;
+* `reduce_scatter`: the same f32 sum, in the same order, of one slice of
+  the partials along a dim that the axis then shards: each position
+  receives its slice of what `all_reduce_sum` would give, bit for bit;
 * `all_gather`: every position concatenates every position's block along
   the sharded dim;
 * `all_to_all`: a mesh axis moves from one dim to another (each position
@@ -34,7 +37,7 @@ cache and a batch by `param_specs` (the `ParamDef`s' logical axes),
 `cache_specs` and `input_shardings`, each fitted with `fit_spec`. A
 placement for which `fit_spec` had to move an axis to a fallback dim
 raises `NotImplementedError`: no layer runs such a layout yet (ROADMAP A,
-item 4).
+item 4c).
 """
 from __future__ import annotations
 
@@ -147,6 +150,17 @@ def local_map(fn, *args, spec: Optional[Sequence] = None) -> ShardedTensor:
     return wrap(outs, st.spec if spec is None else spec, st.mesh)
 
 
+def local_map_n(fn, *args, specs: Sequence[Sequence]
+                ) -> Tuple[ShardedTensor, ...]:
+    """`local_map` of an `fn` that returns a tuple: one placed tensor per
+    result, the j-th placed by ``specs[j]``."""
+    st = _first_sharded(args)
+    outs = [fn(*(local_tree(a, i) for a in args))
+            for i in range(len(st.locals))]
+    return tuple(wrap([o[j] for o in outs], s, st.mesh)
+                 for j, s in enumerate(specs))
+
+
 # ------------------------------------------------------------ place, gather
 def fitted(s: P, shape: Sequence[int], mesh) -> P:
     """`fit_spec` of `s` for `shape`; raises where the fit had to move an
@@ -156,7 +170,7 @@ def fitted(s: P, shape: Sequence[int], mesh) -> P:
         raise NotImplementedError(
             f"placing shape {tuple(shape)} by {s} on mesh "
             f"{axis_sizes(mesh)} needs fit_spec's fallback ({out}); no layer "
-            f"runs such a layout yet (ROADMAP A, item 4)")
+            f"runs such a layout yet (ROADMAP A, item 4c)")
     return out
 
 
@@ -265,6 +279,40 @@ def all_reduce_sum(st: ShardedTensor, axis: str) -> ShardedTensor:
     _record("all_reduce_sum", len(st.locals) * (n - 1),
             len(st.locals) * (n - 1) * _nbytes(st.locals[0]))
     return dataclasses.replace(st, locals=tuple(out))
+
+
+def reduce_scatter(st: ShardedTensor, axis: str, dim: int
+                   ) -> ShardedTensor:
+    """Sum the positions' blocks (partial sums) along `axis` and leave
+    each position its slice of the sum along the replicated `dim`, which
+    `axis` then shards: the position at index r adds the r-th slices of
+    all the blocks in f32, in axis order, and rounds once to their dtype,
+    so that its block equals that slice of `all_reduce_sum`'s result bit
+    for bit, for 1/n of its bytes."""
+    if _dim_of(st, axis) is not None or st.spec[dim] is not None:
+        raise ValueError(f"reduce_scatter over {axis} to dim {dim} of "
+                         f"{st.spec}")
+    n = axis_sizes(st.mesh)[axis]
+    if st.shape[dim] % n:
+        raise ValueError(f"dim {dim} ({st.shape[dim]}) does not divide "
+                         f"over {axis} ({n})")
+    entries = list(st.spec)
+    entries[dim] = axis
+    if n == 1:
+        return wrap(st.locals, entries, st.mesh)
+    out = [None] * len(st.locals)
+    with torch.profiler.record_function("exchange.reduce_scatter"):
+        for group in _groups(st.mesh, axis):
+            parts = [st.locals[j].chunk(n, dim) for j in group]
+            for r, i in enumerate(group):
+                dev = st.mesh.devices[i]
+                acc = parts[0][r].to(dev, torch.float32, copy=True)
+                for p in parts[1:]:
+                    acc.add_(p[r].to(dev))
+                out[i] = acc.to(st.dtype)
+    _record("reduce_scatter", len(st.locals) * (n - 1),
+            len(st.locals) * (n - 1) * _nbytes(st.locals[0]) // n)
+    return wrap(out, entries, st.mesh)
 
 
 def all_gather(st: ShardedTensor, axis: str) -> ShardedTensor:
@@ -420,16 +468,27 @@ def _place_group(group, mesh) -> dict:
     return out
 
 
-def shard_params(model, mesh) -> dict:
+def shard_params(model, mesh, release: bool = False) -> dict:
     """A `DecoderLM`'s parameters placed on `mesh`: a dict of its top
     entries ("embed", "final_norm", "lm_head", ...) and of "layers" /
     "encoder" lists of per-layer dicts, every leaf a `ShardedTensor`
     placed by its `ParamDef`'s logical axes (the leaf's entry of
     `decoder_lm.param_specs`) fitted to the mesh. Every position gets its
-    own copy of its blocks; the model is left as it was."""
-    tree = _place_group(model.top, mesh)
-    tree["layers"] = [_place_group(g, mesh) for g in model.layers]
-    tree["encoder"] = [_place_group(g, mesh) for g in model.encoder]
+    own copy of its blocks. By default the model is left as it was, for a
+    caller that places it again on another mesh or runs it unplaced beside
+    its placement; with `release` it is emptied group by group as each is
+    placed, so that the model and one layer's blocks are held at once, not
+    the model twice (a model that fills most of a device)."""
+    def place(group):
+        out = _place_group(group, mesh)
+        if release:
+            for t in group.parameters():
+                t.data = t.data.new_empty(0)
+        return out
+
+    tree = place(model.top)
+    tree["layers"] = [place(g) for g in model.layers]
+    tree["encoder"] = [place(g) for g in model.encoder]
     return tree
 
 

@@ -11,7 +11,10 @@ leaving the bits unchanged) and the VLM / encoder-decoder smoke models
 on the card against the CPU (1e-3); the dense `attn` LMs tensor- and
 data-parallel on meshes of the card repeated against the unsharded model
 on the card (f32 1e-4, bf16 3e-2 relative L2; B4 once per layer and
-position; two sharded runs bitwise equal). Run on a GPU
+position; two sharded runs bitwise equal); the MoE and recurrent kinds
+(`attn_moe`, `rwkv`, `rglru`, `local`) on a (1, 2) mesh of the card
+against the unsharded model (f32 1e-4), and B4 / B5 at the query, KV
+and rwkv heads one mesh position holds at model 2 and 4. Run on a GPU
 machine with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1198,3 +1201,97 @@ def test_sharded_dense_lm_on_card(cuda, data, model, kv, dtype):
     for a, b in zip(got, want):
         assert float((a.float() - b.float()).norm() / b.float().norm()) < tol
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "grok-1-314b", "rwkv6-3b",
+                                  "recurrentgemma-9b"])
+def test_sharded_kinds_on_card(cuda, arch):
+    """The MoE and recurrent kinds in f32 smoke models (rwkv6-3b with 4
+    heads of 64, recurrentgemma-9b with 16 query heads and one KV head, as
+    the full model) placed on a (1, 2) mesh of the card repeated: prefill
+    (B4 or B5 once per layer that runs it and position, on the position's
+    heads) and 3 decode steps against the unsharded model on the card,
+    the logits within 1e-4 relative L2; two sharded runs bitwise equal."""
+    import dataclasses
+    from repro_torch.configs import ARCHS, smoke
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import decoder_lm as M
+    from repro_torch.sharding import placement as pl
+    from repro_torch.sharding import use_mesh
+    kw = {"rwkv6-3b": dict(d_model=256, num_heads=4, num_kv_heads=4),
+          "recurrentgemma-9b": dict(num_heads=16)}.get(arch, {})
+    cfg = dataclasses.replace(smoke(ARCHS[arch]), **kw)
+    base = M.init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (4, 200),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+
+    def run(params):
+        last, cache = M.prefill_step(cfg, params, toks, length=203)
+        out = [last]
+        for pos in range(200, 203):
+            lg, cache = M.decode_step(cfg, params, cache, toks[:, :1], pos)
+            out.append(lg[:, 0])
+        return out
+
+    want = run(base)
+    mesh = make_mesh((cuda,) * 2, {"data": 1, "model": 2})
+    params = pl.shard_params(base, mesh)
+    kernel = wkv6 if arch == "rwkv6-3b" else flash_attention
+    kinds = ("rwkv",) if arch == "rwkv6-3b" else ("attn_moe", "local")
+    with use_mesh(mesh):
+        before = kernel.launches
+        got = run(params)
+        assert kernel.launches - before == 2 * sum(
+            k in kinds for k in cfg.layer_kinds)
+        again = run(params)
+    for a, b in zip(got, want):
+        assert float((a - b).norm() / b.norm()) < 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("case", ["dbrx", "grok", "recurrentgemma"])
+@pytest.mark.parametrize("model", [2, 4])
+def test_flash_attention_at_per_position_shapes(cuda, case, model):
+    """B4 in bf16 at the query and KV heads one mesh position holds at
+    model 2 and 4: dbrx-132b / grok-1-314b (48 / 8 heads of 128, causal,
+    grok capped at 30) and recurrentgemma-9b (16 query heads of 256 and
+    its one KV head whole on every position, banded to its window 2048),
+    over 2304 tokens, against the plain version (tolerance as at the
+    other bf16 shapes)."""
+    H, KV, hd, cap, window = {"dbrx": (48, 8, 128, 0.0, 0),
+                              "grok": (48, 8, 128, 30.0, 0),
+                              "recurrentgemma": (16, 1, 256, 0.0, 2048)}[case]
+    H, KV = H // model, max(KV // model, 1)
+    g = torch.Generator().manual_seed(model)
+    q, k, v = (torch.randn((2, 2304, h, hd), generator=g).to(
+        cuda, torch.bfloat16) for h in (H, KV, KV))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = ref_attention(q, k, v, window=window, softcap=cap)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+@pytest.mark.parametrize("model", [2, 4])
+def test_wkv6_at_per_position_shapes(cuda, model):
+    """B5 at the rwkv6-3b heads one mesh position holds (40 / model heads
+    of 64) over 2048 steps, against the plain version (tolerance as at
+    the other shapes)."""
+    g = torch.Generator().manual_seed(model)
+    B, T, H, hd = 2, 2048, 40 // model, 64
+    r, k, v = (torch.randn((B, T, H, hd), generator=g) for _ in range(3))
+    logw = torch.clamp(-torch.exp(0.5 * torch.randn((B, T, H, hd),
+                                                    generator=g)), min=-5.0)
+    u = 0.1 * torch.randn((H, hd), generator=g)
+    before = wkv6.launches
+    out, state = wkv6_heads(*(t.to(cuda) for t in (r, k, v, logw, u)))
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    r_out, r_state = wkv6_heads(r, k, v, logw, u)
+    scale = float(max(r_out.abs().max(), r_state.abs().max()))
+    tol = dict(rtol=1e-4, atol=max(1e-3, 1e-5 * scale))
+    torch.testing.assert_close(out.cpu(), r_out, **tol)
+    torch.testing.assert_close(state.cpu(), r_state, **tol)

@@ -32,6 +32,7 @@ from repro_torch.core.adaptive_depth import adaptive_decode_step
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import decoder_lm as M
 from repro_torch.models.convert import lm_params_from_numpy
+from repro_torch.nn import blocks as B_
 from repro_torch.serving import LMServingEngine
 from repro_torch.sharding import placement as pl
 from repro_torch.sharding import named, spec, use_mesh
@@ -196,28 +197,88 @@ def test_engine_gives_the_same_tokens_inside_use_mesh(models, name,
     assert all(pl.is_sharded(t) for c in eng.cache for t in c.values())
 
 
+def _smoke_model(arch):
+    """`smoke()` of `arch`, recurrentgemma-9b with the full model's 16
+    query heads (the 4 of `smoke()` put its one KV head over the model
+    axis: a fallback placement)."""
+    cfg = smoke(ARCHS[arch])
+    if arch == "recurrentgemma-9b":
+        cfg = dataclasses.replace(cfg, num_heads=16)
+    return cfg, M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b",
                                   "dbrx-132b", "llama-3.2-vision-11b",
                                   "whisper-small"])
 def test_unported_layer_kinds_raise_on_a_mesh(arch):
-    """`rwkv`, `rglru`, `local`, `attn_moe`, `xattn`, `enc` and `encdec`
-    raise on a mesh of more than one position (their placement or their
-    layer), and run as unplaced on a mesh of one."""
-    cfg = smoke(ARCHS[arch])
-    model = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    """`xattn`, `enc` and `encdec` raise on a mesh of more than one
+    position (their placement or their layer); `rwkv`, `rglru`, `local`
+    and `attn_moe` run there and equal the unsharded model; all run as
+    unplaced on a mesh of one."""
+    cfg, model = _smoke_model(arch)
     seq = torch.randint(0, cfg.vocab_size, (2, 8))
     mesh = _mesh(1, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A, item 4"):
-        params = pl.shard_params(model, mesh)
-        with use_mesh(mesh):
-            M.forward(cfg, params, seq)
     if cfg.is_encdec or cfg.num_image_tokens:
+        with pytest.raises(NotImplementedError, match="ROADMAP A, item 4"):
+            params = pl.shard_params(model, mesh)
+            with use_mesh(mesh):
+                M.forward(cfg, params, seq)
         return
+    params = pl.shard_params(model, mesh)
+    with use_mesh(mesh):
+        got, _ = M.forward(cfg, params, seq)
+    _close(got, M.forward(cfg, model, seq)[0], PORT, f"{arch} on (1, 2)")
     one = _mesh(1, 1)
     params = pl.shard_params(model, one)
     with use_mesh(one):
         got, _ = M.forward(cfg, params, seq)
     assert torch.equal(got, M.forward(cfg, model, seq)[0])
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "grok-1-314b", "rwkv6-3b",
+                                  "recurrentgemma-9b"])
+def test_sharded_kinds_raise_when_differentiable(arch):
+    """Training on a mesh is queued (ROADMAP A, item 4a): `forward(...,
+    differentiable=True)`, `loss_fn` and each layer of the model with
+    `differentiable=True` raise on a mesh of more than one position."""
+    cfg, model = _smoke_model(arch)
+    seq = torch.randint(0, cfg.vocab_size, (2, 16))
+    mesh = _mesh(1, 2)
+    params = pl.shard_params(model, mesh)
+    with use_mesh(mesh):
+        with pytest.raises(NotImplementedError, match="item 4a"):
+            M.forward(cfg, params, seq, differentiable=True)
+        with pytest.raises(NotImplementedError, match="item 4a"):
+            M.loss_fn(cfg, params, {"tokens": seq})
+        toks, positions = M._sharded_tokens(cfg, seq, mesh)
+        x = M._embed_tokens(cfg, params, toks, positions)
+        for kind, p in zip(cfg.layer_kinds, params["layers"]):
+            with pytest.raises(NotImplementedError,
+                               match=f"{kind}.*differentiable.*item 4a"):
+                B_.apply_layer(cfg, kind, p, x, positions=positions,
+                               differentiable=True)
+
+
+@pytest.mark.parametrize("arch,mesh_shape", [("recurrentgemma-9b", (1, 2)),
+                                             ("rwkv6-3b", (1, 4))])
+def test_fallback_placements_raise(arch, mesh_shape):
+    """`smoke()` recurrentgemma-9b's one KV head, and rwkv6-3b's 2 heads at
+    model 4, do not divide the model axis: `fit_spec` would move it to
+    another dim, which no layer runs (ROADMAP A, item 4c). rwkv's weights
+    place (128 columns over 4), but a position would hold half a head:
+    its layer and its cache raise."""
+    cfg = smoke(ARCHS[arch])
+    model = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    seq = torch.randint(0, cfg.vocab_size, (2, 16))
+    mesh = _mesh(*mesh_shape)
+    with pytest.raises(NotImplementedError, match="fallback.*item 4c"):
+        params = pl.shard_params(model, mesh)
+        with use_mesh(mesh):
+            M.forward(cfg, params, seq)
+    if arch == "rwkv6-3b":
+        with use_mesh(mesh), pytest.raises(NotImplementedError,
+                                           match="fallback.*item 4c"):
+            M.init_cache(cfg, 2, 16, "cpu")
 
 
 def test_placed_models_and_caches_are_checked(models):
