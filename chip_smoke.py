@@ -184,22 +184,37 @@ fails (non-zero exit, no result line) on any failed check:
    (2, 2), gemma-7b whole (28 layers, 16 heads of 256, tied embedding,
    GeGLU) on (1, 1) and (1, 2), and on (1, 1), (1, 2) and (2, 2)
    dbrx-132b (6 of 40 layers) and grok-1-314b (4 of 64) with their
-   experts FSDP over "data", rwkv6-3b and recurrentgemma-9b whole; bf16,
-   random weights drawn anew for each mesh (conditioned as above) and
-   placed by `shard_params`. For each mesh: the bytes each position
-   holds, measured on the placed tensors; B4 (B5 for rwkv) on position
-   0's operands of the first layer that runs it, at the per-position
-   shape, against its plain version and timed beside SDPA; the main path
+   experts FSDP over "data", rwkv6-3b and recurrentgemma-9b whole, and
+   the frontend models llama-3.2-vision-11b (10 of 40 layers, 4 x 1600
+   image rows) and whisper-small whole (16 x 224 tokens, 16 x 1500
+   frames; its odd vocab puts "model" on d of the embedding and the
+   head); bf16, random weights drawn anew for each mesh (conditioned as
+   above) and placed by `shard_params`. For each mesh: the bytes each
+   position holds, measured on the placed tensors; B4 (B5 for rwkv) on
+   position 0's operands of the first layer that runs it, at the
+   per-position shape, against its plain version and timed beside SDPA
+   (for the frontend models the key-bound launches of the first `xattn`,
+   `enc` and cross-attention, `bounded_attention_check`); the main path
    inside `use_mesh`: prefill 4 x 2048 (the kernel once per layer and
-   position), 16 decode steps fed the (1, 1) mesh's greedy tokens, one
-   traced prefill and decode step (the device time of each collective),
-   and 4 requests through `LMServingEngine`; prefill tokens/s, decode ms
-   a step, the exchange's bytes (the collectives' counter), for MoE the
-   prefill's drops per layer (within MOE_DROP_GAP of the assignments of
-   (1, 1)'s), and the relative L2 of the logits and the argmax agreement
-   against the (1, 1) mesh, which must stay under the model's SHARDED_REL.
-   Last, rwkv6-3b whole in f32 on its meshes (`sharded_f32_check`),
-   whose logits must stay within F32_REL of (1, 1)'s.
+   position, twice per `encdec` layer), 16 decode steps fed the (1, 1)
+   mesh's greedy tokens, `seed_frontend_cache` into a cache placed by
+   `init_cache` equal to the prefill's xk / xv bit for bit, one traced
+   prefill and decode step (the device time of each collective), and 4
+   requests through `LMServingEngine` (its cache seeded from the
+   frontend); prefill tokens/s, decode ms a step, the exchange's bytes
+   (the collectives' counter), for MoE the prefill's drops per layer
+   (within MOE_DROP_GAP of the assignments of (1, 1)'s), and the
+   relative L2 of the logits and the argmax agreement against the (1, 1)
+   mesh, which must stay under the model's SHARDED_REL. Then rwkv6-3b
+   and whisper-small whole in f32 on their meshes (`sharded_f32_check`),
+   whose logits must stay within F32_REL of (1, 1)'s. Last, adaptive
+   decoding on a placed model (`sharded_adaptive_phase`): granite-34b at
+   full width, 4 of 88 layers, exit heads at blocks 0-2, in f32 on (1,
+   1), (1, 2) and (2, 2): B4's f32 kernel on position 0's causal MQA
+   operands, the prefill 4 x 2048, 16 decode steps at full depth and
+   adaptive at t_s 0, a middle t_s and 1e9, the adaptive engine; exit
+   blocks equal to (1, 1)'s outside the margin, the FLOPs share equal,
+   the logits within F32_REL.
 5. train (`train_phase`, last, so that nothing it leaves behind runs
    beside the LM timings): the paper's training procedure (`train_nai`,
    Inception Distillation, `DistillConfig()`'s 300/200/200 epochs) on the
@@ -2473,7 +2488,9 @@ def attention_check(torch, dev, cfg, q, k, v, label, cap_acts=False,
     bf16 moves the output by at most 2^-9 of the largest |v| (the output
     is a convex combination of rows of v), and each output is rounded to
     bf16 (2^-9 of |out| each): atol = 2^-8 max|v|, rtol = 2^-7 (the
-    unconditioned projections' v reach ~100, where a bf16 step is 0.5)."""
+    unconditioned projections' v reach ~100, where a bf16 step is 0.5).
+    The bound takes the peak of the operands' type (f32 on the CUDA
+    cores for f32)."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      ref_attention)
     cap = cfg.attn_logit_softcap
@@ -2527,7 +2544,8 @@ def attention_check(torch, dev, cfg, q, k, v, label, cap_acts=False,
                 library, plain_reps=5)
     t["uncapped_ms"] = time_ms(torch, lambda: flash_attention(q, k, v,
                                                               window=W))
-    ms, by = bound(nbytes, flops, PEAK_BF16_FLOP_S)
+    ms, by = bound(nbytes, flops, PEAK_BF16_FLOP_S
+                   if q.dtype == torch.bfloat16 else PEAK_F32_FLOP_S)
     print(f"{label} timings: kernel {t['ms']:.4f} ms "
           f"({flops / t['ms'] / 1e9:.1f} TFLOP/s, {ms / t['ms']:.1%} of "
           f"its bound {ms:.4f} ms, {by}); the kernel without the cap "
@@ -2918,7 +2936,7 @@ def xattn_phase(torch, dev, kernels, arch, smi_line):
     from repro_torch.nn import attention as A
     from repro_torch.nn import blocks as TB
     from repro_torch.nn.basic import apply_norm
-    from repro_torch.nn.params import count_params, torch_dtype
+    from repro_torch.nn.params import count_params
     from repro_torch.serving import LMServingEngine
 
     phase(f"xattn {arch}")
@@ -2928,7 +2946,7 @@ def xattn_phase(torch, dev, kernels, arch, smi_line):
     shp = XATTN_SHAPES[arch]
     batch, seq, n_dec = shp["batch"], shp["seq"], 32
     B2, gate_seq = shp["gate"]
-    n_fe = cfg.encoder_seq if cfg.is_encdec else cfg.num_image_tokens
+    n_fe = frontend_rows(cfg)
     t0 = time.perf_counter()
     gen = torch.Generator(dev).manual_seed(0)
     model = M.init_params(cfg, gen, device=dev)
@@ -2954,10 +2972,7 @@ def xattn_phase(torch, dev, kernels, arch, smi_line):
           + f", embed + head + norms {outer:.4g}; {n_par} parameters in all "
           f"({n_par:.4g}), {n_bytes} bytes ({cfg.param_dtype}); made in "
           f"{time.perf_counter() - t0:.1f}s")
-    dtype = torch_dtype(cfg.dtype)
-    fe_gen = torch.Generator(dev).manual_seed(1)
-    frontend = torch.randn((batch, n_fe, cfg.d_model), generator=fe_gen,
-                           device=dev).to(dtype)
+    frontend = draw_frontend(torch, dev, cfg, batch)
     prompts = torch.from_numpy(synthetic_lm_batch(
         np.random.default_rng(0), batch, max(seq, gate_seq + 1),
         cfg.vocab_size)["tokens"]).long().to(dev)
@@ -3005,8 +3020,7 @@ def xattn_phase(torch, dev, kernels, arch, smi_line):
     torch.cuda.empty_cache()
 
     # ---- (c) the main path: prefill with the frontend, then greedy decode
-    n_b4 = (sum(k in ("attn", "xattn") for k in cfg.layer_kinds)
-            + 2 * cfg.layer_kinds.count("encdec") + cfg.encoder_layers)
+    n_b4 = prefill_launches(cfg)["flash_attention"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(kernels)
@@ -3649,14 +3663,25 @@ def adaptive_phase(torch, dev, kernels, smi_line):
 
 SHARDED_LAYERS = {"mistral-large-123b": 8,    # of 88: 23.76 GB of bf16
                   "dbrx-132b": 6,             # of 40 and 64, as in the MoE
-                  "grok-1-314b": 4}           # phases; the others whole
+                  "grok-1-314b": 4,           # phases; the others whole
+                  # 10 of 40: two repeats of its (attn x 4, xattn)
+                  # pattern; whole, its three meshes took 74.5 s of a run
+                  # that must stay under 1,050 s ("NVIDIA H100 80GB HBM3,
+                  # 700.00 W"), the traced steps 37.7 s of them
+                  "llama-3.2-vision-11b": 10}
 SHARDED_MESHES = {"mistral-large-123b": ((1, 1), (1, 2), (1, 4), (2, 2)),
                   "gemma-7b": ((1, 1), (1, 2)),
                   "dbrx-132b": ((1, 1), (1, 2), (2, 2)),
                   "grok-1-314b": ((1, 1), (1, 2), (2, 2)),
                   "rwkv6-3b": ((1, 1), (1, 2), (2, 2)),
-                  "recurrentgemma-9b": ((1, 1), (1, 2), (2, 2))}
+                  "recurrentgemma-9b": ((1, 1), (1, 2), (2, 2)),
+                  "llama-3.2-vision-11b": ((1, 1), (1, 2), (2, 2)),
+                  "whisper-small": ((1, 1), (1, 2), (2, 2))}
 SHARDED_SHAPE = dict(batch=4, seq=2048, n_dec=16)
+# the prompt where it is not SHARDED_SHAPE's: whisper-small's 16 clips of
+# 224 tokens (the cross-attention phase's), each with its 1500 frames;
+# llama-3.2-vision-11b's 4 x 2048 tokens each with 1600 image rows
+SHARDED_SHAPES = {"whisper-small": dict(batch=16, seq=224, n_dec=16)}
 # limit of the relative L2 distance of a sharded mesh's bf16 logits to the
 # (1, 1) mesh's (each position's partial products round to bf16 before the
 # f32 all-reduce, so the sums round otherwise): about twice the largest an
@@ -3670,14 +3695,20 @@ SHARDED_BF16_REL = 0.02
 SHARDED_REL = {"mistral-large-123b": SHARDED_BF16_REL,
                "gemma-7b": SHARDED_BF16_REL,
                "dbrx-132b": 0.0125, "grok-1-314b": 0.0125,
-               "rwkv6-3b": 0.95, "recurrentgemma-9b": 0.025}
+               "rwkv6-3b": 0.95, "recurrentgemma-9b": 0.025,
+               # twice the 0.01033 (llama whole) and 0.01029 an H100 gave
+               "llama-3.2-vision-11b": 0.021, "whisper-small": 0.021}
 # the bf16 limit cannot see a wrong split of rwkv6-3b, so it runs again in
 # f32 (whole, prefill batch x seq and n_dec decode steps) on its meshes,
 # held against (1, 1) under F32_REL (an H100 gave 4.311e-4 and 3.768e-4
 # at (1, 2) and (2, 2), as large as the f32 prefill's distance to f32
 # token-by-token decoding at 32 layers, 4.227e-4; on a CPU smoke model a
 # channel mix that drops its all-reduce is 0.49 away)
-SHARDED_F32 = dict(arch="rwkv6-3b", batch=2, seq=1024, n_dec=4)
+# whisper-small whole in f32 (2 x 224 tokens, 2 x 1500 frames, 4 decode
+# steps) holds the d-sharded embedding and head (its odd vocab), the
+# encoder and the cross-attention to the same limit
+SHARDED_F32 = (dict(arch="rwkv6-3b", batch=2, seq=1024, n_dec=4),
+               dict(arch="whisper-small", batch=2, seq=224, n_dec=4))
 # limit of the MoE prefill's drops against (1, 1)'s, as a share of the
 # assignments: the sum over layers of each layer's difference (the
 # routers see residuals rounded otherwise; an H100 gave 47 of 196,608
@@ -3708,6 +3739,95 @@ def exchange_profile(torch, step):
 
 KERNEL_KINDS = {"flash_attention": ("attn", "attn_moe", "local"),
                 "wkv6": ("rwkv",)}
+
+
+def prefill_launches(cfg) -> dict:
+    """Each LM kernel's launches in one prefill on one mesh position: B4
+    once per `attn`, `attn_moe`, `local` and `xattn` layer and encoder
+    layer, twice per `encdec` layer (its self- and cross-attention); B5
+    once per `rwkv` layer."""
+    kinds = cfg.layer_kinds
+    return {"flash_attention": sum(k in KERNEL_KINDS["flash_attention"]
+                                   + ("xattn",) for k in kinds)
+            + 2 * kinds.count("encdec") + cfg.encoder_layers,
+            "wkv6": kinds.count("rwkv")}
+
+
+def frontend_rows(cfg) -> int:
+    """The frontend's rows a sequence: encoder frames or image rows (0:
+    no frontend)."""
+    return cfg.encoder_seq if cfg.is_encdec else cfg.num_image_tokens
+
+
+def draw_frontend(torch, dev, cfg, batch):
+    """The stub frontend (batch, rows, d) in the model's dtype, from a
+    CUDA generator seeded 1 (None without a frontend)."""
+    from repro_torch.nn.params import torch_dtype
+    n = frontend_rows(cfg)
+    if not n:
+        return None
+    return torch.randn((batch, n, cfg.d_model), device=dev,
+                       generator=torch.Generator(dev).manual_seed(1)).to(
+        torch_dtype(cfg.dtype))
+
+
+def frontend_operands(torch, cfg, params, toks, frontend, mesh):
+    """Mesh position 0's q, k, v of B4's key-bound launches at the
+    prefill's shape, as the sharded path hands them over (on a mesh of
+    one position, the unplaced path's): llama-3.2-vision's first `xattn`
+    layer, or whisper's first `enc` layer and its first `encdec` layer's
+    cross-attention. Returns [(what, q, k, v)]."""
+    from repro_torch.models import decoder_lm as M
+    from repro_torch.nn import attention as A
+    from repro_torch.nn import blocks as TB
+    from repro_torch.nn.basic import apply_norm
+    from repro_torch.sharding import placement as pl
+    one = len(mesh.devices) == 1
+    if one:
+        params, ts, fe = pl.local_tree(params), toks, frontend
+    else:
+        placed = pl.shard_inputs(cfg, {"tokens": toks, "frontend": frontend},
+                                 mesh)
+        ts, fe = placed["tokens"], placed["frontend"]
+
+    def pick(q, k, v):
+        if one:
+            return q, k, v
+        k, v = A._whole_head_dim(k), A._whole_head_dim(v)
+        return (q.locals[0], A._kv_for_heads(q, k, 0),
+                A._kv_for_heads(q, v, 0))
+
+    def cross(p, xn, y):
+        q = (torch.einsum if one else pl.einsum)("bsd,dhe->bshe", xn,
+                                                 p["wq"])
+        return pick(q, *A.project_kv(cfg, p, y))
+    out = []
+    with torch.no_grad():
+        pos = M._positions(ts)
+        x = M._embed_tokens(cfg, params, ts, pos)
+        if cfg.is_encdec:
+            p = params["encoder"][0]
+            y = pl.per_position(lambda t: t.to(x.dtype), fe)
+            qkv = (A._project_qkv if one else A._sharded_qkv)(
+                cfg, p["attn"], apply_norm(cfg, p["norm1"], y),
+                M._positions(y))
+            out.append(("enc (layer 0)", *pick(*qkv)))
+            p = params["layers"][0]
+            x = x + A.self_attention(cfg, p["attn"], apply_norm(
+                cfg, p["norm1"], x), pos)[0]
+            out.append(("cross (layer 0)", *cross(
+                p["xattn"], apply_norm(cfg, p["normx"], x),
+                M._frontend(cfg, params, fe))))
+        else:
+            i_x = cfg.layer_kinds.index("xattn")
+            for i in range(i_x):
+                x, _, _ = TB.apply_layer(cfg, cfg.layer_kinds[i],
+                                         params["layers"][i], x,
+                                         positions=pos)
+            p = params["layers"][i_x]
+            out.append((f"xattn (layer {i_x})", *cross(
+                p["xattn"], apply_norm(cfg, p["norm1"], x), fe)))
+    return [(what, *(t.contiguous() for t in ops)) for what, *ops in out]
 
 
 def position0_operands(torch, cfg, params, toks, mesh):
@@ -3749,14 +3869,16 @@ def position0_operands(torch, cfg, params, toks, mesh):
         return tuple(a.contiguous() for a in ops), kind
 
 
-def sharded_f32_check(torch, dev, smi_line):
-    """SHARDED_F32's model whole in f32 (TF32 off), weights drawn as in
-    `sharded_lm_phase`, on each of its meshes of SHARDED_MESHES inside
-    `use_mesh`: a prefill of batch x seq tokens and n_dec decode steps fed
-    (1, 1)'s greedy tokens, the logits held against (1, 1)'s under F32_REL
-    relative L2 (in bf16 rwkv6-3b's rounding at full depth is as large as
-    what a wrong column split, head slice or all-reduce would change).
-    Returns the line for the summary."""
+def sharded_f32_check(torch, dev, smi_line, arch, batch, seq, n_dec):
+    """`arch` whole in f32 (TF32 off), weights drawn as in
+    `sharded_lm_phase` (its frontend too), on each of its meshes of
+    SHARDED_MESHES inside `use_mesh`: a prefill of batch x seq tokens and
+    n_dec decode steps fed (1, 1)'s greedy tokens, the logits held
+    against (1, 1)'s under F32_REL relative L2 (in bf16 rwkv6-3b's
+    rounding at full depth is as large as what a wrong column split,
+    head slice or all-reduce would change; whisper-small's row-parallel
+    head, encoder and cross-attention are held as closely). Returns the
+    line for the summary."""
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import synthetic_lm_batch
     from repro_torch.launch.mesh import make_mesh
@@ -3764,13 +3886,12 @@ def sharded_f32_check(torch, dev, smi_line):
     from repro_torch.sharding import placement as pl
     from repro_torch.sharding import use_mesh
 
-    arch, batch, seq, n_dec = (SHARDED_F32[k] for k in
-                               ("arch", "batch", "seq", "n_dec"))
     cfg = dataclasses.replace(get_config(arch), dtype="float32",
                               param_dtype="float32")
     toks = torch.from_numpy(synthetic_lm_batch(
         np.random.default_rng(2), batch, seq, cfg.vocab_size)[
         "tokens"]).long().to(dev)
+    fe = draw_frontend(torch, dev, cfg, batch)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     ref, errs, t0 = None, {}, time.perf_counter()
@@ -3784,7 +3905,7 @@ def sharded_f32_check(torch, dev, smi_line):
             params = pl.shard_params(model, mesh, release=True)
             del model
             with use_mesh(mesh):
-                last, cache = M.prefill_step(cfg, params, toks,
+                last, cache = M.prefill_step(cfg, params, toks, frontend=fe,
                                              length=seq + n_dec)
                 outs = [last]
                 fed = (ref["tokens"] if ref is not None
@@ -3811,8 +3932,10 @@ def sharded_f32_check(torch, dev, smi_line):
             torch.cuda.empty_cache()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+    rows = frontend_rows(cfg)
     line = (f"{arch} whole in f32 on its meshes, prefill {batch} x {seq} "
-            f"and {n_dec} decode steps ({time.perf_counter() - t0:.1f} s), "
+            + (f"with {batch} x {rows} frontend rows " if rows else "")
+            + f"and {n_dec} decode steps ({time.perf_counter() - t0:.1f} s), "
             f"against (1, 1): " + "; ".join(
                 f"mesh (data {d}, model {m}) relative L2 of the prefill "
                 f"logits {pre:.4g}, of the decode steps' {dec:.4g}, argmax "
@@ -3835,7 +3958,12 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
     SHARDED_LAYERS where it is named there, on each of its meshes: the
     dense `attn` models mistral-large-123b and gemma-7b, the MoE models
     dbrx-132b and grok-1-314b (experts FSDP over "data"), rwkv6-3b and
-    recurrentgemma-9b; bf16, random weights from a CUDA generator seeded 0
+    recurrentgemma-9b, and the frontend models llama-3.2-vision-11b and
+    whisper-small (SHARDED_SHAPES; the frontend drawn by
+    `draw_frontend`, placed by `input_shardings`, B4's key-bound
+    launches checked at position 0, `seed_frontend_cache` held to the
+    placed prefill's xk / xv bit for bit and seeding the engine's cache);
+    bf16, random weights from a CUDA generator seeded 0
     (conditioned as `condition_weights` says), made anew for each mesh and
     placed by `shard_params` (releasing the model as it goes). For each
     mesh: the path's kernel (B4, or B5 for rwkv) on position 0's operands
@@ -3879,21 +4007,22 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
             + "; one card cannot measure capacity")
     print(line)
     lines.append(line)
-    sh = SHARDED_SHAPE
-    batch, seq, n_dec = sh["batch"], sh["seq"], sh["n_dec"]
     total = {name: 0 for name in KERNEL_KINDS}
     for arch, meshes in SHARDED_MESHES.items():
         t_arch = time.perf_counter()
+        sh = SHARDED_SHAPES.get(arch, SHARDED_SHAPE)
+        batch, seq, n_dec = sh["batch"], sh["seq"], sh["n_dec"]
         full = get_config(arch)
         cfg = (dataclasses.replace(full, num_layers=SHARDED_LAYERS[arch])
                if arch in SHARDED_LAYERS else full)
-        per_layer = {name: sum(k in kinds for k in cfg.layer_kinds)
-                     for name, kinds in KERNEL_KINDS.items()}
+        per_pos = prefill_launches(cfg)
         is_moe = "attn_moe" in cfg.layer_kinds
         prompts = torch.from_numpy(synthetic_lm_batch(
             np.random.default_rng(0), batch, seq + 1, cfg.vocab_size)[
             "tokens"]).long().to(dev)
         toks = prompts[:, :seq]
+        fe = draw_frontend(torch, dev, cfg, batch)
+        rows = frontend_rows(cfg)
         ref = None
         for data, model_ax in meshes:
             torch.cuda.empty_cache()
@@ -3930,35 +4059,44 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
             lap("make and place")
             with use_mesh(mesh) as scope:
                 # ---- the kernel at the per-position shape, position 0's
-                # operands
-                ops, kind = position0_operands(torch, cfg, params, toks,
-                                               mesh)
-                if kind == "rwkv":
-                    wkv_check(torch, *ops, f"wkv6 {label}, position 0")
+                # operands (the key-bound launches for a frontend)
+                if fe is not None:
+                    for what, *ops in frontend_operands(
+                            torch, cfg, params, toks, fe, mesh):
+                        lines.append(bounded_attention_check(
+                            torch, *ops, f"flash_attention {label} {what}, "
+                                         f"position 0")[1])
+                    del ops
                 else:
-                    attention_check(torch, dev, cfg, *ops,
-                                    f"flash_attention {label}, position 0",
-                                    window=(cfg.sliding_window
-                                            if kind == "local" else 0))
-                del ops
+                    ops, kind = position0_operands(torch, cfg, params, toks,
+                                                   mesh)
+                    if kind == "rwkv":
+                        wkv_check(torch, *ops, f"wkv6 {label}, position 0")
+                    else:
+                        attention_check(torch, dev, cfg, *ops,
+                                        f"flash_attention {label}, position "
+                                        f"0", window=(cfg.sliding_window
+                                                      if kind == "local"
+                                                      else 0))
+                    del ops
                 torch.cuda.empty_cache()
                 lap("kernel check")
                 # ---- the main path: prefill, decode, the engine
-                M.prefill_step(cfg, params, toks[:, :128])      # warm
-                torch.cuda.synchronize()
+                M.prefill_step(cfg, params, toks[:, :128], frontend=fe)
+                torch.cuda.synchronize()                        # warm
                 scope.exchange.clear()
                 zero_counts(kernels)
                 if is_moe:
                     moe.apply_moe.drops = []
                 t0 = time.perf_counter()
-                last, cache = M.prefill_step(cfg, params, toks,
+                last, cache = M.prefill_step(cfg, params, toks, frontend=fe,
                                              length=seq + n_dec + 1)
                 torch.cuda.synchronize()
                 t_prefill = time.perf_counter() - t0
                 launches = launch_counts(kernels)
                 pre_ex = {k: dict(v) for k, v in scope.exchange.items()}
                 want = {name: n * data * model_ax
-                        for name, n in per_layer.items()}
+                        for name, n in per_pos.items()}
                 check(all(launches[n] == want.get(n, 0) for n in launches),
                       f"{label} prefill launched each kernel once per layer "
                       f"that runs it and position ({launches}, want {want})")
@@ -3984,6 +4122,24 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
                 torch.cuda.synchronize()
                 t_decode = time.perf_counter() - t0
                 dec_ex = {k: dict(v) for k, v in scope.exchange.items()}
+                seeded = ""
+                if fe is not None:
+                    # seed_frontend_cache on the mesh: the placed
+                    # prefill's xk / xv, bit for bit, in the cache's layout
+                    fresh = M.seed_frontend_cache(cfg, params, M.init_cache(
+                        cfg, batch, seq + n_dec + 1, dev), fe)
+                    n_x = sum(n in c for c in cache for n in ("xk", "xv"))
+                    check(n_x > 0 and all(
+                        c[n].spec == f[n].spec and all(
+                            torch.equal(a, b)
+                            for a, b in zip(c[n].locals, f[n].locals))
+                        for c, f in zip(cache, fresh)
+                        for n in ("xk", "xv") if n in c),
+                        f"{label} seed_frontend_cache == the placed "
+                        f"prefill's xk / xv, bit for bit")
+                    seeded = (f"; seed_frontend_cache == the prefill's xk / "
+                              f"xv bit for bit ({n_x} entries)")
+                    del fresh
                 lap("prefill and decode")
                 # one traced step each, warm from the steps above (the
                 # profiler's parse of a sharded step's events takes
@@ -3993,6 +4149,7 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
                                                  fed[n_dec], seq + n_dec))
                 pre_wall, pre_busy, pre_ms = exchange_profile(
                     torch, lambda: M.prefill_step(cfg, params, toks,
+                                                  frontend=fe,
                                                   length=seq + n_dec + 1))
                 lap("traced step and prefill")
                 check(all(bool(torch.isfinite(o).all()) for o in outs)
@@ -4000,6 +4157,9 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
                       f"{label} logits finite, shaped")
                 eng = LMServingEngine(cfg, params, slots=4, max_len=64,
                                       device=dev)
+                if fe is not None:     # the engine takes no frontend
+                    eng.cache = M.seed_frontend_cache(cfg, params, eng.cache,
+                                                      fe[:4])
                 reqs = synthetic_lm_batch(np.random.default_rng(1), 4, 8,
                                           cfg.vocab_size)["tokens"]
                 for r in reqs:
@@ -4046,7 +4206,10 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
                        f"(1, 1) dropped {sum(ref['drops'])}, difference "
                        f"{sum(drops) - sum(ref['drops'])}, layer by layer "
                        f"{gap})")
-            line = (f"{label}: prefill {batch} x {seq} in {t_prefill:.3f} s, "
+            line = (f"{label}: prefill {batch} x {seq}"
+                    + (f" with {batch} x {rows} frontend rows" if rows
+                       else "")
+                    + f" in {t_prefill:.3f} s, "
                     f"{batch * seq / t_prefill:.1f} tokens/s, {kern}, "
                     f"exchange {ex(pre_ex)}; traced prefill {pre_wall:.2f} "
                     f"ms wall, device busy {pre_busy:.2f} ms, exchange "
@@ -4060,7 +4223,8 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
                     f"{placed}{dropped}; against (1, 1): relative L2 of the "
                     f"prefill logits {err_pre:.4g}, of the {n_dec} decode "
                     f"steps' {err_dec:.4g}, argmax agreement {agree:.4f}, "
-                    f"engine token agreement {eng_agree:.4f}; {smi_line}")
+                    f"engine token agreement {eng_agree:.4f}{seeded}; "
+                    f"{smi_line}")
             print(line)
             lines.append(line)
             print(f"{label} seconds: {secs}")
@@ -4077,8 +4241,256 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
             gc.collect()
             torch.cuda.empty_cache()
         print(f"sharded lm {arch}: {time.perf_counter() - t_arch:.1f} s")
-    lines.append(sharded_f32_check(torch, dev, smi_line))
+    for f32 in SHARDED_F32:
+        lines.append(sharded_f32_check(torch, dev, smi_line, **f32))
     print(f"sharded lm phase: {time.perf_counter() - t_phase:.1f} s")
+    return total, lines
+
+
+# adaptive decoding on a placed model: granite-34b at full width, 4 of 88
+# layers, exit heads at blocks 0-2 (t_min 0, t_max 2), in f32 so that a
+# mesh's exit decisions can be held to (1, 1)'s; random heads, the middle
+# t_s the median of (1, 1)'s first-step saturation distances after
+# blocks 0-2, so that tokens exit at several blocks
+SHARDED_ADAPTIVE = dict(arch="granite-34b", layers=4, exits=(0, 1, 2),
+                        batch=4, seq=2048, n_dec=16,
+                        meshes=((1, 1), (1, 2), (2, 2)))
+
+
+def sharded_adaptive_phase(torch, dev, kernels, smi_line):
+    """Adaptive decoding on a placed model (ROADMAP A item 4a): granite-34b
+    by SHARDED_ADAPTIVE in f32 (TF32 off), random weights from a CUDA
+    generator seeded 0 (conditioned as `condition_weights` says), drawn
+    anew for each mesh and placed by `shard_params(..., release=True)`.
+    For each mesh: the bytes a position; B4's f32 kernel on position 0's
+    q, k, v of layer 0 (causal MQA, the KV head whole on every position)
+    against its plain version; the prefill (B4 once per layer and
+    position); n_dec decode steps at full depth, then with
+    `adaptive_decode_step` at t_s 0, the middle t_s and 1e9, each on the
+    prompts' next tokens; a traced prefill and adaptive step (the
+    exchange's device ms); the adaptive engine (4 requests). Held against
+    (1, 1): the exit blocks equal except tokens whose saturation lies
+    within D2_MARGIN (relative) of t_s, at most MAX_NEAR_SHARE of them,
+    the FLOPs share equal where no exit differs, the logits within
+    F32_REL relative L2 (a lane from the step its exit differs on, if
+    any, left out). Returns (B4's launches in the prefills, the
+    lines for the summary)."""
+    from repro_torch.common import AdaptiveDepthConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.adaptive_depth import (adaptive_decode_step,
+                                                 saturation_distance)
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import decoder_lm as M
+    from repro_torch.nn import blocks as TB
+    from repro_torch.serving import LMServingEngine
+    from repro_torch.sharding import placement as pl
+    from repro_torch.sharding import use_mesh
+
+    phase("sharded adaptive granite-34b")
+    t_phase = time.perf_counter()
+    sa = SHARDED_ADAPTIVE
+    full = get_config(sa["arch"])
+    cfg = dataclasses.replace(
+        full, num_layers=sa["layers"], dtype="float32",
+        param_dtype="float32", adaptive=AdaptiveDepthConfig(
+            enabled=True, exit_layers=sa["exits"], t_s=1e9, t_min=0,
+            t_max=max(sa["exits"])))
+    batch, seq, n_dec = sa["batch"], sa["seq"], sa["n_dec"]
+    prompts = torch.from_numpy(synthetic_lm_batch(
+        np.random.default_rng(0), batch, seq + n_dec, cfg.vocab_size)[
+        "tokens"]).long().to(dev)
+    toks = prompts[:, :seq]
+    inputs = [prompts[:, seq + t:seq + t + 1] for t in range(n_dec)]
+    reqs = synthetic_lm_batch(np.random.default_rng(1), 4, 8,
+                              cfg.vocab_size)["tokens"]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref, lines, total = None, [], 0
+    try:
+        for data, model_ax in sa["meshes"]:
+            t_mesh = time.perf_counter()
+            label = (f"{sa['arch']} adaptive mesh (data {data}, model "
+                     f"{model_ax})")
+            gen = torch.Generator(dev).manual_seed(0)
+            model = M.init_params(cfg, gen, device=dev)
+            condition_weights(torch, cfg, model, gen)
+            mesh = make_mesh((dev,) * (data * model_ax),
+                             {"data": data, "model": model_ax})
+            params = pl.shard_params(model, mesh, release=True)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            placed = pl.position_bytes(params)
+            with use_mesh(mesh) as scope:
+                ops, _ = position0_operands(torch, cfg, params, toks, mesh)
+                attention_check(torch, dev, cfg, *ops,
+                                f"flash_attention {label}, position 0")
+                del ops
+                M.prefill_step(cfg, params, toks[:, :128])       # warm
+                torch.cuda.synchronize()
+                scope.exchange.clear()
+                zero_counts(kernels)
+                t0 = time.perf_counter()
+                last, cache = M.prefill_step(cfg, params, toks,
+                                             length=seq + n_dec)
+                torch.cuda.synchronize()
+                t_prefill = time.perf_counter() - t0
+                launches = launch_counts(kernels)
+                pre_ex = sum(v["bytes"] for v in scope.exchange.values())
+                want = cfg.num_layers * data * model_ax
+                check(launches["flash_attention"] == want and all(
+                    v == 0 for n, v in launches.items()
+                    if n != "flash_attention"),
+                    f"{label} prefill launched flash_attention once per "
+                    f"layer and position ({launches}, want {want})")
+                total += launches["flash_attention"]
+                if ref is None:
+                    # the first step's distance after each block, on the
+                    # unplaced blocks of the mesh of one
+                    with torch.no_grad():
+                        lp = pl.local_tree(params)
+                        x = M._embed_tokens(cfg, lp, inputs[0],
+                                            torch.full_like(inputs[0], seq))
+                        dist = []
+                        for p, c in zip(lp["layers"], pl.local_tree(cache)):
+                            x_new, _, _ = TB.apply_layer(
+                                cfg, "attn", p, x, mode="decode", cache=c,
+                                pos=seq)
+                            dist.append(saturation_distance(x_new, x))
+                            x = x_new
+                    # halfway between the two middle distances, so that no
+                    # token of that step lies at t_s
+                    d = torch.cat(dist[:len(sa["exits"])]).sort().values
+                    mid = float(d[len(d) // 2 - 1: len(d) // 2 + 1].mean())
+                    t_list = (0.0, mid, 1e9)
+                # full depth, then adaptive at each t_s, the same inputs
+                scope.exchange.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs = []
+                for t in range(n_dec):
+                    lg, cache = M.decode_step(cfg, params, cache, inputs[t],
+                                              seq + t)
+                    outs.append(lg[:, 0])
+                torch.cuda.synchronize()
+                t_full = time.perf_counter() - t0
+                step_ex = sum(v["bytes"] for v in scope.exchange.values())
+                runs = {}
+                for t_s in t_list:
+                    acfg = dataclasses.replace(cfg, adaptive=dataclasses.replace(
+                        cfg.adaptive, t_s=t_s))
+                    got = []
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for t in range(n_dec):
+                        lg, cache, info = adaptive_decode_step(
+                            acfg, params, cache, inputs[t], seq + t)
+                        got.append((lg[:, 0], info))
+                    torch.cuda.synchronize()
+                    runs[t_s] = dict(
+                        ms=1e3 * (time.perf_counter() - t0) / n_dec,
+                        logits=torch.stack([g[0] for g in got]).float(),
+                        blocks=torch.stack([g[1]["exit_block"]
+                                            for g in got]),
+                        sat=torch.stack([g[1]["saturation"] for g in got]),
+                        saved=[float(g[1]["flops_saved_frac"])
+                               for g in got])
+                acfg = dataclasses.replace(cfg, adaptive=dataclasses.replace(
+                    cfg.adaptive, t_s=mid))
+                wall, busy, ex_ms = exchange_profile(
+                    torch, lambda: adaptive_decode_step(
+                        acfg, params, cache, inputs[-1], seq + n_dec - 1))
+                pre_wall, pre_busy, pre_ms = exchange_profile(
+                    torch, lambda: M.prefill_step(cfg, params, toks,
+                                                  length=seq + n_dec))
+                eng = LMServingEngine(acfg, params, slots=4, max_len=64,
+                                      adaptive=True, device=dev)
+                for r in reqs:
+                    eng.submit(r.tolist(), max_new=8)
+                t0 = time.perf_counter()
+                stats = eng.run_until_drained()
+                torch.cuda.synchronize()
+                t_eng = time.perf_counter() - t0
+                check(stats["completed"] == 4 and all(
+                    len(r.out) == 8 for r in eng.completed),
+                    f"{label} adaptive engine served every request")
+                served = sorted((r.rid, r.out) for r in eng.completed)
+                del eng
+            full_logits = torch.stack(outs).float()
+            check(bool(torch.isfinite(full_logits).all()) and all(
+                bool(torch.isfinite(r["logits"]).all())
+                for r in runs.values()), f"{label} logits finite")
+            if ref is None:
+                ref = dict(full=full_logits, runs=runs, served=served,
+                           saved=stats["mean_depth_flops_saved"])
+            parts = []
+            for t_s, r in runs.items():
+                r0 = ref["runs"][t_s]
+                differ = r["blocks"] != r0["blocks"]
+                tol = D2_MARGIN * max(t_s, 1e-30)
+                near = ((r["sat"] - t_s).abs() <= tol) | (
+                    (r0["sat"] - t_s).abs() <= tol)
+                n_diff, n_near = int(differ.sum()), int(near.sum())
+                # a lane whose exit differs (in the margin) is compared no
+                # more from that step on: its frozen state wrote other keys
+                same = (differ.cumsum(0) == 0)[..., None]
+                err = rel_l2(r["logits"] * same, r0["logits"] * same)
+                hist = {int(b): int(n) for b, n in zip(*torch.unique(
+                    r["blocks"], return_counts=True))}
+                parts.append(
+                    f"t_s {t_s:.6g}: {r['ms']:.2f} ms a step, exit blocks "
+                    f"{hist}, flops_saved_frac {np.mean(r['saved']):.4f}, "
+                    f"exits unlike (1, 1)'s {n_diff} (within the margin "
+                    f"{n_near}) of {differ.numel()}, logits vs (1, 1) "
+                    f"{err:.4g} (over {int(same.sum())} of {same.numel()} "
+                    f"lane steps)")
+                check(bool(near[differ].all())
+                      and n_near <= MAX_NEAR_SHARE * differ.numel(),
+                      f"{label} t_s {t_s}: exit blocks equal to (1, 1)'s "
+                      f"outside the margin ({n_diff} differ, {n_near} near)")
+                check(n_diff > 0 or r["saved"] == r0["saved"],
+                      f"{label} t_s {t_s}: flops_saved_frac equal to "
+                      f"(1, 1)'s")
+                check(err < F32_REL, f"{label} t_s {t_s}: logits within "
+                      f"{F32_REL} of (1, 1)'s ({err})")
+            err_full = rel_l2(full_logits, ref["full"])
+            check(err_full < F32_REL, f"{label} full-depth logits within "
+                  f"{F32_REL} of (1, 1)'s ({err_full})")
+            eng_agree = float(np.mean([a == b for (_, x), (_, y) in zip(
+                served, ref["served"]) for a, b in zip(x, y)]))
+
+            def traced(ms):
+                return (", ".join(f"{k.split('.')[1]} {v:.4f}"
+                                  for k, v in sorted(ms.items())) or "0")
+            line = (f"{label}: f32, {cfg.num_layers} of {full.num_layers} "
+                    f"layers, exits at blocks {sa['exits']}; bytes a "
+                    f"position {placed}; prefill {batch} x {seq} in "
+                    f"{t_prefill:.3f} s, {batch * seq / t_prefill:.1f} "
+                    f"tokens/s, flash_attention launches "
+                    f"{launches['flash_attention']}, exchange {pre_ex} bytes"
+                    f", traced {pre_wall:.2f} ms wall, device busy "
+                    f"{pre_busy:.2f} ms, exchange device ms {traced(pre_ms)}"
+                    f"; decode at full depth {1e3 * t_full / n_dec:.2f} ms a "
+                    f"step, exchange {step_ex // n_dec} bytes a step, "
+                    f"logits vs (1, 1) {err_full:.4g}; traced adaptive step "
+                    f"(t_s {mid:.6g}) {wall:.2f} ms wall, device busy "
+                    f"{busy:.2f} ms, exchange device ms {traced(ex_ms)}; "
+                    + "; ".join(parts) + f"; engine (t_s {mid:.6g}) 4 "
+                    f"requests in {stats['ticks']} ticks, {32 / t_eng:.1f} "
+                    f"generated tokens/s, mean depth-FLOPs saved "
+                    f"{stats['mean_depth_flops_saved']:.4f} ((1, 1) "
+                    f"{ref['saved']:.4f}), token agreement with (1, 1) "
+                    f"{eng_agree:.4f}; {time.perf_counter() - t_mesh:.1f} s;"
+                    f" {smi_line}")
+            print(line)
+            lines.append(line)
+            del params, cache, outs, runs, last, lg, full_logits
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"sharded adaptive phase: {time.perf_counter() - t_phase:.1f} s")
     return total, lines
 
 
@@ -4158,8 +4570,15 @@ def main() -> int:
     # meshes of the one card; B4's row adds their prefills' launches
     n, lines = sharded_lm_phase(torch, dev, kernels, smi_line)
     b4["launches"] += n["flash_attention"]
-    parts.append(f"{n['flash_attention']} in the sharded prefills of 4 x "
-                 f"2048 tokens (once per layer and mesh position)")
+    parts.append(f"{n['flash_attention']} in the sharded prefills (once "
+                 f"per attention layer and mesh position, twice per "
+                 f"encdec layer)")
+    # adaptive decoding on a placed granite-34b (ROADMAP A item 4a)
+    n_a, lines_a = sharded_adaptive_phase(torch, dev, kernels, smi_line)
+    b4["launches"] += n_a
+    parts.append(f"{n_a} in the placed granite-34b prefills of 4 x 2048 "
+                 f"tokens (f32)")
+    bounded += lines_a
     b5 = next(r for r in rows if r["name"] == "wkv6")
     b5["launches"] += n["wkv6"]
     b5["note"] = (f"({b5['launches'] - n['wkv6']} {b5['note']}, "

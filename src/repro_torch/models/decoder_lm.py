@@ -49,20 +49,25 @@ layers of pattern position i, here block l of kind i is layer
 remainder layers follow (``rem``), and each leaf's spec is the
 reference's without its leading "layers" entry (which `fit_spec` freezes
 to None anyway). A model placed by `repro_torch.sharding.placement.
-shard_params` runs `forward`, `prefill_step` and `decode_step` inside
-`use_mesh(mesh)`: the batch split over "data", the `attn` and `local`
-layers tensor-parallel over "model" (vocab-parallel embedding and
-logits, column-parallel q / k / v and MLP inputs, row-parallel `wo` and
-`w_down` with an all-reduce, B4 once per position on its heads), the
+shard_params` runs `forward`, `prefill_step`, `decode_step`,
+`seed_frontend_cache` and `core.adaptive_depth.adaptive_decode_step`
+inside `use_mesh(mesh)`: the batch (and the frontend) split over "data",
+the attention layers of every kind tensor-parallel over "model"
+(vocab-parallel embedding and logits, column-parallel q / k / v and MLP
+inputs, row-parallel `wo` and `w_down` with an all-reduce, B4 once per
+position on its heads; cross-attention over the placed frontend or
+encoder output, the encoder's `enc` layers bidirectional), the
 `attn_moe` experts FSDP over "data" and tensor-parallel over "model"
 (`repro_torch.nn.moe`), `rwkv` over its heads (B5 once per position)
 and `rglru` over its channels, the logits gathered onto the mesh's first
 device and the cache placed by `cache_specs`; `init_cache` inside
-`use_mesh` places the cache too. On a mesh of one position every
-function runs as unplaced on that position's tensors; on more, the
-`xattn`, `enc` and `encdec` kinds, training, `collect_states`, the
-frontends and adaptive decoding raise `NotImplementedError` (ROADMAP A,
-item 4a).
+`use_mesh` places the cache too. A vocab that the model axis does not
+divide puts the axis on d instead: the embedding looks each id up in its
+columns and all-gathers them, the head is row-parallel with its partial
+logits all-reduced in f32 (`placement.D_FALLBACK`). On a mesh of one
+position every function runs as unplaced on that position's tensors; on
+more, training (`differentiable`, `loss_fn`) and `collect_states` raise
+`NotImplementedError` (ROADMAP A, item 4a).
 """
 from __future__ import annotations
 
@@ -203,8 +208,10 @@ def _scale_embedding(cfg, x, positions):
 def _lookup_sharded(embed, tokens):
     """Vocab-parallel lookup: each position looks up the ids in its rows
     of `embed` (V, d) and gives the others zero; the all-reduce over the
-    vocab axis adds exactly one non-zero term, so the result is the
-    unsharded lookup bit for bit."""
+    vocab axis adds exactly one non-zero term. Where the columns (d) are
+    split instead, each position looks every id up in its columns and an
+    all-gather joins them. Either way the result is the unsharded lookup
+    bit for bit."""
     parts = []
     for i, (e, t) in enumerate(zip(embed.locals, tokens.locals)):
         lo, n = embed.block(i, 0)
@@ -214,8 +221,9 @@ def _lookup_sharded(embed, tokens):
                                  torch.zeros((), dtype=e.dtype,
                                              device=e.device)))
     x = pl.wrap(parts, (*tokens.spec, embed.spec[1]), embed.mesh)
-    return x if embed.spec[0] is None else pl.all_reduce_sum(x,
-                                                             embed.spec[0])
+    if embed.spec[0] is not None:
+        x = pl.all_reduce_sum(x, embed.spec[0])
+    return x if embed.spec[1] is None else pl.all_gather(x, embed.spec[1])
 
 
 def _soft_cap_logits(cfg, logits):
@@ -227,10 +235,18 @@ def _soft_cap_logits(cfg, logits):
 
 def _project_logits(cfg, params, x):
     if pl.is_sharded(x):
-        # vocab-parallel: each position its columns, then an all-gather
         tied = cfg.tie_embeddings
         head = params["embed"] if tied else params["lm_head"]
-        vocab = head.spec[0] if tied else head.spec[1]
+        vocab, d = (head.spec[0], head.spec[1]) if tied else (head.spec[1],
+                                                               head.spec[0])
+        if d is not None:
+            # row-parallel (a vocab the axis does not divide): each
+            # position its d slice, the partial logits summed in f32
+            h = pl.local_map(lambda t: t.to(x.dtype), head)
+            return pl.local_map(
+                lambda lg: _soft_cap_logits(cfg, lg),
+                pl.einsum("bsd,vd->bsv" if tied else "bsd,dv->bsv", x, h))
+        # vocab-parallel: each position its columns, then an all-gather
         logits = pl.local_map(lambda x_, h: _soft_cap_logits(
             cfg, x_ @ (h.T if tied else h).to(x_.dtype)), x, head,
             spec=(*x.spec[:-1], vocab))
@@ -240,18 +256,23 @@ def _project_logits(cfg, params, x):
 
 
 def _positions(tokens):
+    """(B, S) positions 0..S-1 of tokens (B, S, ...), placed as they are."""
+    if pl.is_sharded(tokens):
+        return pl.local_map(_positions, tokens, spec=tokens.spec[:2])
     S = tokens.shape[1]
-    return torch.arange(S, device=tokens.device)[None].expand(tokens.shape)
+    return torch.arange(S, device=tokens.device)[None].expand(
+        tokens.shape[:2])
 
 
 # ------------------------------------------------------------------ encoder
 def _run_encoder(cfg, params, frontend, differentiable=False):
     """Stub frontend embeddings (B, Se, d) -> encoder output (B, Se, d):
     the `enc` layers (bidirectional self-attention through B4, or its
-    plain path when `differentiable`), then `encoder_norm`."""
-    x = frontend.to(torch_dtype(cfg.dtype))
-    positions = torch.arange(x.shape[1], device=x.device)[None].expand(
-        x.shape[:2])
+    plain path when `differentiable`), then `encoder_norm`. A placed
+    frontend runs the layers' sharded paths."""
+    dtype = torch_dtype(cfg.dtype)
+    x = pl.per_position(lambda t: t.to(dtype), frontend)
+    positions = _positions(x)
     for p in params["encoder"]:
         x, _, _ = B.apply_layer(cfg, "enc", p, x, mode="train",
                                 positions=positions,
@@ -288,9 +309,9 @@ def forward(cfg, params, tokens, *, frontend=None, mode: str = "train",
         raise ValueError(f"mode {mode!r}: expected one of {MODES}")
     mesh = pl.placed_mesh(params)
     if mesh is not None and mesh_size(mesh) > 1:
-        _sharded_only(frontend=frontend, collect_states=collect_states,
+        _sharded_only(collect_states=collect_states,
                       differentiable=differentiable)
-        return _sharded_forward(cfg, params, tokens, mesh)
+        return _sharded_forward(cfg, params, tokens, frontend, mesh)
     if mesh is not None:
         params = pl.local_tree(params)
     ctx = contextlib.nullcontext() if differentiable else torch.no_grad()
@@ -332,14 +353,17 @@ def forward(cfg, params, tokens, *, frontend=None, mode: str = "train",
 def exit_logits(cfg, params, state, exit_index: int):
     """Exit head `exit_index` on a block's state (..., d): the per-exit
     adapter, an f32 rmsnorm (eps `norm_eps`) times the exit's gain, then
-    the shared unembedding (`_project_logits`)."""
+    the shared unembedding (`_project_logits`). On a placed state (d
+    whole) the replicated adapter and gain run on each position's
+    lanes."""
+    def adapt(s, adapter, scale):
+        hf = (s @ adapter[exit_index].to(s.dtype)).float()
+        hf = hf * torch.rsqrt(torch.mean(torch.square(hf), -1, keepdim=True)
+                              + cfg.norm_eps)
+        return (hf * scale[exit_index].float()).to(s.dtype)
     e = params["exits"]
-    h = state @ e["adapter"][exit_index].to(state.dtype)
-    hf = h.float()
-    hf = hf * torch.rsqrt(torch.mean(torch.square(hf), -1, keepdim=True)
-                          + cfg.norm_eps)
-    h = (hf * e["norm_scale"][exit_index].float()).to(state.dtype)
-    return _project_logits(cfg, params, h)
+    return _project_logits(cfg, params, pl.per_position(
+        adapt, state, e["adapter"], e["norm_scale"]))
 
 
 # --------------------------------------------------------------------- loss
@@ -393,8 +417,7 @@ def prefill_step(cfg, params, tokens, *, frontend=None,
     cross-attention entries `xk` / `xv` keep the frontend's length."""
     mesh = pl.placed_mesh(params)
     if mesh is not None and mesh_size(mesh) > 1:
-        _sharded_only(frontend=frontend)
-        return _sharded_prefill(cfg, params, tokens, length, mesh)
+        return _sharded_prefill(cfg, params, tokens, frontend, length, mesh)
     if mesh is not None:
         logits, cache = prefill_step(cfg, pl.local_tree(params), tokens,
                                      frontend=frontend, length=length)
@@ -484,15 +507,28 @@ def seed_frontend_cache(cfg, params, cache, frontend):
     """Fill the `xk` / `xv` entries of a fresh decode cache from the
     frontend embeddings (VLM) or the encoder's output (encoder-decoder),
     for decoding from scratch without a prefill. Returns a new list; the
-    other entries are `cache`'s own buffers."""
-    if pl.placed_mesh(params) is not None:
-        _sharded_only(frontend=frontend)
-    frontend = _frontend(cfg, params, frontend)
+    other entries are `cache`'s own buffers. A placed model fills a
+    placed cache, each entry in its layout, bit for bit what its
+    `prefill_step` caches."""
+    mesh = pl.placed_mesh(params)
+    if mesh is not None:
+        _check_placed(cache)
+        if mesh_size(mesh) == 1:
+            return _rewrap(cache, seed_frontend_cache(
+                cfg, pl.local_tree(params), pl.local_tree(cache), frontend))
+        frontend = _sharded_frontend(cfg, params, frontend, mesh)
+    else:
+        frontend = _frontend(cfg, params, frontend)
+
+    def like(t, c):
+        if pl.is_sharded(t):
+            t = pl.relayout(t, c.spec)
+        return pl.per_position(lambda t_: t_.to(c.dtype), t)
     out = []
     for p, c, kind in zip(params["layers"], cache, cfg.layer_kinds):
         if kind in ("xattn", "encdec"):
             k, v = attn.project_kv(cfg, p["xattn"], frontend)
-            c = dict(c, xk=k.to(c["xk"].dtype), xv=v.to(c["xv"].dtype))
+            c = dict(c, xk=like(k, c["xk"]), xv=like(v, c["xv"]))
         out.append(c)
     return out
 
@@ -510,9 +546,7 @@ def decode_step(cfg, params, cache, tokens, pos: int, frontend=None):
         _check_placed(cache)
         logits, new = decode_step(cfg, pl.local_tree(params),
                                   pl.local_tree(cache), tokens, pos)
-        return logits, [{n: dataclasses.replace(c[n], locals=(t,))
-                         for n, t in nc.items()}
-                        for c, nc in zip(cache, new)]
+        return logits, _rewrap(cache, new)
     positions = torch.full(tokens.shape, int(pos), device=tokens.device)
     x = _embed_tokens(cfg, params, tokens, positions)
     new_cache = []
@@ -525,13 +559,11 @@ def decode_step(cfg, params, cache, tokens, pos: int, frontend=None):
 
 
 # ------------------------------------------------------------------ sharded
-def _sharded_only(frontend=None, collect_states=False, differentiable=False):
+def _sharded_only(collect_states=False, differentiable=False):
     """What the sharded path does not run yet raises (ROADMAP A, item 4a):
-    the frontends, `collect_states` and `differentiable` here; the
-    `xattn`, `enc` and `encdec` layers in `blocks.apply_layer`; adaptive
-    decoding in `core.adaptive_depth`."""
-    asked = [n for n, v in (("frontend", frontend is not None),
-                            ("collect_states", collect_states),
+    training (`differentiable`, which `loss_fn` asks for) and
+    `collect_states`."""
+    asked = [n for n, v in (("collect_states", collect_states),
                             ("differentiable", differentiable)) if v]
     if asked:
         raise NotImplementedError(
@@ -545,38 +577,57 @@ def _check_placed(cache):
                         "with init_cache inside use_mesh, or shard_cache")
 
 
+def _rewrap(cache, new):
+    """The blocks of a mesh of one position (`new`, unplaced) placed as
+    the entries of `cache` are."""
+    return [{n: dataclasses.replace(c[n], locals=(t,)) for n, t in nc.items()}
+            for c, nc in zip(cache, new)]
+
+
 def _sharded_tokens(cfg, tokens, mesh):
     """Tokens (B, S) split over "data", and their positions."""
     toks = pl.shard_inputs(cfg, {"tokens": tokens}, mesh)["tokens"]
-    return toks, pl.local_map(_positions, toks)
+    return toks, _positions(toks)
 
 
-def _sharded_forward(cfg, params, tokens, mesh):
+def _sharded_frontend(cfg, params, frontend, mesh):
+    """The frontend placed by `input_shardings` (the batch over "data"),
+    through the encoder where there is one; None stays None."""
+    if frontend is None:
+        return None
+    placed = pl.shard_inputs(cfg, {"frontend": frontend}, mesh)["frontend"]
+    return _frontend(cfg, params, placed)
+
+
+def _sharded_forward(cfg, params, tokens, frontend, mesh):
     with torch.no_grad():
         toks, positions = _sharded_tokens(cfg, tokens, mesh)
+        fe = _sharded_frontend(cfg, params, frontend, mesh)
         x = _embed_tokens(cfg, params, toks, positions)
         aux = torch.zeros((), dtype=torch.float32, device=mesh.devices[0])
         for p, kind in zip(params["layers"], cfg.layer_kinds):
             x, _, aux = B.apply_layer(cfg, kind, p, x, mode="train",
-                                      positions=positions, aux=aux)
+                                      positions=positions, frontend=fe,
+                                      aux=aux)
         x = apply_norm(cfg, params["final_norm"], x)
         return pl.gather(_project_logits(cfg, params, x)), aux
 
 
 @torch.no_grad()
-def _sharded_prefill(cfg, params, tokens, length, mesh):
+def _sharded_prefill(cfg, params, tokens, frontend, length, mesh):
     Bsz, S = tokens.shape
     toks, positions = _sharded_tokens(cfg, tokens, mesh)
+    fe = _sharded_frontend(cfg, params, frontend, mesh)
     x = _embed_tokens(cfg, params, toks, positions)
     caches = []
     for p, kind, cs in zip(params["layers"], cfg.layer_kinds,
                            cache_specs(cfg, Bsz, length or S)):
         x, c, _ = B.apply_layer(cfg, kind, p, x, mode="prefill",
-                                positions=positions)
-        if kind in ("attn", "attn_moe") and length is not None \
+                                positions=positions, frontend=fe)
+        if kind in ("attn", "attn_moe", "encdec") and length is not None \
                 and length > S:
-            c = {n: pl.local_map(lambda t: torch.nn.functional.pad(
-                t, (0, 0, 0, 0, 0, length - S)), t) for n, t in c.items()}
+            c = dict(c, **{n: pl.local_map(lambda t: torch.nn.functional.pad(
+                t, (0, 0, 0, 0, 0, length - S)), c[n]) for n in ("k", "v")})
         caches.append({n: pl.relayout(t, pl.fitted(cs[n], t.shape, mesh))
                        for n, t in c.items()})
     x = apply_norm(cfg, params["final_norm"],

@@ -24,7 +24,12 @@ all-reduce. Decode follows the cache's layout (`decoder_lm.cache_specs`):
 over KV heads each position attends its own heads; over the head dim (the
 reference's `cache_hd`) q, k and v take head-dim slices, the partial q.k
 logits are all-reduced before the softmax, P.v runs on each slice, and
-an all-to-all brings the heads back for `wo`.
+an all-to-all brings the heads back for `wo`. Cross-attention on a placed
+x reads a placed frontend or encoder output: `project_kv` is
+column-parallel as k / v are, its full-sequence path re-lays k / v out to
+whole heads for B4 (not causal, the key bound the frontend's length) as
+self-attention does, and decode reads the placed `xk` / `xv` in the
+cache's layout as self-attention decode reads `k` / `v`.
 """
 from __future__ import annotations
 
@@ -183,6 +188,8 @@ def cross_attention(cfg, p, x, kv, *, differentiable: bool = False):
     Several queries (train / prefill) go through kernel B4, not causal,
     with Se as its key bound; one query (decode), and the
     `differentiable` path, through the plain `_sdpa`."""
+    if pl.is_sharded(x):
+        return _sharded_cross_attention(cfg, p, x, kv)
     k, v = kv
     q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
     if q.shape[1] == 1 or differentiable:
@@ -195,7 +202,10 @@ def cross_attention(cfg, p, x, kv, *, differentiable: bool = False):
 
 def project_kv(cfg, p, y):
     """Frontend / encoder output y (B, Se, d) to the (k, v) that
-    cross-attention reads (no RoPE)."""
+    cross-attention reads (no RoPE); column-parallel on a placed y."""
+    if pl.is_sharded(y):
+        return (pl.einsum("bsd,dke->bske", y, p["wk"]),
+                pl.einsum("bsd,dke->bske", y, p["wv"]))
     k = torch.einsum("bsd,dke->bske", y, p["wk"])
     v = torch.einsum("bsd,dke->bske", y, p["wv"])
     return k, v
@@ -274,14 +284,36 @@ def _kv_for_heads(q, kv, i: int):
     return kv.locals[i][:, :, g0:g0 + 1]
 
 
-def _sharded_self_attention(cfg, p, x, positions, *, window: int,
-                            causal: bool):
-    q, k, v = _sharded_qkv(cfg, p, x, positions)
-    out = pl.wrap([gqa_flash_attention(
+def _per_position_flash(cfg, q, k, v, *, causal: bool, window: int = 0):
+    """B4 once per position on its query heads and the KV heads they read
+    (k / v with whole head dims)."""
+    return pl.wrap([gqa_flash_attention(
         q.locals[i], _kv_for_heads(q, k, i), _kv_for_heads(q, v, i),
         causal=causal, window=window, softcap=cfg.attn_logit_softcap)
         for i in range(len(q.locals))], q.spec, q.mesh)
+
+
+def _sharded_self_attention(cfg, p, x, positions, *, window: int,
+                            causal: bool):
+    q, k, v = _sharded_qkv(cfg, p, x, positions)
+    out = _per_position_flash(cfg, q, k, v, causal=causal, window=window)
     return pl.einsum("bshe,hed->bsd", out, p["wo"]), (k, v)
+
+
+def _sharded_cross_attention(cfg, p, x, kv):
+    """Several queries: B4 per position, not causal, over k / v re-laid
+    out to whole heads; one query (decode): the placed `xk` / `xv` in the
+    cache's layout, as `_sharded_decode_self_attention` reads `k` / `v`.
+    Then the row-parallel `wo`."""
+    k, v = kv
+    q = pl.einsum("bsd,dhe->bshe", x, p["wq"])
+    if q.shape[1] > 1:
+        out = _per_position_flash(cfg, q, _whole_head_dim(k),
+                                  _whole_head_dim(v), causal=False)
+    else:
+        out = _attend_cache(cfg, pl.relayout(q, k.spec), k, v,
+                            lambda dev: None)
+    return pl.einsum("bshe,hed->bsd", out, p["wo"])
 
 
 def _sdpa_over_head_dim(cfg, q, k, v, mask, axis: str):
@@ -320,12 +352,20 @@ def _sharded_decode_self_attention(cfg, p, x, cache, pos: int, *,
     def mask(dev):
         return (torch.arange(L, device=dev) <= last)[None, None]
 
+    out = _attend_cache(cfg, q, ck, cv, mask)
+    return pl.einsum("bshe,hed->bsd", out, p["wo"]), {"k": ck, "v": cv}
+
+
+def _attend_cache(cfg, q, ck, cv, mask):
+    """One query's attention over a placed cache, q laid out as the cache
+    is: `_sdpa` per position, or `_sdpa_over_head_dim` where the cache
+    splits the head dim; the result with its heads over "model" for
+    `wo`. `mask(device)` gives the keys' mask (None: all)."""
     if ck.spec[3] is None:
         out = pl.local_map(lambda q_, k_, v_: _sdpa(cfg, q_, k_, v_,
                                                     mask(q_.device)),
                            q, ck, cv)
     else:
         out = _sdpa_over_head_dim(cfg, q, ck, cv, mask, ck.spec[3])
-    out = pl.relayout(out, fit_spec(spec("batch", "seq", "heads", None),
-                                    out.shape, out.mesh, fallback=False))
-    return pl.einsum("bshe,hed->bsd", out, p["wo"]), {"k": ck, "v": cv}
+    return pl.relayout(out, fit_spec(spec("batch", "seq", "heads", None),
+                                     out.shape, out.mesh, fallback=False))

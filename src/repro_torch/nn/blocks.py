@@ -23,12 +23,13 @@ apply_layer contract:
              which have no backward (the trainer's `loss_fn` asks for it)
 
 On a mesh of more than one position (x a `placement.ShardedTensor`,
-`repro_torch.models.decoder_lm`'s sharded path) the kinds of
-`SHARDED_KINDS` run through the sharded branches of `apply_norm`,
-`self_attention`, `decode_self_attention`, `apply_mlp`, `apply_moe`,
-`rwkv` and `rglru`, and `ring_cache` takes each position's block; the
-other kinds, and `differentiable`, raise `NotImplementedError` (ROADMAP
-A, item 4a).
+`repro_torch.models.decoder_lm`'s sharded path) every kind runs through
+the sharded branches of `apply_norm`, `self_attention`,
+`decode_self_attention`, `cross_attention`, `project_kv`, `apply_mlp`,
+`apply_moe`, `rwkv` and `rglru` (`frontend` and the cache's `xk` / `xv`
+placed too), `ring_cache` takes each position's block and the `xattn`
+gates scale each position's block; `differentiable` raises
+`NotImplementedError` (ROADMAP A, item 4a).
 
 Two differences from the reference, both faults of the reference
 recorded in ROADMAP C:
@@ -53,7 +54,8 @@ from repro_torch.nn.params import ParamDef
 from repro_torch.sharding import placement as pl
 
 # kinds that run on a mesh of more than one position
-SHARDED_KINDS = ("attn", "attn_moe", "rwkv", "rglru", "local")
+SHARDED_KINDS = ("attn", "attn_moe", "rwkv", "rglru", "local", "xattn",
+                 "enc", "encdec")
 
 # --------------------------------------------------------------------- defs
 def layer_defs(cfg, kind: str):
@@ -162,14 +164,20 @@ def _ffn(cfg, kind, p, xn, aux, decode=False):
     return h, aux + moe_aux
 
 
+def _gated(gate, h):
+    """tanh(gate) * h: the scalar gate (replicated where h is placed)
+    times each position's block."""
+    return pl.per_position(lambda h_, g: torch.tanh(g) * h_, h, gate)
+
+
 def _gated_xattn(cfg, p, x, kv, differentiable=False):
     """`xattn`: x + tanh(gate_attn) * cross-attention, then x +
     tanh(gate_mlp) * MLP."""
     h = attn.cross_attention(cfg, p["xattn"], apply_norm(cfg, p["norm1"], x),
                              kv, differentiable=differentiable)
-    x = x + torch.tanh(p["gate_attn"]) * h
+    x = x + _gated(p["gate_attn"], h)
     h = apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
-    return x + torch.tanh(p["gate_mlp"]) * h
+    return x + _gated(p["gate_mlp"], h)
 
 
 def _full_layer(cfg, kind, p, x, positions, frontend, mode, aux,

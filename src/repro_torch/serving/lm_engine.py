@@ -12,6 +12,14 @@ mean is `mean_depth_flops_saved`. For MoE models (`attn_moe`) a tick routes the 
 batch as one row, as the reference does: at up to 8 slots no expert can
 overflow its capacity (at least 8), but where one does, a lane's tokens
 depend on its neighbours, in both packages.
+
+A model placed by `repro_torch.sharding.placement.shard_params` is
+served inside `use_mesh(mesh)` (`device` the mesh's first device):
+`init_cache` places the pool's cache, and each tick, adaptive or not,
+runs the sharded path; the depth-FLOPs share is over the whole batch.
+The engine takes no frontend: a VLM's or encoder-decoder's cache is
+filled by `decoder_lm.seed_frontend_cache` (placed alike) before the
+first tick.
 """
 from __future__ import annotations
 

@@ -34,10 +34,14 @@ contracted dim that is sharded (Megatron's row-parallel product).
 
 `shard_params`, `shard_cache` and `shard_inputs` place a model, a decode
 cache and a batch by `param_specs` (the `ParamDef`s' logical axes),
-`cache_specs` and `input_shardings`, each fitted with `fit_spec`. A
-placement for which `fit_spec` had to move an axis to a fallback dim
-raises `NotImplementedError`: no layer runs such a layout yet (ROADMAP A,
-item 4c).
+`cache_specs` and `input_shardings`, each fitted with `fit_spec`. Where
+`fit_spec` had to move an axis to a fallback dim, the layers run one
+pattern: "model" moved onto d, the contracting dim of the k / v
+projections and of the head, or the embedding table's columns (a KV head
+count or a vocab that the axis does not divide; `D_FALLBACK`). `einsum`
+then slices the activations' d and all-reduces the partial products, and
+the lookup all-gathers the columns. Any other fallback raises
+`NotImplementedError` (ROADMAP A, item 4c).
 """
 from __future__ import annotations
 
@@ -161,12 +165,33 @@ def local_map_n(fn, *args, specs: Sequence[Sequence]
                  for j, s in enumerate(specs))
 
 
+def per_position(fn, *args, spec: Optional[Sequence] = None):
+    """`local_map(fn, *args, spec=spec)` where an argument is placed, else
+    fn(*args): code that runs on placed and unplaced tensors alike."""
+    if _first_sharded(args) is None:
+        return fn(*args)
+    return local_map(fn, *args, spec=spec)
+
+
 # ------------------------------------------------------------ place, gather
-def fitted(s: P, shape: Sequence[int], mesh) -> P:
-    """`fit_spec` of `s` for `shape`; raises where the fit had to move an
-    axis to a fallback dim."""
+# the weights (by their logical axes) whose fallback layout the layers run:
+# "model" moved onto d, the input dim of the k / v projections and of the
+# head, and the embedding table's columns
+D_FALLBACK = {("embed", "kv_heads", "head_dim"), ("embed", "vocab"),
+              ("vocab", "embed")}
+
+
+def fitted(s: P, shape: Sequence[int], mesh,
+           logical: Optional[Sequence] = None) -> P:
+    """`fit_spec` of `s` for `shape`. Where the fit had to move an axis to
+    a fallback dim it raises, unless `logical` (the tensor's logical axes)
+    names a weight of `D_FALLBACK` and the axis went to its "embed" dim."""
     out = fit_spec(s, shape, mesh)
-    if out != fit_spec(s, shape, mesh, fallback=False):
+    plain = fit_spec(s, shape, mesh, fallback=False)
+    moved = {i for i, (a, b) in enumerate(zip(out, plain)) if a != b}
+    if moved and not (logical is not None
+                      and tuple(logical) in D_FALLBACK
+                      and moved == {list(logical).index("embed")}):
         raise NotImplementedError(
             f"placing shape {tuple(shape)} by {s} on mesh "
             f"{axis_sizes(mesh)} needs fit_spec's fallback ({out}); no layer "
@@ -464,7 +489,7 @@ def _place_group(group, mesh) -> dict:
             out[name] = _place_group(t, mesh)
         else:
             out[name] = shard(t.detach(), NamedSharding(
-                mesh, fitted(spec(*d.logical), t.shape, mesh)))
+                mesh, fitted(spec(*d.logical), t.shape, mesh, d.logical)))
     return out
 
 

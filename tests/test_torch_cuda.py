@@ -14,7 +14,10 @@ on the card (f32 1e-4, bf16 3e-2 relative L2; B4 once per layer and
 position; two sharded runs bitwise equal); the MoE and recurrent kinds
 (`attn_moe`, `rwkv`, `rglru`, `local`) on a (1, 2) mesh of the card
 against the unsharded model (f32 1e-4), and B4 / B5 at the query, KV
-and rwkv heads one mesh position holds at model 2 and 4. Run on a GPU
+and rwkv heads one mesh position holds at model 2 and 4; the
+cross-attention and encoder kinds and adaptive decoding on a (1, 2) mesh
+(f32 1e-4, `seed_frontend_cache` bitwise the placed prefill's, exit
+blocks equal) and B4 at their per-position shapes. Run on a GPU
 machine with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1076,18 +1079,25 @@ def _adaptive_granite(layers=4):
 
 
 def _soft_model(cfg, dev):
-    """Random weights with wq, wk, wv scaled to a fan-in of d (the
-    initializer takes it from the heads axis, so the softmax is near a
-    hard max, where f32 sums in another order move the gradients by
-    percents)."""
+    """Random weights with wq, wk, wv of every attention and
+    cross-attention scaled to a fan-in of d (the initializer takes it
+    from the heads axis, so the softmax is near a hard max, where f32
+    sums in another order move the gradients by percents), and the
+    `xattn` gates set to 1 (at 0 they switch cross-attention off)."""
     from repro_torch.models import decoder_lm as M
     model = M.init_params(cfg, torch.Generator().manual_seed(0),
                           device="cpu")
     with torch.no_grad():
-        for p in model.layers:
-            p["attn"]["wq"].mul_((cfg.num_heads / cfg.d_model) ** 0.5)
-            for w in ("wk", "wv"):
-                p["attn"][w].mul_((cfg.num_kv_heads / cfg.d_model) ** 0.5)
+        for p in (*model.layers, *model.encoder):
+            for group in ("attn", "xattn"):
+                if group in p.defs:
+                    p[group]["wq"].mul_((cfg.num_heads / cfg.d_model) ** 0.5)
+                    for w in ("wk", "wv"):
+                        p[group][w].mul_(
+                            (cfg.num_kv_heads / cfg.d_model) ** 0.5)
+            for gate in ("gate_attn", "gate_mlp"):
+                if gate in p.defs:
+                    p[gate].fill_(1.0)
     return model.to(dev)
 
 
@@ -1295,3 +1305,130 @@ def test_wkv6_at_per_position_shapes(cuda, model):
     tol = dict(rtol=1e-4, atol=max(1e-3, 1e-5 * scale))
     torch.testing.assert_close(out.cpu(), r_out, **tol)
     torch.testing.assert_close(state.cpu(), r_state, **tol)
+
+
+@pytest.mark.parametrize("case", ["llama-xattn", "whisper-enc",
+                                  "whisper-self", "whisper-cross",
+                                  "granite"])
+@pytest.mark.parametrize("model", [2, 4])
+def test_flash_attention_at_per_position_frontend_shapes(cuda, case, model):
+    """B4 in bf16 through the GQA wrapper (queries and keys padded to 128,
+    the true key length as the bound) at the heads one mesh position
+    holds at model 2 and 4: llama-3.2-vision-11b's `xattn` (32 / 8 heads
+    of 128 over 1600 image rows, not causal), whisper-small's `enc` (12 /
+    12 heads of 64 over 1500 frames, not causal), its `encdec`
+    self-attention (224 tokens, causal) and cross-attention (224 queries
+    over 1500 frames), and granite-34b's causal MQA prefill (48 / 1 heads
+    of 128, the KV head whole on every position); against the plain
+    version on the unpadded operands (tolerance as at the other bf16
+    shapes)."""
+    H, KV, hd, Sq, Sk, causal = {
+        "llama-xattn": (32, 8, 128, 2048, 1600, False),
+        "whisper-enc": (12, 12, 64, 1500, 1500, False),
+        "whisper-self": (12, 12, 64, 224, 224, True),
+        "whisper-cross": (12, 12, 64, 224, 1500, False),
+        "granite": (48, 1, 128, 2048, 2048, True)}[case]
+    H, KV = H // model, max(KV // model, 1)
+    g = torch.Generator().manual_seed(model)
+    q = torch.randn((2, Sq, H, hd), generator=g).to(cuda, torch.bfloat16)
+    k, v = (torch.randn((2, Sk, KV, hd), generator=g).to(
+        cuda, torch.bfloat16) for _ in range(2))
+    before = flash_attention.launches
+    out = gqa_flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and out.shape == q.shape
+    ref = ref_attention(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-small"])
+def test_sharded_frontend_models_on_card(cuda, arch):
+    """The cross-attention and encoder kinds in f32 smoke models placed on
+    a (1, 2) mesh of the card repeated: prefill with the frontend (B4
+    once per self-, cross- and encoder attention layer and position) and
+    3 decode steps against the unsharded model on the card, the logits
+    within 1e-4 relative L2; `seed_frontend_cache` equal to the placed
+    prefill's xk / xv bit for bit; two sharded runs bitwise equal."""
+    from repro_torch.configs import ARCHS, smoke
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import decoder_lm as M
+    from repro_torch.sharding import placement as pl
+    from repro_torch.sharding import use_mesh
+    cfg = smoke(ARCHS[arch])
+    base = _soft_model(cfg, cuda)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (4, 200), generator=g).to(cuda)
+    n_fe = cfg.encoder_seq if cfg.is_encdec else cfg.num_image_tokens
+    fe = torch.randn((4, n_fe, cfg.d_model), generator=g).to(cuda)
+
+    def run(params):
+        last, cache = M.prefill_step(cfg, params, toks, frontend=fe,
+                                     length=203)
+        out = [last]
+        for pos in range(200, 203):
+            lg, cache = M.decode_step(cfg, params, cache, toks[:, :1], pos)
+            out.append(lg[:, 0])
+        return out, cache
+
+    want, _ = run(base)
+    mesh = make_mesh((cuda,) * 2, {"data": 1, "model": 2})
+    params = pl.shard_params(base, mesh)
+    per_layer = (sum(k in ("attn", "xattn") for k in cfg.layer_kinds)
+                 + 2 * cfg.layer_kinds.count("encdec") + cfg.encoder_layers)
+    with use_mesh(mesh):
+        before = flash_attention.launches
+        got, cache = run(params)
+        assert flash_attention.launches - before == 2 * per_layer
+        again, _ = run(params)
+        seeded = M.seed_frontend_cache(cfg, params, M.init_cache(
+            cfg, 4, 203, cuda), fe)
+    for a, b in zip(got, want):
+        assert float((a - b).norm() / b.norm()) < 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for c, s, kind in zip(cache, seeded, cfg.layer_kinds):
+        if kind in ("xattn", "encdec"):
+            for n in ("xk", "xv"):
+                assert all(torch.equal(x, y) for x, y in zip(
+                    c[n].locals, s[n].locals))
+
+
+def test_placed_adaptive_decode_on_card(cuda):
+    """granite-34b smoke with exit heads (its one KV head puts wk / wv's
+    "model" onto d) on a (1, 2) mesh of the card: 6 adaptive decode steps
+    after a prefill, at t_s 0.6, the exit blocks and the FLOPs share
+    equal to the unsharded model's on the card, the logits within 1e-4
+    relative L2."""
+    import dataclasses
+    from repro_torch.core.adaptive_depth import adaptive_decode_step
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import decoder_lm as M
+    from repro_torch.sharding import placement as pl
+    from repro_torch.sharding import use_mesh
+    cfg = _adaptive_granite()
+    cfg = dataclasses.replace(cfg, adaptive=dataclasses.replace(
+        cfg.adaptive, t_s=0.6))
+    model = _soft_model(cfg, cuda)
+    toks = torch.randint(0, cfg.vocab_size, (4, 134),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+    mesh = make_mesh((cuda,) * 2, {"data": 1, "model": 2})
+    params = pl.shard_params(model, mesh)
+
+    def run(params):
+        _, cache = M.prefill_step(cfg, params, toks[:, :128], length=134)
+        out = []
+        for pos in range(128, 134):
+            lg, cache, info = adaptive_decode_step(cfg, params, cache,
+                                                   toks[:, pos:pos + 1], pos)
+            out.append((lg, info))
+        return out
+
+    want = run(model)
+    with use_mesh(mesh):
+        got = run(params)
+    for (a, ia), (b, ib) in zip(got, want):
+        # outside the margin around t_s (none of these lanes lies in it)
+        assert not bool(((ib["saturation"] - 0.6).abs() <= 6e-5).any())
+        assert torch.equal(ia["exit_block"], ib["exit_block"])
+        assert float(ia["flops_saved_frac"]) == float(ib["flops_saved_frac"])
+        assert float((a - b).norm() / b.norm()) < 1e-4

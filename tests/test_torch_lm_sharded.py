@@ -27,6 +27,7 @@ import torch
 
 from repro.configs import ARCHS as JAX_ARCHS, smoke as jax_smoke
 from repro.models import decoder_lm as JM
+from repro_torch.common import AdaptiveDepthConfig
 from repro_torch.configs import ARCHS, smoke
 from repro_torch.core.adaptive_depth import adaptive_decode_step
 from repro_torch.launch.mesh import make_mesh
@@ -207,32 +208,54 @@ def _smoke_model(arch):
     return cfg, M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
 
 
+def _soften(cfg, model):
+    """wq, wk, wv of every attention and cross-attention scaled to a
+    fan-in of d_model, and the `xattn` gates set to 1: the reference's
+    initializer makes the softmax a hard max, which turns the f32
+    rounding of a row-parallel sum into 1e-4 of the logits, and its zero
+    gates switch cross-attention off."""
+    scale = {"wq": (cfg.num_heads / cfg.d_model) ** 0.5,
+             "wk": (cfg.num_kv_heads / cfg.d_model) ** 0.5,
+             "wv": (cfg.num_kv_heads / cfg.d_model) ** 0.5}
+    with torch.no_grad():
+        for p in (*model.layers, *model.encoder):
+            for group in ("attn", "xattn"):
+                if group in p.defs:
+                    for w, f in scale.items():
+                        p[group][w].mul_(f)
+            for gate in ("gate_attn", "gate_mlp"):
+                if gate in p.defs:
+                    p[gate].fill_(1.0)
+
+
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b",
                                   "dbrx-132b", "llama-3.2-vision-11b",
                                   "whisper-small"])
 def test_unported_layer_kinds_raise_on_a_mesh(arch):
-    """`xattn`, `enc` and `encdec` raise on a mesh of more than one
-    position (their placement or their layer); `rwkv`, `rglru`, `local`
-    and `attn_moe` run there and equal the unsharded model; all run as
-    unplaced on a mesh of one."""
+    """Every layer kind runs on a mesh of more than one position and
+    equals the unsharded model: `rwkv`, `rglru`, `local`, `attn_moe`, and
+    (with a frontend) `xattn`, `enc` and `encdec`; all run as unplaced
+    on a mesh of one. (The name predates the last three kinds' sharded
+    path, when they raised here.)"""
     cfg, model = _smoke_model(arch)
     seq = torch.randint(0, cfg.vocab_size, (2, 8))
+    n_fe = cfg.encoder_seq if cfg.is_encdec else cfg.num_image_tokens
+    if n_fe:
+        _soften(cfg, model)
+    fe = (torch.randn((2, n_fe, cfg.d_model),
+                      generator=torch.Generator().manual_seed(1))
+          if n_fe else None)
+    want = M.forward(cfg, model, seq, frontend=fe)[0]
     mesh = _mesh(1, 2)
-    if cfg.is_encdec or cfg.num_image_tokens:
-        with pytest.raises(NotImplementedError, match="ROADMAP A, item 4"):
-            params = pl.shard_params(model, mesh)
-            with use_mesh(mesh):
-                M.forward(cfg, params, seq)
-        return
     params = pl.shard_params(model, mesh)
     with use_mesh(mesh):
-        got, _ = M.forward(cfg, params, seq)
-    _close(got, M.forward(cfg, model, seq)[0], PORT, f"{arch} on (1, 2)")
+        got, _ = M.forward(cfg, params, seq, frontend=fe)
+    _close(got, want, PORT, f"{arch} on (1, 2)")
     one = _mesh(1, 1)
     params = pl.shard_params(model, one)
     with use_mesh(one):
-        got, _ = M.forward(cfg, params, seq)
-    assert torch.equal(got, M.forward(cfg, model, seq)[0])
+        got, _ = M.forward(cfg, params, seq, frontend=fe)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("arch", ["dbrx-132b", "grok-1-314b", "rwkv6-3b",
@@ -263,22 +286,37 @@ def test_sharded_kinds_raise_when_differentiable(arch):
                                              ("rwkv6-3b", (1, 4))])
 def test_fallback_placements_raise(arch, mesh_shape):
     """`smoke()` recurrentgemma-9b's one KV head, and rwkv6-3b's 2 heads at
-    model 4, do not divide the model axis: `fit_spec` would move it to
-    another dim, which no layer runs (ROADMAP A, item 4c). rwkv's weights
-    place (128 columns over 4), but a position would hold half a head:
-    its layer and its cache raise."""
+    model 4, do not divide the model axis, so `fit_spec` moves it to
+    another dim. For recurrentgemma that is d of wk / wv, their
+    contracting dim, which the layers run (the "model"-on-d placement of
+    ROADMAP A, item 4c): the model places, and its prefill and decode
+    equal the unsharded model's. rwkv's weights place (128 columns over
+    4), but a position would hold half a head: its layer and its cache
+    still raise (item 4c)."""
     cfg = smoke(ARCHS[arch])
     model = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     seq = torch.randint(0, cfg.vocab_size, (2, 16))
     mesh = _mesh(*mesh_shape)
+    if arch == "recurrentgemma-9b":
+        want = M.prefill_step(cfg, model, seq[:, :12], length=16)
+        want = [want[0], M.decode_step(cfg, model, want[1], seq[:, 12:13],
+                                       12)[0][:, 0]]
+        params = pl.shard_params(model, mesh)
+        assert params["layers"][2]["attn"]["wk"].spec == ("model", None, None)
+        with use_mesh(mesh):
+            last, cache = M.prefill_step(cfg, params, seq[:, :12], length=16)
+            got = [last, M.decode_step(cfg, params, cache, seq[:, 12:13],
+                                       12)[0][:, 0]]
+        for a, b in zip(got, want):
+            _close(a, b, PORT, f"{arch} on {mesh_shape}")
+        return
     with pytest.raises(NotImplementedError, match="fallback.*item 4c"):
         params = pl.shard_params(model, mesh)
         with use_mesh(mesh):
             M.forward(cfg, params, seq)
-    if arch == "rwkv6-3b":
-        with use_mesh(mesh), pytest.raises(NotImplementedError,
-                                           match="fallback.*item 4c"):
-            M.init_cache(cfg, 2, 16, "cpu")
+    with use_mesh(mesh), pytest.raises(NotImplementedError,
+                                       match="fallback.*item 4c"):
+        M.init_cache(cfg, 2, 16, "cpu")
 
 
 def test_placed_models_and_caches_are_checked(models):
@@ -301,5 +339,15 @@ def test_placed_models_and_caches_are_checked(models):
                 assert torch.equal(pl.gather(p[n]), plain[0][n])
         with pytest.raises(NotImplementedError, match="differentiable"):
             M.forward(cfg, params, seq, differentiable=True)
-        with pytest.raises(NotImplementedError, match="adaptive"):
-            adaptive_decode_step(cfg, params, cache, seq[:, :1], 0)
+        with pytest.raises(NotImplementedError, match="collect_states"):
+            M.forward(cfg, params, seq, collect_states=True)
+        # adaptive decoding runs on a placed model: without exit heads no
+        # token exits, and the step is decode_step's
+        acfg = dataclasses.replace(cfg, adaptive=AdaptiveDepthConfig(
+            enabled=True, t_s=1e9))
+        got, _, info = adaptive_decode_step(acfg, params, cache, seq[:, :1],
+                                            0)
+        want, _ = M.decode_step(cfg, params, cache, seq[:, :1], 0)
+    assert torch.equal(got, want)
+    assert (info["exit_block"] == -1).all() and info["exit_block"].shape \
+        == (B,) and float(info["flops_saved_frac"]) == 0.0

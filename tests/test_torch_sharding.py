@@ -333,10 +333,22 @@ def test_make_debug_mesh():
 
 def test_a_fallback_placement_raises():
     """granite-34b at smoke size: one KV head and 4 query heads, so wk and
-    wv stay on `kv_heads` and fit_spec would move the model axis to d."""
+    wv stay on `kv_heads` and fit_spec moves the model axis to d, their
+    contracting dim, a layout the layers run (ROADMAP A, item 4c). A
+    fallback elsewhere still raises: rwkv6-3b's 2 heads at model 4, where
+    the state cache would take the axis on its head dim (half a head a
+    position)."""
     from repro_torch.configs import smoke
     cfg = smoke(ARCHS["granite-34b"])
     model = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="fallback"):
-        pl.shard_params(model, _cpu_mesh(1, 2))
+    params = pl.shard_params(model, _cpu_mesh(1, 2))
+    for w in ("wk", "wv"):
+        assert params["layers"][0]["attn"][w].spec == L.P("model", None,
+                                                          None)
+    assert params["layers"][0]["attn"]["wq"].spec == L.P(None, "model",
+                                                         None)
     pl.shard_params(model, _cpu_mesh(2, 1))          # data only: fine
+    rwkv = smoke(ARCHS["rwkv6-3b"])
+    cache = M.init_cache(rwkv, 2, 8, "cpu")
+    with pytest.raises(NotImplementedError, match="fallback.*item 4c"):
+        pl.shard_cache(rwkv, cache, _cpu_mesh(1, 4))
