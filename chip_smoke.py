@@ -184,7 +184,8 @@ fails (non-zero exit, no result line) on any failed check:
    (2, 2), gemma-7b whole (28 layers, 16 heads of 256, tied embedding,
    GeGLU) on (1, 1) and (1, 2), and on (1, 1), (1, 2) and (2, 2)
    dbrx-132b (6 of 40 layers) and grok-1-314b (4 of 64) with their
-   experts FSDP over "data", rwkv6-3b and recurrentgemma-9b whole, and
+   experts FSDP over "data", rwkv6-3b (12 of 32 layers) and
+   recurrentgemma-9b (14 of 38), and
    the frontend models llama-3.2-vision-11b (10 of 40 layers, 4 x 1600
    image rows) and whisper-small whole (16 x 224 tokens, 16 x 1500
    frames; its odd vocab puts "model" on d of the embedding and the
@@ -214,7 +215,22 @@ fails (non-zero exit, no result line) on any failed check:
    operands, the prefill 4 x 2048, 16 decode steps at full depth and
    adaptive at t_s 0, a middle t_s and 1e9, the adaptive engine; exit
    blocks equal to (1, 1)'s outside the margin, the FLOPs share equal,
-   the logits within F32_REL.
+   the logits within F32_REL. Then training on a placed model
+   (`sharded_train_phase`, ROADMAP A item 4a): granite-34b at full
+   width, 3 of 88 layers, exit heads at blocks 0-1, bf16, on (1, 1),
+   (1, 2), (1, 4) and (2, 2), placed by `shard_params(...,
+   trainable=True, release=True)` with f32 moments: one `loss_fn`
+   backward and `sync_grads` (every gradient finite, each leaf's
+   nonzero), then 5 steps of `launch.dryrun.build_train_step` (lr 1e-3)
+   on `synthetic_stream(0, 8, 128)` and one traced; bytes a position
+   (parameters, gradients, moments), step ms and training tokens/s, peak
+   memory, each step's loss and grad_norm, the exchange of a step
+   (counted bytes, traced device ms) with the gradient sync apart; every
+   copy of every block bitwise equal after each step, B4 and B5 not
+   launched, the loss lower at step 5 than at step 1, step 1's loss and
+   grad_norm within SHARDED_TRAIN_BF16_REL of (1, 1)'s; then one f32
+   step at smoke size for every family on two meshes of the card
+   against (1, 1) on the card and on the CPU (`train_f32_checks`).
 5. train (`train_phase`, last, so that nothing it leaves behind runs
    beside the LM timings): the paper's training procedure (`train_nai`,
    Inception Distillation, `DistillConfig()`'s 300/200/200 epochs) on the
@@ -274,7 +290,13 @@ top-k choice sends that token to another expert and moves the error).
 The cross-attention gates: 1e-3 for the f32 kernel path; for bf16,
 XATTN_BF16_REL, about twice what an H100 gave. granite-34b's gates: 1e-3
 for the f32 kernel path; for bf16, GRANITE_BF16_REL, about twice what an
-H100 gave after the 40 training steps.
+H100 gave after the 40 training steps. The placed training step: in bf16
+step 1's loss and grad_norm within SHARDED_TRAIN_BF16_REL (5e-4, about
+twice what an H100 gave) of the (1, 1) mesh's (the row-parallel partial
+products round to bf16 before their f32 sums, and the gradient sync adds
+in another order); in f32 at smoke size each parameter and moment after
+the step within TRAIN_F32_REL (1e-4) relative L2 of (1, 1)'s on the card
+and of the CPU's; every copy of a block equal bit for bit.
 
 The second-to-last line is a JSON object {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.
@@ -3664,6 +3686,11 @@ def adaptive_phase(torch, dev, kernels, smi_line):
 SHARDED_LAYERS = {"mistral-large-123b": 8,    # of 88: 23.76 GB of bf16
                   "dbrx-132b": 6,             # of 40 and 64, as in the MoE
                   "grok-1-314b": 4,           # phases; the others whole
+                  # 12 of 32 and 14 of 38 (four repeats of its (rglru,
+                  # rglru, local) pattern and two rglru): whole, their
+                  # meshes took 37.9 s and 58.7 s of a run that must stay
+                  # under 1,050 s with the sharded training phase (~40 s)
+                  "rwkv6-3b": 12, "recurrentgemma-9b": 14,
                   # 10 of 40: two repeats of its (attn x 4, xattn)
                   # pattern; whole, its three meshes took 74.5 s of a run
                   # that must stay under 1,050 s ("NVIDIA H100 80GB HBM3,
@@ -4494,6 +4521,270 @@ def sharded_adaptive_phase(torch, dev, kernels, smi_line):
     return total, lines
 
 
+# sharded training (ROADMAP A item 4a): granite-34b at full width, 3 of 88
+# layers (at (2, 2) the parameters, bf16 gradients and f32 moments of the
+# two "data" replicas take ~56 GB of the card; 4 layers would take ~68 GB
+# before activations), exit heads at blocks 0-1, bf16, `build_train_step`
+# with GRANITE_TRAIN's lr on synthetic_stream(0, 8, 128)
+SHARDED_TRAIN = dict(arch="granite-34b", layers=3, exits=(0, 1), batch=8,
+                     seq=128, steps=5, lr=GRANITE_TRAIN["lr"],
+                     meshes=((1, 1), (1, 2), (1, 4), (2, 2)))
+# limit of the relative distance of step 1's loss and grad_norm on a mesh
+# to (1, 1)'s, in bf16 (each position's partial products round to bf16
+# before the f32 all-reduce, so the sums round otherwise): about twice the
+# largest an H100 gave (grad_norm 2.38e-4 at (1, 4), loss 3.57e-6 at
+# (1, 2); "NVIDIA H100 80GB HBM3, 700.00 W")
+SHARDED_TRAIN_BF16_REL = 5e-4
+# the f32 step at smoke size on the card, per family: its meshes beside
+# (1, 1) (rwkv6-3b's 2 heads split over model 2 at most)
+SHARDED_TRAIN_F32 = {"gemma-7b": ((1, 2), (2, 2)),
+                     "mistral-large-123b": ((1, 2), (2, 2)),
+                     "dbrx-132b": ((1, 2), (2, 2)),
+                     "grok-1-314b": ((1, 2), (2, 2)),
+                     "rwkv6-3b": ((1, 2), (2, 1)),
+                     "recurrentgemma-9b": ((1, 2), (2, 2)),
+                     "llama-3.2-vision-11b": ((1, 2), (2, 2)),
+                     "whisper-small": ((1, 2), (2, 2)),
+                     "granite-34b": ((1, 2), (2, 2))}
+TRAIN_F32_REL = 1e-4
+
+
+def train_f32_checks(torch, dev, smi_line) -> str:
+    """One f32 `build_train_step` step (TF32 off) at `smoke()` size for
+    every family of SHARDED_TRAIN_F32 (granite-34b at 4 layers with exit
+    heads at blocks 0-2), weights drawn on the host from a generator
+    seeded 0 (conditioned as `condition_weights` says), placed trainable:
+    on a CPU mesh of one position, on the card's (1, 1) and on its
+    meshes; each leaf's parameter and moments after the update against
+    the CPU's and (1, 1)'s within TRAIN_F32_REL relative L2, every copy
+    of a block equal. The schedule's learning rate is 0 at the first
+    step, so the parameters keep their values and the moments carry the
+    gradients. Returns the line for the summary."""
+    from repro_torch.common import AdaptiveDepthConfig
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.data import synthetic_stream
+    from repro_torch.launch.dryrun import build_train_step
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.models import decoder_lm as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import placement as pl
+    from repro_torch.sharding import use_mesh
+
+    def dist(a, b):      # a zero norm gain stays zero at lr 0
+        return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = {}
+    try:
+        for arch, meshes in SHARDED_TRAIN_F32.items():
+            cfg = smoke(get_config(arch))
+            if arch == "granite-34b":
+                cfg = dataclasses.replace(
+                    cfg, num_layers=4, adaptive=AdaptiveDepthConfig(
+                        enabled=True, exit_layers=GRANITE_EXITS, t_min=0,
+                        t_max=2))
+            raw = next(synthetic_stream(0, 4, 32, cfg.vocab_size, cfg))
+            step, tc = build_train_step(cfg, learning_rate=3e-3,
+                                        warmup_steps=0, total_steps=10)
+            out = {}
+            for run, where, (data, model_ax) in [
+                    ("host", "cpu", (1, 1)), ("card", dev, (1, 1))] + [
+                    ("card", dev, m) for m in meshes]:
+                model = M.init_params(cfg, torch.Generator().manual_seed(0),
+                                      device="cpu")
+                condition_weights(torch, cfg, model, torch.Generator())
+                mesh = make_mesh((torch.device(where),) * (data * model_ax),
+                                 {"data": data, "model": model_ax})
+                params = pl.shard_params(model.to(where), mesh,
+                                         trainable=True)
+                opt = adamw_init(params, tc)
+                with use_mesh(mesh):
+                    step(params, opt, lm_batch(cfg, raw, where))
+                check(pl.copies_equal((params, opt["mu"], opt["nu"])),
+                      f"{arch} f32 step on ({data}, {model_ax}): every copy "
+                      f"of a block equal")
+                out[run, data, model_ax] = {
+                    f"{k}.{path}": pl.gather(st, "cpu").detach()
+                    for k, tree in (("p", params), ("mu", opt["mu"]),
+                                    ("nu", opt["nu"]))
+                    for path, st in pl.named_leaves(tree)}
+            cpu, one = out.pop(("host", 1, 1)), out.pop(("card", 1, 1))
+            worst[arch] = max([dist(one[n], cpu[n]) for n in cpu] + [
+                dist(got[n], want[n]) for got in out.values()
+                for want in (cpu, one) for n in want])
+            check(worst[arch] <= TRAIN_F32_REL,
+                  f"{arch} f32 placed training step vs (1, 1) and the CPU: "
+                  f"worst relative L2 {worst[arch]} (limit {TRAIN_F32_REL})")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    line = (f"placed training, f32 smoke size, one build_train_step step on "
+            f"the card's meshes against (1, 1) and the CPU, worst relative "
+            f"L2 of a parameter or moment after the update "
+            f"({time.perf_counter() - t0:.1f} s): " + ", ".join(
+                f"{a} {SHARDED_TRAIN_F32[a]} {w:.3g}" for a, w in worst.items())
+            + f" (limit {TRAIN_F32_REL}); {smi_line}")
+    print(line)
+    return line
+
+
+def sharded_train_phase(torch, dev, kernels, smi_line):
+    """Training a placed LM (ROADMAP A item 4a): granite-34b by
+    SHARDED_TRAIN, bf16, random weights from a CUDA generator seeded 0
+    (conditioned as `condition_weights` says), drawn anew for each mesh and
+    placed by `shard_params(..., trainable=True, release=True)`; the
+    moments by `adamw_init` of the placed tree (f32: `_train_cfg`). For each
+    mesh, inside `use_mesh`: one `loss_fn` backward and `sync_grads` (every
+    gradient finite, each leaf's nonzero; the gradients' bytes), then
+    `build_train_step`'s steps (the counted main path: B4 and B5 must not
+    launch), every copy of every block equal after each, one more step
+    traced. Prints the bytes a position (parameters, gradients, moments),
+    the step ms (median of steps 2-5) and tokens/s, the peak memory, each
+    step's loss and grad_norm, the exchange of step 2 (counted bytes) and
+    of the traced step (device ms), the gradient sync apart; step 1's loss
+    and grad_norm held within SHARDED_TRAIN_BF16_REL of (1, 1)'s, the loss
+    at the last step below step 1's. Then `train_f32_checks`. Returns the
+    lines for the summary."""
+    from repro_torch.common import AdaptiveDepthConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_stream
+    from repro_torch.launch.dryrun import build_train_step
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.models import decoder_lm as M
+    from repro_torch.nn.params import count_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import placement as pl
+    from repro_torch.sharding import use_mesh
+
+    phase("sharded train granite-34b")
+    t_phase = time.perf_counter()
+    st_ = SHARDED_TRAIN
+    full = get_config(st_["arch"])
+    cfg = dataclasses.replace(
+        full, num_layers=st_["layers"], adaptive=AdaptiveDepthConfig(
+            enabled=True, exit_layers=st_["exits"], t_min=0,
+            t_max=max(st_["exits"])))
+    step, tc = build_train_step(cfg, learning_rate=st_["lr"], warmup_steps=1,
+                                total_steps=st_["steps"], weight_decay=0.01)
+    batches = []
+    stream = synthetic_stream(0, st_["batch"], st_["seq"], cfg.vocab_size)
+    for _ in range(st_["steps"] + 1):
+        batches.append(lm_batch(cfg, next(stream), dev))
+    tokens = st_["batch"] * st_["seq"]
+    ref, lines = None, []
+    for data, model_ax in st_["meshes"]:
+        t_mesh = time.perf_counter()
+        label = (f"{st_['arch']} train mesh (data {data}, model "
+                 f"{model_ax})")
+        torch.cuda.empty_cache()
+        gen = torch.Generator(dev).manual_seed(0)
+        model = M.init_params(cfg, gen, device=dev)
+        condition_weights(torch, cfg, model, gen)
+        n_par = count_params(model)
+        mesh = make_mesh((dev,) * (data * model_ax),
+                         {"data": data, "model": model_ax})
+        params = pl.shard_params(model, mesh, release=True, trainable=True)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        opt = adamw_init(params, tc)
+        by_param = pl.position_bytes(params)
+        by_moments = [a + b for a, b in zip(pl.position_bytes(opt["mu"]),
+                                             pl.position_bytes(opt["nu"]))]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(kernels)
+        with use_mesh(mesh) as scope:
+            # the gradients of step 1's batch, read before any update
+            loss, _ = M.loss_fn(cfg, params, batches[0], remat=tc.remat)
+            loss.backward()
+            grads = pl.sync_grads(params)
+            by_grad = pl.position_bytes(grads)
+            bad = [path for path, g in pl.named_leaves(grads)
+                   if not all(bool(torch.isfinite(b).all()) for b in g.locals)
+                   or not any(bool((b != 0).any()) for b in g.locals)]
+            check(not bad, f"{label}: every gradient finite, each leaf's "
+                  f"nonzero (not: {bad})")
+            check(pl.copies_equal(grads), f"{label}: every copy of a "
+                  f"synced gradient equal")
+            del loss, grads
+            losses, norms, step_s = [], [], []
+            for i in range(st_["steps"]):
+                if i == 1:
+                    scope.exchange.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, m = step(params, opt, batches[i])
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                if i == 1:
+                    ex = {k: dict(v) for k, v in scope.exchange.items()}
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                check(pl.copies_equal((params, opt["mu"], opt["nu"])),
+                      f"{label}: every copy of every block equal after "
+                      f"step {i + 1}")
+            peak = torch.cuda.max_memory_allocated()
+            wall, busy, ex_ms = exchange_profile(
+                torch, lambda: step(params, opt, batches[st_["steps"]]))
+        launches = launch_counts(kernels)
+        check(all(v == 0 for v in launches.values()),
+              f"{label}: no kernel launched in the training steps "
+              f"({launches})")
+        check(all(np.isfinite(losses + norms)), f"{label}: losses finite")
+        check(losses[-1] < losses[0], f"{label}: the loss falls over "
+              f"{st_['steps']} steps ({losses})")
+        if ref is None:
+            ref = dict(loss=losses[0], norm=norms[0])
+        err_loss = abs(losses[0] - ref["loss"]) / abs(ref["loss"])
+        err_norm = abs(norms[0] - ref["norm"]) / abs(ref["norm"])
+        ms = 1e3 * float(np.median(step_s[1:]))
+        sync = ex.get("grad_sync", {"bytes": 0, "copies": 0})
+        act = {k: v for k, v in ex.items() if k != "grad_sync"}
+        sync_ms = ex_ms.get("exchange.grad_sync", 0.0)
+        act_ms = sum(v for k, v in ex_ms.items() if k != "exchange.grad_sync")
+        line = (f"{label}: {cfg.num_layers} of {full.num_layers} layers, "
+                f"exits at blocks {st_['exits']}, {n_par} parameters "
+                f"({n_par:.4g}), {tc.moment_dtype} moments; bytes a position:"
+                f" parameters {by_param}, gradients {by_grad}, moments "
+                f"{by_moments}; step {ms:.1f} ms (median of steps 2-"
+                f"{st_['steps']}), {tokens / ms * 1e3:.0f} training "
+                f"tokens/s, batch {st_['batch']} x {st_['seq']}; peak memory "
+                f"{peak / 1e9:.2f} GB; loss " + ", ".join(
+                    f"{x:.4f}" for x in losses) + "; grad_norm " + ", ".join(
+                    f"{x:.4f}" for x in norms)
+                + f"; step 1 vs (1, 1): loss {err_loss:.3g}, grad_norm "
+                f"{err_norm:.3g}; exchange of step 2: gradient sync "
+                f"{sync['bytes']} bytes in {sync['copies']} copies, the "
+                f"rest {sum(v['bytes'] for v in act.values())} bytes ("
+                + ", ".join(f"{k} {v['calls']} calls {v['bytes']} B"
+                            for k, v in sorted(act.items()))
+                + f"); traced step {wall:.1f} ms wall, device busy "
+                f"{busy:.1f} ms, exchange device ms: gradient sync "
+                f"{sync_ms:.3f}, the rest {act_ms:.3f} (" + ", ".join(
+                    f"{k.split('.')[1]} {v:.3f}" for k, v in sorted(
+                        ex_ms.items()) if k != "exchange.grad_sync")
+                + f"); B4 / B5 launches {launches['flash_attention']} / "
+                f"{launches['wkv6']}; {time.perf_counter() - t_mesh:.1f} s;"
+                f" {smi_line}")
+        print(line)
+        lines.append(line)
+        check(err_loss < SHARDED_TRAIN_BF16_REL
+              and err_norm < SHARDED_TRAIN_BF16_REL,
+              f"{label}: step 1's loss and grad_norm within "
+              f"{SHARDED_TRAIN_BF16_REL} of (1, 1)'s ({err_loss}, "
+              f"{err_norm})")
+        del params, opt, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    lines.append(train_f32_checks(torch, dev, smi_line))
+    print(f"sharded train phase: {time.perf_counter() - t_phase:.1f} s")
+    return lines
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4579,6 +4870,9 @@ def main() -> int:
     parts.append(f"{n_a} in the placed granite-34b prefills of 4 x 2048 "
                  f"tokens (f32)")
     bounded += lines_a
+    # training a placed granite-34b (ROADMAP A item 4a): no kernel runs in
+    # its steps (B4 and B5 have no backward)
+    bounded += sharded_train_phase(torch, dev, kernels, smi_line)
     b5 = next(r for r in rows if r["name"] == "wkv6")
     b5["launches"] += n["wkv6"]
     b5["note"] = (f"({b5['launches'] - n['wkv6']} {b5['note']}, "

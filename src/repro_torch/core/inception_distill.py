@@ -81,13 +81,19 @@ def transformer_inception_loss(cfg, params, states, final_logits, labels):
     but the last) takes the offline loss against the detached trunk
     logits and the online loss against the ensemble of the last
     `ensemble_r` of (exits + trunk), which is not detached; the sum is
-    divided by the number of exits. Returns (loss, {"inception_loss"})."""
+    divided by the number of exits. On a placed model the states are
+    placed (`forward(..., collect_states=True)` on a mesh): each exit
+    head runs on its block's placed state and its logits, and the
+    ensemble vector, are gathered, so that the loss is taken on global
+    tensors as the trunk's is. Returns (loss, {"inception_loss"})."""
     from repro_torch.models.decoder_lm import exit_logits as head
+    from repro_torch.sharding import placement as pl
 
     ad = cfg.adaptive
     exits = []
     for i, blk in enumerate(ad.exit_layers):
-        z = head(cfg, params, states[blk][:, :-1], i)
+        z = pl.as_global(head(cfg, params, pl.per_position(
+            lambda s: s[:, :-1], states[blk]), i))
         exits.append(z.reshape(-1, z.shape[-1]))
     teacher = final_logits[:, :-1].reshape(-1, final_logits.shape[-1])
     flat_labels = labels.reshape(-1)
@@ -99,7 +105,7 @@ def transformer_inception_loss(cfg, params, states, final_logits, labels):
     # online: the ensemble over the top-r heads (the deepest exits and
     # the trunk)
     pool = (exits + [teacher])[-max(ad.ensemble_r, 1):]
-    ens = ensemble_teacher(pool, params["exits"]["ens_s"])
+    ens = ensemble_teacher(pool, pl.as_global(params["exits"]["ens_s"]))
     for z in exits:
         total = total + online_loss(z, ens, flat_labels,
                                     temperature=ad.temperature, lam=ad.lam)

@@ -55,19 +55,27 @@ def lm_train_step(cfg, model, opt, tc: TrainConfig, sched, batch) -> dict:
     per block when `tc.remat`), then the in-place AdamW update of the
     model's parameters and `opt`; the gradients are freed. A parameter
     the loss does not reach takes a zero gradient, as under
-    `jax.value_and_grad`. Returns the metrics (0-d tensors)."""
+    `jax.value_and_grad`. `model` is a module, or a parameter tree placed
+    by `shard_params(..., trainable=True)` (called inside `use_mesh`, the
+    batch global, `opt` from `adamw_init` of the tree), whose copies'
+    gradients `sync_grads` adds before the update. Returns the metrics
+    (0-d tensors)."""
     from repro_torch.models import decoder_lm as M
     from repro_torch.optim import adamw_update_
+    from repro_torch.sharding import placement as pl
     loss, metrics = M.loss_fn(cfg, model, batch, remat=tc.remat)
     loss.backward()
     metrics = {k: v.detach() for k, v in metrics.items()}
-    params = dict(model.named_parameters())
-    grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
-             for k, p in params.items()}
+    if isinstance(model, dict):
+        params, grads = model, pl.sync_grads(model)
+    else:
+        params = dict(model.named_parameters())
+        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 for k, p in params.items()}
+        for p in params.values():
+            p.grad = None
     metrics.update(adamw_update_(grads, opt, params, tc,
                                  sched(opt["count"])))
-    for p in params.values():
-        p.grad = None
     return metrics
 
 

@@ -65,9 +65,18 @@ device and the cache placed by `cache_specs`; `init_cache` inside
 divide puts the axis on d instead: the embedding looks each id up in its
 columns and all-gathers them, the head is row-parallel with its partial
 logits all-reduced in f32 (`placement.D_FALLBACK`). On a mesh of one
-position every function runs as unplaced on that position's tensors; on
-more, training (`differentiable`, `loss_fn`) and `collect_states` raise
-`NotImplementedError` (ROADMAP A, item 4a).
+position every function runs as unplaced on that position's tensors.
+
+Training on a mesh: a model placed with `shard_params(...,
+trainable=True)` runs `forward(..., differentiable=True,
+collect_states=...)` and `loss_fn` under the caller's grad mode, every
+kind through its plain differentiable path on each position's heads or
+channels (B4 and B5 are not launched), each block rematerialised when
+`remat` is set; the states come back placed, the logits gathered, and
+the loss is taken on the global logits as the reference's loss sees a
+global array. `placement.sync_grads` then adds the copies' gradients
+over the axes each leaf's spec leaves free, and `optim.adamw_update_`
+steps the placed tree (`repro_torch.launch.dryrun.build_train_step`).
 """
 from __future__ import annotations
 
@@ -304,22 +313,28 @@ def forward(cfg, params, tokens, *, frontend=None, mode: str = "train",
     `differentiable` runs the layers' plain differentiable paths under
     the caller's grad mode, each block rematerialised in the backward
     pass when `remat` and mode == "train" (the numbers are the same with
-    or without it)."""
+    or without it). A placed model (inside `use_mesh`) takes global
+    tokens and frontend, places them by `input_shardings`, and returns
+    the logits gathered onto the mesh's first device, aux there, and the
+    states placed (the batch over "data")."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: expected one of {MODES}")
     mesh = pl.placed_mesh(params)
-    if mesh is not None and mesh_size(mesh) > 1:
-        _sharded_only(collect_states=collect_states,
-                      differentiable=differentiable)
-        return _sharded_forward(cfg, params, tokens, frontend, mesh)
-    if mesh is not None:
-        params = pl.local_tree(params)
+    if mesh is not None and mesh_size(mesh) == 1:
+        params, mesh = pl.local_tree(params), None
     ctx = contextlib.nullcontext() if differentiable else torch.no_grad()
     with ctx:
-        positions = _positions(tokens)
+        if mesh is None:
+            positions = _positions(tokens)
+            frontend = _frontend(cfg, params, frontend, differentiable)
+        else:
+            tokens, positions = _sharded_tokens(cfg, tokens, mesh)
+            frontend = _sharded_frontend(cfg, params, frontend, mesh,
+                                         differentiable)
         x = _embed_tokens(cfg, params, tokens, positions)
-        frontend = _frontend(cfg, params, frontend, differentiable)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = torch.zeros((), dtype=torch.float32,
+                          device=x.device if mesh is None
+                          else mesh.devices[0])
         P, R = len(cfg.pattern), cfg.pattern_repeats
         layers = list(zip(params["layers"], cfg.layer_kinds))
 
@@ -344,7 +359,7 @@ def forward(cfg, params, tokens, *, frontend=None, mode: str = "train",
                 states.append(x)
         x, aux = run(x, aux, R * P, len(layers))
         x = apply_norm(cfg, params["final_norm"], x)
-        logits = _project_logits(cfg, params, x)
+        logits = pl.as_global(_project_logits(cfg, params, x))
     if collect_states:
         return logits, aux, states
     return logits, aux
@@ -384,7 +399,9 @@ def loss_fn(cfg, params, batch, *, remat: bool = True):
     """Next-token prediction on batch = {"tokens" (B, S), optional
     "frontend"} through the differentiable path: the LM loss plus the MoE
     aux loss, plus the Inception Distillation term of the exit heads
-    where the model has them. Returns (loss, metrics)."""
+    where the model has them. Returns (loss, metrics). A placed model
+    (inside `use_mesh`) takes the global batch; the loss is taken on the
+    gathered logits, on the mesh's first device."""
     tokens = batch["tokens"]
     adaptive = has_exits(cfg)
     out = forward(cfg, params, tokens, frontend=batch.get("frontend"),
@@ -559,18 +576,6 @@ def decode_step(cfg, params, cache, tokens, pos: int, frontend=None):
 
 
 # ------------------------------------------------------------------ sharded
-def _sharded_only(collect_states=False, differentiable=False):
-    """What the sharded path does not run yet raises (ROADMAP A, item 4a):
-    training (`differentiable`, which `loss_fn` asks for) and
-    `collect_states`."""
-    asked = [n for n, v in (("collect_states", collect_states),
-                            ("differentiable", differentiable)) if v]
-    if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)} on a mesh of more than one position: not "
-            f"sharded yet (ROADMAP A, item 4a)")
-
-
 def _check_placed(cache):
     if not all(pl.is_sharded(t) for c in cache for t in c.values()):
         raise TypeError("a placed model decodes a placed cache: make it "
@@ -590,27 +595,13 @@ def _sharded_tokens(cfg, tokens, mesh):
     return toks, _positions(toks)
 
 
-def _sharded_frontend(cfg, params, frontend, mesh):
+def _sharded_frontend(cfg, params, frontend, mesh, differentiable=False):
     """The frontend placed by `input_shardings` (the batch over "data"),
     through the encoder where there is one; None stays None."""
     if frontend is None:
         return None
     placed = pl.shard_inputs(cfg, {"frontend": frontend}, mesh)["frontend"]
-    return _frontend(cfg, params, placed)
-
-
-def _sharded_forward(cfg, params, tokens, frontend, mesh):
-    with torch.no_grad():
-        toks, positions = _sharded_tokens(cfg, tokens, mesh)
-        fe = _sharded_frontend(cfg, params, frontend, mesh)
-        x = _embed_tokens(cfg, params, toks, positions)
-        aux = torch.zeros((), dtype=torch.float32, device=mesh.devices[0])
-        for p, kind in zip(params["layers"], cfg.layer_kinds):
-            x, _, aux = B.apply_layer(cfg, kind, p, x, mode="train",
-                                      positions=positions, frontend=fe,
-                                      aux=aux)
-        x = apply_norm(cfg, params["final_norm"], x)
-        return pl.gather(_project_logits(cfg, params, x)), aux
+    return _frontend(cfg, params, placed, differentiable)
 
 
 @torch.no_grad()

@@ -19,9 +19,10 @@ Tensor-parallel (x placed on a mesh, `repro_torch.sharding.placement`):
 q is column-parallel over the heads, k and v over the KV heads or, by
 `attn_defs`, the head dim; they are re-laid out so that each position
 holds whole head dims for RoPE, then B4 runs once per position on its
-own heads (the GQA groups stay whole), and `wo` is row-parallel with an
-all-reduce. Decode follows the cache's layout (`decoder_lm.cache_specs`):
-over KV heads each position attends its own heads; over the head dim (the
+own heads (the GQA groups stay whole; `differentiable` takes the plain
+path there instead), and `wo` is row-parallel with an all-reduce.
+Decode follows the cache's layout (`decoder_lm.cache_specs`): over KV
+heads each position attends its own heads; over the head dim (the
 reference's `cache_hd`) q, k and v take head-dim slices, the partial q.k
 logits are all-reduced before the softmax, P.v runs on each slice, and
 an all-to-all brings the heads back for `wo`. Cross-attention on a placed
@@ -170,7 +171,8 @@ def self_attention(cfg, p, x, positions, *, window: int = 0,
     (`_plain_self_attention`). Returns (out, (k, v))."""
     if pl.is_sharded(x):
         return _sharded_self_attention(cfg, p, x, positions, window=window,
-                                       causal=causal)
+                                       causal=causal,
+                                       differentiable=differentiable)
     q, k, v = _project_qkv(cfg, p, x, positions)
     if differentiable:
         out = _plain_self_attention(cfg, q, k, v, window=window,
@@ -189,7 +191,7 @@ def cross_attention(cfg, p, x, kv, *, differentiable: bool = False):
     with Se as its key bound; one query (decode), and the
     `differentiable` path, through the plain `_sdpa`."""
     if pl.is_sharded(x):
-        return _sharded_cross_attention(cfg, p, x, kv)
+        return _sharded_cross_attention(cfg, p, x, kv, differentiable)
     k, v = kv
     q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
     if q.shape[1] == 1 or differentiable:
@@ -284,32 +286,43 @@ def _kv_for_heads(q, kv, i: int):
     return kv.locals[i][:, :, g0:g0 + 1]
 
 
-def _per_position_flash(cfg, q, k, v, *, causal: bool, window: int = 0):
-    """B4 once per position on its query heads and the KV heads they read
-    (k / v with whole head dims)."""
-    return pl.wrap([gqa_flash_attention(
-        q.locals[i], _kv_for_heads(q, k, i), _kv_for_heads(q, v, i),
-        causal=causal, window=window, softcap=cfg.attn_logit_softcap)
-        for i in range(len(q.locals))], q.spec, q.mesh)
+def _per_position_attention(cfg, q, k, v, *, causal: bool, window: int = 0,
+                            differentiable: bool = False):
+    """Each position's query heads against the KV heads they read (k / v
+    with whole head dims): B4 once per position, or the plain
+    `_plain_self_attention` when `differentiable`."""
+    def attend(i):
+        kk, vv = _kv_for_heads(q, k, i), _kv_for_heads(q, v, i)
+        if differentiable:
+            return _plain_self_attention(cfg, q.locals[i], kk, vv,
+                                         window=window, causal=causal)
+        return gqa_flash_attention(q.locals[i], kk, vv, causal=causal,
+                                   window=window,
+                                   softcap=cfg.attn_logit_softcap)
+    return pl.wrap([attend(i) for i in range(len(q.locals))], q.spec,
+                   q.mesh)
 
 
 def _sharded_self_attention(cfg, p, x, positions, *, window: int,
-                            causal: bool):
+                            causal: bool, differentiable: bool = False):
     q, k, v = _sharded_qkv(cfg, p, x, positions)
-    out = _per_position_flash(cfg, q, k, v, causal=causal, window=window)
+    out = _per_position_attention(cfg, q, k, v, causal=causal, window=window,
+                                  differentiable=differentiable)
     return pl.einsum("bshe,hed->bsd", out, p["wo"]), (k, v)
 
 
-def _sharded_cross_attention(cfg, p, x, kv):
-    """Several queries: B4 per position, not causal, over k / v re-laid
-    out to whole heads; one query (decode): the placed `xk` / `xv` in the
-    cache's layout, as `_sharded_decode_self_attention` reads `k` / `v`.
-    Then the row-parallel `wo`."""
+def _sharded_cross_attention(cfg, p, x, kv, differentiable=False):
+    """Several queries: B4 per position (the plain `_sdpa` when
+    `differentiable`), not causal, over k / v re-laid out to whole heads;
+    one query (decode): the placed `xk` / `xv` in the cache's layout, as
+    `_sharded_decode_self_attention` reads `k` / `v`. Then the
+    row-parallel `wo`."""
     k, v = kv
     q = pl.einsum("bsd,dhe->bshe", x, p["wq"])
     if q.shape[1] > 1:
-        out = _per_position_flash(cfg, q, _whole_head_dim(k),
-                                  _whole_head_dim(v), causal=False)
+        out = _per_position_attention(cfg, q, _whole_head_dim(k),
+                                      _whole_head_dim(v), causal=False,
+                                      differentiable=differentiable)
     else:
         out = _attend_cache(cfg, pl.relayout(q, k.spec), k, v,
                             lambda dev: None)

@@ -28,8 +28,9 @@ the sharded branches of `apply_norm`, `self_attention`,
 `decode_self_attention`, `cross_attention`, `project_kv`, `apply_mlp`,
 `apply_moe`, `rwkv` and `rglru` (`frontend` and the cache's `xk` / `xv`
 placed too), `ring_cache` takes each position's block and the `xattn`
-gates scale each position's block; `differentiable` raises
-`NotImplementedError` (ROADMAP A, item 4a).
+gates scale each position's block; `differentiable` takes the plain
+attention (`_sdpa` / `_chunked_sdpa`) and the plain WKV recurrence
+(`_wkv_chunked`) on each position's heads, as the unplaced path does.
 
 Two differences from the reference, both faults of the reference
 recorded in ROADMAP C:
@@ -52,10 +53,6 @@ from repro_torch.nn.basic import apply_mlp, apply_norm, mlp_defs, norm_defs
 from repro_torch.nn.moe import apply_moe, apply_moe_decode, moe_defs
 from repro_torch.nn.params import ParamDef
 from repro_torch.sharding import placement as pl
-
-# kinds that run on a mesh of more than one position
-SHARDED_KINDS = ("attn", "attn_moe", "rwkv", "rglru", "local", "xattn",
-                 "enc", "encdec")
 
 # --------------------------------------------------------------------- defs
 def layer_defs(cfg, kind: str):
@@ -135,11 +132,6 @@ def ring_cache(t: torch.Tensor, window: int) -> torch.Tensor:
 def apply_layer(cfg, kind: str, p, x, *, mode: str = "train",
                 positions=None, cache=None, frontend=None, pos=None,
                 aux=0.0, differentiable: bool = False):
-    if pl.is_sharded(x) and (kind not in SHARDED_KINDS or differentiable):
-        raise NotImplementedError(
-            f"layer kind {kind!r}{' (differentiable)' * differentiable} on "
-            f"a mesh of {len(x.locals)} positions: its sharded execution is "
-            f"queued (ROADMAP A, item 4a)")
     if mode == "decode":
         return _decode_layer(cfg, kind, p, x, cache, pos, aux)
     return _full_layer(cfg, kind, p, x, positions, frontend, mode, aux,

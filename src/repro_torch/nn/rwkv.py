@@ -17,7 +17,8 @@ so each position holds whole heads and runs B5, the group norm and the
 gate on them; `w_o` is row-parallel with an all-reduce. In the channel
 mix `w_ck` is column-parallel over "mlp", `w_cv` row-parallel with an
 all-reduce, `w_cr` replicated. The state lies over the heads; the shift
-states `x_t` and `x_c` are replicated over "model".
+states `x_t` and `x_c` are replicated over "model". `differentiable`
+runs `_wkv_chunked` on each position's heads instead of B5.
 """
 from __future__ import annotations
 
@@ -191,7 +192,7 @@ def rwkv_time_mix_full(cfg, p, x, differentiable: bool = False):
     `differentiable`."""
     if pl.is_sharded(x):
         out, state = pl.local_map_n(
-            lambda x_, p_: _mixed_heads(cfg, p_, x_), x, p,
+            lambda x_, p_: _mixed_heads(cfg, p_, x_, differentiable), x, p,
             specs=_head_specs(cfg, x, p))
         return pl.einsum("bte,ed->btd", out, p["w_o"]), state
     out, state = _mixed_heads(cfg, p, x, differentiable)

@@ -42,10 +42,23 @@ count or a vocab that the axis does not divide; `D_FALLBACK`). `einsum`
 then slices the activations' d and all-reduces the partial products, and
 the lookup all-gathers the columns. Any other fallback raises
 `NotImplementedError` (ROADMAP A, item 4c).
+
+Training. `shard_params(..., trainable=True)` makes every position's
+block a leaf that takes a gradient. The collectives are copies, slices,
+concatenations and f32 adds, which autograd runs through, so the backward
+pass is the derivative of the one-controller program: a block that
+several positions hold (replicated over an axis its spec leaves free)
+gets on each copy only the part of its gradient that the copy's own
+position used. `sync_grads` adds those parts over the free axes, in f32
+and in position order, rounding once (`all_reduce_sum`'s arithmetic),
+so that every copy holds the logical gradient's block, bit for bit the
+same on each, and `distinct` names the positions whose blocks a sum over
+the logical tensor (a norm) counts once.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -138,6 +151,20 @@ def _leaves(tree):
         yield tree
 
 
+def named_leaves(tree, prefix: str = ""):
+    """(dotted path, leaf) for each leaf of nested dicts and lists, in
+    order: "embed", "layers.0.attn.wq", ..."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        yield prefix, tree
+        return
+    for k, v in items:
+        yield from named_leaves(v, f"{prefix}.{k}" if prefix else str(k))
+
+
 def _first_sharded(tree) -> Optional[ShardedTensor]:
     return next((t for t in _leaves(tree) if isinstance(t, ShardedTensor)),
                 None)
@@ -227,20 +254,42 @@ def gather(st: ShardedTensor, device=None) -> torch.Tensor:
     each distinct block copied once."""
     dev = st.mesh.devices[0] if device is None else torch.device(device)
     out = torch.empty(st.shape, dtype=st.dtype, device=dev)
-    seen = set()
+    coords = _coords(st.mesh)
     copies = nbytes = 0
-    for i, c in enumerate(_coords(st.mesh)):
-        idx = st.sharding.index(c, st.shape)
-        key = tuple((s.start, s.stop) for s in idx)
-        if key in seen:
-            continue
-        seen.add(key)
-        out[idx] = st.locals[i].to(dev)
+    for i in distinct(st):
+        out[st.sharding.index(coords[i], st.shape)] = st.locals[i].to(dev)
         if i:
             copies += 1
             nbytes += _nbytes(st.locals[i])
     _record("gather", copies, nbytes)
     return out
+
+
+def _first_holders(st: ShardedTensor) -> List[int]:
+    """For each position, the first position that holds its block."""
+    first: Dict[tuple, int] = {}
+    return [first.setdefault(tuple((s.start, s.stop) for s in
+                                   st.sharding.index(c, st.shape)), i)
+            for i, c in enumerate(_coords(st.mesh))]
+
+
+def distinct(st: ShardedTensor) -> List[int]:
+    """The positions that hold the distinct blocks of `st`, each block
+    named once (by its first holder), in position order."""
+    return [i for i, j in enumerate(_first_holders(st)) if i == j]
+
+
+def copies_equal(tree) -> bool:
+    """Does every copy of every block of the placed tensors in `tree` hold
+    the bits of the block's first holder?"""
+    return all(torch.equal(st.locals[i], st.locals[j])
+               for st in _leaves(tree) if isinstance(st, ShardedTensor)
+               for i, j in enumerate(_first_holders(st)) if i != j)
+
+
+def as_global(x):
+    """`gather(x)` for a placed tensor, x itself otherwise."""
+    return gather(x) if is_sharded(x) else x
 
 
 def position_bytes(tree) -> List[int]:
@@ -261,12 +310,14 @@ def _record(op: str, copies: int, nbytes: int) -> None:
         scope.record(op, copies, nbytes)
 
 
-def _groups(mesh, axis: str) -> List[List[int]]:
-    """The positions along `axis` for each value of the other axes, each
-    in axis order."""
+def _groups(mesh, axes) -> List[List[int]]:
+    """The positions along `axes` (one axis name or several) for each
+    value of the other axes, each group in position order (row-major, so
+    axis order)."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
     groups: Dict[tuple, List[int]] = {}
     for i, c in enumerate(_coords(mesh)):
-        key = tuple(v for a, v in c.items() if a != axis)
+        key = tuple(v for a, v in c.items() if a not in axes)
         groups.setdefault(key, []).append(i)
     return list(groups.values())
 
@@ -288,22 +339,56 @@ def all_reduce_sum(st: ShardedTensor, axis: str) -> ShardedTensor:
     their dtype. The spec (which must not use `axis`) is the result's."""
     if _dim_of(st, axis) is not None:
         raise ValueError(f"partial sums sharded over {axis} ({st.spec})")
-    n = axis_sizes(st.mesh)[axis]
+    return _sum_over(st, (axis,), "all_reduce_sum")
+
+
+def _sum_over(st: ShardedTensor, axes: Sequence[str], op: str
+              ) -> ShardedTensor:
+    """Every position adds the blocks of its group along `axes` in f32,
+    in position order, and rounds once to their dtype; counted as `op`."""
+    n = math.prod(axis_sizes(st.mesh)[a] for a in axes)
     if n == 1:
         return st
     devs = st.mesh.devices
     out = [None] * len(st.locals)
-    with torch.profiler.record_function("exchange.all_reduce_sum"):
-        for group in _groups(st.mesh, axis):
+    with torch.profiler.record_function(f"exchange.{op}"):
+        for group in _groups(st.mesh, axes):
             for i in group:
                 acc = st.locals[group[0]].to(devs[i], torch.float32,
                                              copy=True)
                 for j in group[1:]:
                     acc.add_(st.locals[j].to(devs[i]))
                 out[i] = acc.to(st.dtype)
-    _record("all_reduce_sum", len(st.locals) * (n - 1),
+    _record(op, len(st.locals) * (n - 1),
             len(st.locals) * (n - 1) * _nbytes(st.locals[0]))
     return dataclasses.replace(st, locals=tuple(out))
+
+
+def free_axes(st: ShardedTensor) -> Tuple[str, ...]:
+    """The mesh axes that `st`'s spec leaves free (its blocks replicated
+    over them), in axis order."""
+    used = {a for e in st.spec for a in entry_axes(e)}
+    return tuple(a for a in axis_sizes(st.mesh) if a not in used)
+
+
+def sync_grads(params) -> Any:
+    """The gradients of a placed tree made `trainable`, each leaf's blocks
+    summed over the axes its spec leaves free (`free_axes`): the tree's
+    structure with each leaf's synced gradient as a `ShardedTensor` (a
+    block that took no gradient counts as zeros). Every copy of a block
+    then holds the logical gradient's block, the same bits on each; a
+    block that only one position holds keeps its gradient. Counted in the
+    scope's exchange as "grad_sync". The blocks' `.grad` are released."""
+    if isinstance(params, dict):
+        return {k: sync_grads(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(sync_grads(v) for v in params)
+    grads = []
+    for b in params.locals:
+        grads.append(torch.zeros_like(b) if b.grad is None else b.grad)
+        b.grad = None
+    return _sum_over(dataclasses.replace(params, locals=tuple(grads)),
+                     free_axes(params), "grad_sync")
 
 
 def reduce_scatter(st: ShardedTensor, axis: str, dim: int
@@ -479,21 +564,26 @@ def abstract_placed(tree, specs, mesh):
                        dtype=tree.dtype, device="meta")
 
 
-def _place_group(group, mesh) -> dict:
+def _place_group(group, mesh, trainable: bool) -> dict:
     """A `ParamGroup` as a dict of placed tensors, each by its
-    `ParamDef`'s logical axes."""
+    `ParamDef`'s logical axes; with `trainable` each block a leaf that
+    requires grad."""
     out = {}
     for name, d in group.defs.items():
         t = group[name]
         if isinstance(t, torch.nn.Module):
-            out[name] = _place_group(t, mesh)
-        else:
-            out[name] = shard(t.detach(), NamedSharding(
-                mesh, fitted(spec(*d.logical), t.shape, mesh, d.logical)))
+            out[name] = _place_group(t, mesh, trainable)
+            continue
+        st = shard(t.detach(), NamedSharding(
+            mesh, fitted(spec(*d.logical), t.shape, mesh, d.logical)))
+        for b in st.locals:
+            b.requires_grad_(trainable)
+        out[name] = st
     return out
 
 
-def shard_params(model, mesh, release: bool = False) -> dict:
+def shard_params(model, mesh, release: bool = False,
+                 trainable: bool = False) -> dict:
     """A `DecoderLM`'s parameters placed on `mesh`: a dict of its top
     entries ("embed", "final_norm", "lm_head", ...) and of "layers" /
     "encoder" lists of per-layer dicts, every leaf a `ShardedTensor`
@@ -503,9 +593,11 @@ def shard_params(model, mesh, release: bool = False) -> dict:
     caller that places it again on another mesh or runs it unplaced beside
     its placement; with `release` it is emptied group by group as each is
     placed, so that the model and one layer's blocks are held at once, not
-    the model twice (a model that fills most of a device)."""
+    the model twice (a model that fills most of a device). With
+    `trainable` every block is a leaf that requires grad, for `loss_fn`'s
+    backward pass and `sync_grads`."""
     def place(group):
-        out = _place_group(group, mesh)
+        out = _place_group(group, mesh, trainable)
         if release:
             for t in group.parameters():
                 t.data = t.data.new_empty(0)

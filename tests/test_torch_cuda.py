@@ -1432,3 +1432,64 @@ def test_placed_adaptive_decode_on_card(cuda):
         assert torch.equal(ia["exit_block"], ib["exit_block"])
         assert float(ia["flops_saved_frac"]) == float(ib["flops_saved_frac"])
         assert float((a - b).norm() / b.norm()) < 1e-4
+
+
+@pytest.mark.parametrize("arch,meshes", [
+    ("granite-34b", ((1, 2), (2, 2))), ("dbrx-132b", ((1, 2), (2, 2))),
+    ("rwkv6-3b", ((1, 2), (2, 1))), ("recurrentgemma-9b", ((1, 2), (2, 2))),
+    ("whisper-small", ((1, 2), (2, 2)))])
+def test_placed_training_step_on_card(cuda, arch, meshes):
+    """An f32 training step (TF32 off) of a smoke model placed trainable on
+    meshes of the card repeated (granite-34b with exit heads, MoE, rwkv,
+    rglru + local, encoder-decoder): the synced gradients and the
+    parameters and moments after `lm_train_step` within 1e-4 relative L2
+    of the (1, 1) mesh's on the card and of the CPU's; every copy of a
+    block bitwise equal; B4 and B5 not launched."""
+    import dataclasses
+    from repro_torch.configs import ARCHS, smoke
+    from repro_torch.data import synthetic_stream
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import lm_batch, lm_train_step
+    from repro_torch.common import TrainConfig
+    from repro_torch.models import decoder_lm as M
+    from repro_torch.optim import adamw_init, make_schedule
+    from repro_torch.sharding import placement as pl
+    from repro_torch.sharding import use_mesh
+    cfg = (_adaptive_granite() if arch == "granite-34b"
+           else smoke(ARCHS[arch]))
+    raw = next(synthetic_stream(0, 4, 32, cfg.vocab_size, cfg))
+    tc = TrainConfig(learning_rate=3e-3, warmup_steps=0, total_steps=10)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for run, dev, (data, model_ax) in [
+                ("host", torch.device("cpu"), (1, 1)),
+                ("card", cuda, (1, 1))] + [("card", cuda, m) for m in meshes]:
+            mesh = make_mesh((dev,) * (data * model_ax),
+                             {"data": data, "model": model_ax})
+            params = pl.shard_params(_soft_model(cfg, dev), mesh,
+                                     trainable=True)
+            opt = adamw_init(params, tc)
+            batch = lm_batch(cfg, raw, dev)
+            flash_attention.launches = wkv6.launches = 0
+            with use_mesh(mesh):
+                loss, _ = M.loss_fn(cfg, params, batch)
+                loss.backward()
+                grads = pl.sync_grads(params)
+                lm_train_step(cfg, params, opt, tc, make_schedule(tc), batch)
+            assert flash_attention.launches == wkv6.launches == 0
+            assert pl.copies_equal((grads, params, opt["mu"], opt["nu"]))
+            out[run, data, model_ax] = {
+                f"{k}.{path}": pl.gather(st, "cpu").detach()
+                for k, tree in (("g", grads), ("p", params),
+                                ("mu", opt["mu"]), ("nu", opt["nu"]))
+                for path, st in pl.named_leaves(tree)}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    cpu, one = out.pop(("host", 1, 1)), out.pop(("card", 1, 1))
+    for got in [one, *out.values()]:
+        for want in (cpu, one):
+            for n, w in want.items():
+                err = float((got[n] - w).norm())
+                assert err <= 1e-4 * float(w.norm()) + 1e-12, (arch, n, err)

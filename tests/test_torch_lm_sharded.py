@@ -33,7 +33,6 @@ from repro_torch.core.adaptive_depth import adaptive_decode_step
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import decoder_lm as M
 from repro_torch.models.convert import lm_params_from_numpy
-from repro_torch.nn import blocks as B_
 from repro_torch.serving import LMServingEngine
 from repro_torch.sharding import placement as pl
 from repro_torch.sharding import named, spec, use_mesh
@@ -231,12 +230,11 @@ def _soften(cfg, model):
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b",
                                   "dbrx-132b", "llama-3.2-vision-11b",
                                   "whisper-small"])
-def test_unported_layer_kinds_raise_on_a_mesh(arch):
+def test_every_layer_kind_runs_on_a_mesh(arch):
     """Every layer kind runs on a mesh of more than one position and
     equals the unsharded model: `rwkv`, `rglru`, `local`, `attn_moe`, and
     (with a frontend) `xattn`, `enc` and `encdec`; all run as unplaced
-    on a mesh of one. (The name predates the last three kinds' sharded
-    path, when they raised here.)"""
+    on a mesh of one."""
     cfg, model = _smoke_model(arch)
     seq = torch.randint(0, cfg.vocab_size, (2, 8))
     n_fe = cfg.encoder_seq if cfg.is_encdec else cfg.num_image_tokens
@@ -256,30 +254,6 @@ def test_unported_layer_kinds_raise_on_a_mesh(arch):
     with use_mesh(one):
         got, _ = M.forward(cfg, params, seq, frontend=fe)
     assert torch.equal(got, want)
-
-
-@pytest.mark.parametrize("arch", ["dbrx-132b", "grok-1-314b", "rwkv6-3b",
-                                  "recurrentgemma-9b"])
-def test_sharded_kinds_raise_when_differentiable(arch):
-    """Training on a mesh is queued (ROADMAP A, item 4a): `forward(...,
-    differentiable=True)`, `loss_fn` and each layer of the model with
-    `differentiable=True` raise on a mesh of more than one position."""
-    cfg, model = _smoke_model(arch)
-    seq = torch.randint(0, cfg.vocab_size, (2, 16))
-    mesh = _mesh(1, 2)
-    params = pl.shard_params(model, mesh)
-    with use_mesh(mesh):
-        with pytest.raises(NotImplementedError, match="item 4a"):
-            M.forward(cfg, params, seq, differentiable=True)
-        with pytest.raises(NotImplementedError, match="item 4a"):
-            M.loss_fn(cfg, params, {"tokens": seq})
-        toks, positions = M._sharded_tokens(cfg, seq, mesh)
-        x = M._embed_tokens(cfg, params, toks, positions)
-        for kind, p in zip(cfg.layer_kinds, params["layers"]):
-            with pytest.raises(NotImplementedError,
-                               match=f"{kind}.*differentiable.*item 4a"):
-                B_.apply_layer(cfg, kind, p, x, positions=positions,
-                               differentiable=True)
 
 
 @pytest.mark.parametrize("arch,mesh_shape", [("recurrentgemma-9b", (1, 2)),
@@ -337,10 +311,6 @@ def test_placed_models_and_caches_are_checked(models):
             for n in c:
                 assert p[n].spec == c[n].spec
                 assert torch.equal(pl.gather(p[n]), plain[0][n])
-        with pytest.raises(NotImplementedError, match="differentiable"):
-            M.forward(cfg, params, seq, differentiable=True)
-        with pytest.raises(NotImplementedError, match="collect_states"):
-            M.forward(cfg, params, seq, collect_states=True)
         # adaptive decoding runs on a placed model: without exit heads no
         # token exits, and the step is decode_step's
         acfg = dataclasses.replace(cfg, adaptive=AdaptiveDepthConfig(
