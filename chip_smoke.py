@@ -184,20 +184,32 @@ fails (non-zero exit, no result line) on any failed check:
    (2, 2), gemma-7b whole (28 layers, 16 heads of 256, tied embedding,
    GeGLU) on (1, 1) and (1, 2), and on (1, 1), (1, 2) and (2, 2)
    dbrx-132b (6 of 40 layers) and grok-1-314b (4 of 64) with their
-   experts FSDP over "data", rwkv6-3b (12 of 32 layers) and
+   experts FSDP over "data", rwkv6-3b (12 of 32 layers; also on (1,
+   16), where 2.5 of its 40 heads lie on a position: the time mix on
+   (batch row, head) pairs, the state over its key dim) and
    recurrentgemma-9b (14 of 38), and
    the frontend models llama-3.2-vision-11b (10 of 40 layers, 4 x 1600
    image rows) and whisper-small whole (16 x 224 tokens, 16 x 1500
    frames; its odd vocab puts "model" on d of the embedding and the
-   head); bf16, random weights drawn anew for each mesh (conditioned as
+   head; also on (1, 8), which its 12 heads do not divide: "model" on d
+   of wq and the head dim of wo, the query rows split), and
+   deepseek-coder-33b (2 of 62 layers, full width) on (1, 1) and (1,
+   16), where its 56 heads do not divide "model" and its prefill of
+   2048 splits the query rows as the reference's `_seq_shard` does
+   (context-parallel attention, B4 on each position's rows at its query
+   offset); bf16, random weights drawn anew for each mesh (conditioned as
    above) and placed by `shard_params`. For each mesh: the bytes each
    position holds, measured on the placed tensors; B4 (B5 for rwkv) on
    position 0's operands of the first layer that runs it, at the
    per-position shape, against its plain version and timed beside SDPA
    (for the frontend models the key-bound launches of the first `xattn`,
-   `enc` and cross-attention, `bounded_attention_check`); the main path
+   `enc` and cross-attention, `bounded_attention_check`), and where the
+   rows split B4's query-offset instance on the last position's rows
+   (deepseek's timed for the summary's row); the main path
    inside `use_mesh`: prefill 4 x 2048 (the kernel once per layer and
-   position, twice per `encdec` layer), 16 decode steps fed the (1, 1)
+   position, twice per `encdec` layer; the query-offset instances once
+   per causal layer whose rows split and position but the first along
+   "model"), 16 decode steps fed the (1, 1)
    mesh's greedy tokens, `seed_frontend_cache` into a cache placed by
    `init_cache` equal to the prefill's xk / xv bit for bit, one traced
    prefill and decode step (the device time of each collective), and 4
@@ -207,7 +219,8 @@ fails (non-zero exit, no result line) on any failed check:
    (within MOE_DROP_GAP of the assignments of (1, 1)'s), and the
    relative L2 of the logits and the argmax agreement against the (1, 1)
    mesh, which must stay under the model's SHARDED_REL. Then rwkv6-3b
-   and whisper-small whole in f32 on their meshes (`sharded_f32_check`),
+   and whisper-small whole in f32 on their meshes, (1, 16) and (1, 8)
+   included (`sharded_f32_check`),
    whose logits must stay within F32_REL of (1, 1)'s. Last, adaptive
    decoding on a placed model (`sharded_adaptive_phase`): granite-34b at
    full width, 4 of 88 layers, exit heads at blocks 0-2, in f32 on (1,
@@ -576,6 +589,8 @@ def launch_counts(kernels) -> dict:
 def zero_counts(kernels) -> None:
     for k in kernels.values():
         k.launches = 0
+        if hasattr(k, "offset_launches"):      # B4's query-offset instances
+            k.offset_launches = 0
 
 
 def gnn_phases(torch, dev, kernels):
@@ -2497,14 +2512,18 @@ def moe_layer(torch, cfg, p, x, pos, plain):
 
 
 def attention_check(torch, dev, cfg, q, k, v, label, cap_acts=False,
-                    window=0):
+                    window=0, q_offset=None):
     """B4 against its plain version on one layer's q, k, v, causal and
     banded to `window` keys where it is set, timed beside the plain
     version, SDPA (causal or under the band's mask, GQA; it has no
     soft-cap, so for a capped config it computes the uncapped function)
     and the kernel with the cap off; prints the largest |logit| and, with a cap, the kernel's
     distance to the uncapped plain version, which must be far outside the
-    tolerance where `cap_acts`.
+    tolerance where `cap_acts`. With `q_offset` the queries are rows of
+    the keys' sequence, row 0 at that position (a mesh position's rows of
+    the context-parallel split): SDPA takes the offset causal mask, and
+    the bound counts the pairs under it and the keys the rows reach.
+    Returns the kernel's row (name, source, error, timings, bound).
 
     Tolerance, twice the bound of the kernel's roundings: P rounded to
     bf16 moves the output by at most 2^-9 of the largest |v| (the output
@@ -2513,12 +2532,18 @@ def attention_check(torch, dev, cfg, q, k, v, label, cap_acts=False,
     unconditioned projections' v reach ~100, where a bf16 step is 0.5).
     The bound takes the peak of the operands' type (f32 on the CUDA
     cores for f32)."""
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (BK, BQ, flash_attention,
+                                                     gqa_flash_attention,
                                                      ref_attention)
     cap = cfg.attn_logit_softcap
     W = window
-    out = flash_attention(q, k, v, window=W, softcap=cap)
-    ref = ref_attention(q, k, v, window=W, softcap=cap)
+    # rows or keys off the block (a position's 28 rows of whisper's 224
+    # tokens) go through the wrapper that pads them, as the path does
+    kernel = (flash_attention if q.shape[1] % BQ == 0 and k.shape[1] % BK == 0
+              else gqa_flash_attention)
+    out = kernel(q, k, v, window=W, softcap=cap, q_offset=q_offset)
+    ref = ref_attention(q, k, v, window=W, softcap=cap,
+                        q_offset=q_offset or 0)
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
     v_max = float(v.float().abs().max())
@@ -2528,16 +2553,21 @@ def attention_check(torch, dev, cfg, q, k, v, label, cap_acts=False,
           f"{label}: flash_attention vs plain, max abs err {err} (largest "
           f"|v| {v_max})")
     B_, S_, H, hd = q.shape
-    KV = k.shape[2]
+    Sk, KV = k.shape[1], k.shape[2]
+    o = q_offset or 0
     lg = torch.einsum("qhd,khd->hqk", q[0].float(),
                       k[0].float().repeat_interleave(H // KV, 1)) / hd ** 0.5
-    band = torch.ones((S_, S_), dtype=torch.bool, device=dev).tril()
+    qpos = torch.arange(S_, device=dev)[:, None] + o
+    kpos = torch.arange(Sk, device=dev)[None, :]
+    band = kpos <= qpos
     if W:
-        band &= ~torch.ones_like(band).tril(-W)
+        band &= kpos > qpos - W
     lg.masked_fill_(~band, 0.0)
     max_logit = float(lg.abs().max())
     del lg
-    line = (f"{label}: B {B_}, S {S_}, {H} q heads, {KV} kv heads, hd {hd}, "
+    line = (f"{label}: B {B_}, S {S_}"
+            + (f" rows at offset {o} of {Sk} keys" if q_offset else "")
+            + f", {H} q heads, {KV} kv heads, hd {hd}, "
             f"causal{f', window {W}' if W else ''}, soft-cap {cap}; largest |logit| (batch 0) "
             f"{max_logit:.4g}; max abs err vs plain {err:.3g} of values up "
             f"to {float(ref.float().abs().max()):.3g} (largest |v| "
@@ -2550,22 +2580,24 @@ def attention_check(torch, dev, cfg, q, k, v, label, cap_acts=False,
               f"{label}: the cap acts (kernel {far} from the uncapped plain "
               f"version)")
     print(line)
-    flops = 4 * B_ * H * band_pairs(S_, W) * hd
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops = 4 * B_ * H * int(band.sum()) * hd
+    reach = min(Sk, o + S_) if q_offset is not None else Sk
+    nbytes = (2 * q.numel() + 2 * B_ * reach * KV * hd) * q.element_size()
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
 
     def library():
-        if W:
+        if W or q_offset is not None:
             return torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=band, enable_gqa=True)
         return torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)
-    t = timings(torch, lambda: flash_attention(q, k, v, window=W,
-                                               softcap=cap),
-                lambda: ref_attention(q, k, v, window=W, softcap=cap),
+    t = timings(torch, lambda: kernel(q, k, v, window=W, softcap=cap,
+                                      q_offset=q_offset),
+                lambda: ref_attention(q, k, v, window=W, softcap=cap,
+                                      q_offset=o),
                 library, plain_reps=5)
-    t["uncapped_ms"] = time_ms(torch, lambda: flash_attention(q, k, v,
-                                                              window=W))
+    t["uncapped_ms"] = time_ms(torch, lambda: kernel(q, k, v, window=W,
+                                                     q_offset=q_offset))
     ms, by = bound(nbytes, flops, PEAK_BF16_FLOP_S
                    if q.dtype == torch.bfloat16 else PEAK_F32_FLOP_S)
     print(f"{label} timings: kernel {t['ms']:.4f} ms "
@@ -2573,6 +2605,10 @@ def attention_check(torch, dev, cfg, q, k, v, label, cap_acts=False,
           f"its bound {ms:.4f} ms, {by}); the kernel without the cap "
           f"{t['uncapped_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; SDPA "
           f"{t['library_ms']:.4f} ms{' (uncapped)' if cap else ''}")
+    return dict(name="flash_attention",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:77",
+                max_abs_err=err, bound=(ms, by), **t)
 
 
 def moe_phase(torch, dev, kernels, arch, bf16_rel, smi_line):
@@ -3695,15 +3731,37 @@ SHARDED_LAYERS = {"mistral-large-123b": 8,    # of 88: 23.76 GB of bf16
                   # pattern; whole, its three meshes took 74.5 s of a run
                   # that must stay under 1,050 s ("NVIDIA H100 80GB HBM3,
                   # 700.00 W"), the traced steps 37.7 s of them
-                  "llama-3.2-vision-11b": 10}
+                  "llama-3.2-vision-11b": 10,
+                  # 2 of 62 at full width (d 7168, 56 / 8 heads of 128):
+                  # 1.06 GB a layer and 0.92 GB of embedding and head in
+                  # bf16, so that its meshes stay within the run's time
+                  "deepseek-coder-33b": 2}
 SHARDED_MESHES = {"mistral-large-123b": ((1, 1), (1, 2), (1, 4), (2, 2)),
                   "gemma-7b": ((1, 1), (1, 2)),
                   "dbrx-132b": ((1, 1), (1, 2), (2, 2)),
                   "grok-1-314b": ((1, 1), (1, 2), (2, 2)),
-                  "rwkv6-3b": ((1, 1), (1, 2), (2, 2)),
+                  # model 16: 2.5 of its 40 heads a position, the time
+                  # mix on (batch row, head) pairs, the state over its keys
+                  "rwkv6-3b": ((1, 1), (1, 2), (2, 2), (1, 16)),
                   "recurrentgemma-9b": ((1, 1), (1, 2), (2, 2)),
                   "llama-3.2-vision-11b": ((1, 1), (1, 2), (2, 2)),
-                  "whisper-small": ((1, 1), (1, 2), (2, 2))}
+                  # model 8: its 12 heads do not divide it, the query rows
+                  # split (wq on d, wo on the head dim)
+                  "whisper-small": ((1, 1), (1, 2), (2, 2), (1, 8)),
+                  # model 16: 56 heads do not divide it; its prefill of
+                  # 2048 splits the rows (the reference's `_seq_shard`)
+                  "deepseek-coder-33b": ((1, 1), (1, 16))}
+# where B4's query-offset instances are checked on the last position's
+# rows: deepseek-coder-33b's at (1, 16), 4 x 128 rows at offset 1920 of
+# 2048 keys (bf16 hd 128, timed for the summary), and whisper-small's
+# decoder at (1, 8), 16 x 28 rows at offset 196 of 224 keys (bf16 hd 64)
+OFFSET_CHECKS = {("deepseek-coder-33b", (1, 16)), ("whisper-small", (1, 8))}
+# meshes whose traced decode step and prefill are left out, to keep the
+# run inside its time limit: their traces took 8.8 s, 32.9 s and 34.8 s
+# of a development run's phase ("NVIDIA H100 80GB HBM3, 700.00 W"), the
+# profiler's parse of 8 or 16 positions' events
+UNTRACED = {("deepseek-coder-33b", (1, 16)), ("whisper-small", (1, 8)),
+            ("rwkv6-3b", (1, 16))}
 SHARDED_SHAPE = dict(batch=4, seq=2048, n_dec=16)
 # the prompt where it is not SHARDED_SHAPE's: whisper-small's 16 clips of
 # 224 tokens (the cross-attention phase's), each with its 1500 frames;
@@ -3724,7 +3782,10 @@ SHARDED_REL = {"mistral-large-123b": SHARDED_BF16_REL,
                "dbrx-132b": 0.0125, "grok-1-314b": 0.0125,
                "rwkv6-3b": 0.95, "recurrentgemma-9b": 0.025,
                # twice the 0.01033 (llama whole) and 0.01029 an H100 gave
-               "llama-3.2-vision-11b": 0.021, "whisper-small": 0.021}
+               "llama-3.2-vision-11b": 0.021, "whisper-small": 0.021,
+               # about twice the 0.006247 an H100 gave at (1, 16) (2 of
+               # 62 layers; whisper-small's (1, 8) gave 0.009976)
+               "deepseek-coder-33b": 0.0125}
 # the bf16 limit cannot see a wrong split of rwkv6-3b, so it runs again in
 # f32 (whole, prefill batch x seq and n_dec decode steps) on its meshes,
 # held against (1, 1) under F32_REL (an H100 gave 4.311e-4 and 3.768e-4
@@ -3766,6 +3827,20 @@ def exchange_profile(torch, step):
 
 KERNEL_KINDS = {"flash_attention": ("attn", "attn_moe", "local"),
                 "wkv6": ("rwkv",)}
+
+
+def offset_launches(cfg, params, seq: int, data: int, model_ax: int) -> int:
+    """B4's launches with a query offset > 0 in one prefill of `seq`
+    tokens on a placed model: each causal attention layer whose query rows
+    split over "model" (`nn.attention.splits_rows`) launches the offset
+    instances on every position but the first along the axis."""
+    from repro_torch.nn import attention
+    if model_ax == 1:
+        return 0
+    n = sum(attention.splits_rows(cfg, p["attn"]["wq"], seq)
+            for p, k in zip(params["layers"], cfg.layer_kinds)
+            if k in ("attn", "attn_moe", "local", "encdec"))
+    return n * data * (model_ax - 1)
 
 
 def prefill_launches(cfg) -> dict:
@@ -3820,14 +3895,23 @@ def frontend_operands(torch, cfg, params, toks, frontend, mesh):
     def pick(q, k, v):
         if one:
             return q, k, v
+        if q.spec[1] is not None:         # rows over "model": whole k, v
+            rep = (k.spec[0], None, None, None)
+            return (q.locals[0], pl.relayout(k, rep).locals[0],
+                    pl.relayout(v, rep).locals[0])
         k, v = A._whole_head_dim(k), A._whole_head_dim(v)
         return (q.locals[0], A._kv_for_heads(q, k, 0),
                 A._kv_for_heads(q, v, 0))
 
+    def queries(p, xn):
+        if one:
+            return torch.einsum("bsd,dhe->bshe", xn, p["wq"])
+        if A.splits_rows(cfg, p["wq"], xn.shape[1]):
+            return A._row_queries(cfg, p["wq"], xn)
+        return pl.einsum("bsd,dhe->bshe", xn, p["wq"])
+
     def cross(p, xn, y):
-        q = (torch.einsum if one else pl.einsum)("bsd,dhe->bshe", xn,
-                                                 p["wq"])
-        return pick(q, *A.project_kv(cfg, p, y))
+        return pick(queries(p, xn), *A.project_kv(cfg, p, y))
     out = []
     with torch.no_grad():
         pos = M._positions(ts)
@@ -3835,9 +3919,12 @@ def frontend_operands(torch, cfg, params, toks, frontend, mesh):
         if cfg.is_encdec:
             p = params["encoder"][0]
             y = pl.per_position(lambda t: t.to(x.dtype), fe)
-            qkv = (A._project_qkv if one else A._sharded_qkv)(
-                cfg, p["attn"], apply_norm(cfg, p["norm1"], y),
-                M._positions(y))
+            yn = apply_norm(cfg, p["norm1"], y)
+            if one:
+                qkv = A._project_qkv(cfg, p["attn"], yn, M._positions(y))
+            else:
+                qkv = (queries(p["attn"], yn), *A._sharded_kv(
+                    cfg, p["attn"], yn, M._positions(y)))
             out.append(("enc (layer 0)", *pick(*qkv)))
             p = params["layers"][0]
             x = x + A.self_attention(cfg, p["attn"], apply_norm(
@@ -3857,17 +3944,22 @@ def frontend_operands(torch, cfg, params, toks, frontend, mesh):
     return [(what, *(t.contiguous() for t in ops)) for what, *ops in out]
 
 
-def position0_operands(torch, cfg, params, toks, mesh):
-    """Mesh position 0's operands of the first layer that runs a kernel, at
-    the prefill's shape, as the sharded path hands them over (on a mesh of
-    one position, the unplaced path's): q, k, v for B4, or r, k, v, logw,
-    u for B5; with the layer's kind."""
+def position_operands(torch, cfg, params, toks, mesh, i=0):
+    """Mesh position i's operands of the first layer that runs a kernel
+    (an `encdec` layer's self-attention), at the prefill's shape, as the
+    sharded path hands them over (on a mesh of one position, the unplaced
+    path's): q, k, v for B4 (q the position's
+    rows and k, v whole where the rows split over "model"), or r, k, v,
+    logw, u for B5 (the position's (batch row, head) pairs as heads of one
+    row where its columns split heads); with the layer's kind and B4's
+    query offset (None where the rows do not split)."""
     from repro_torch.models import decoder_lm as M
     from repro_torch.nn import attention, rwkv
     from repro_torch.nn import blocks as TB
     from repro_torch.nn.basic import apply_norm
     from repro_torch.sharding import placement as pl
     one = len(mesh.devices) == 1
+    offset = None
     with torch.no_grad():
         if one:
             params = pl.local_tree(params)
@@ -3875,25 +3967,38 @@ def position0_operands(torch, cfg, params, toks, mesh):
         else:
             ts, positions = M._sharded_tokens(cfg, toks, mesh)
         x = M._embed_tokens(cfg, params, ts, positions)
-        i, kind = next((i, k) for i, k in enumerate(cfg.layer_kinds)
-                       if k in KERNEL_KINDS["flash_attention"] + ("rwkv",))
-        for j in range(i):
+        li, kind = next((j, k) for j, k in enumerate(cfg.layer_kinds)
+                        if k in KERNEL_KINDS["flash_attention"]
+                        + ("rwkv", "encdec"))
+        for j in range(li):
             x, _, _ = TB.apply_layer(cfg, cfg.layer_kinds[j],
                                      params["layers"][j], x,
                                      positions=positions)
-        p = params["layers"][i]
+        p = params["layers"][li]
         xn = apply_norm(cfg, p["norm1"], x)
-        if kind == "rwkv":
-            tmix = p["tmix"] if one else pl.local_tree(p["tmix"], 0)
-            ops = rwkv.wkv_inputs(cfg, tmix, xn if one else xn.locals[0])[:5]
+        if kind == "rwkv" and (one or rwkv._whole_heads(cfg, p["tmix"])):
+            tmix = p["tmix"] if one else pl.local_tree(p["tmix"], i)
+            ops = rwkv.wkv_inputs(cfg, tmix, xn if one else xn.locals[i])[:5]
+        elif kind == "rwkv":
+            pairs, u, _, _ = rwkv.pair_inputs(cfg, p["tmix"], xn)
+            ops = (*(t.locals[i][0].transpose(0, 1)[None] for t in pairs),
+                   u[i])
         elif one:
             ops = attention._project_qkv(cfg, p["attn"], xn, positions)
+        elif attention.splits_rows(cfg, p["attn"]["wq"], xn.shape[1]):
+            ks, vs = attention._sharded_kv(cfg, p["attn"], xn, positions)
+            qs = attention._row_queries(cfg, p["attn"]["wq"], xn,
+                                        positions if cfg.use_rope else None)
+            rep = (ks.spec[0], None, None, None)
+            ops = (qs.locals[i], pl.relayout(ks, rep).locals[i],
+                   pl.relayout(vs, rep).locals[i])
+            offset = qs.block(i, 1)[0]
         else:
             qs, ks, vs = attention._sharded_qkv(cfg, p["attn"], xn,
                                                 positions)
-            ops = (qs.locals[0], attention._kv_for_heads(qs, ks, 0),
-                   attention._kv_for_heads(qs, vs, 0))
-        return tuple(a.contiguous() for a in ops), kind
+            ops = (qs.locals[i], attention._kv_for_heads(qs, ks, i),
+                   attention._kv_for_heads(qs, vs, i))
+        return tuple(a.contiguous() for a in ops), kind, offset
 
 
 def sharded_f32_check(torch, dev, smi_line, arch, batch, seq, n_dec):
@@ -4035,6 +4140,7 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
     print(line)
     lines.append(line)
     total = {name: 0 for name in KERNEL_KINDS}
+    total_offset, offset_row = 0, None
     for arch, meshes in SHARDED_MESHES.items():
         t_arch = time.perf_counter()
         sh = SHARDED_SHAPES.get(arch, SHARDED_SHAPE)
@@ -4095,8 +4201,8 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
                                          f"position 0")[1])
                     del ops
                 else:
-                    ops, kind = position0_operands(torch, cfg, params, toks,
-                                                   mesh)
+                    ops, kind, off = position_operands(torch, cfg, params,
+                                                       toks, mesh)
                     if kind == "rwkv":
                         wkv_check(torch, *ops, f"wkv6 {label}, position 0")
                     else:
@@ -4104,7 +4210,26 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
                                         f"flash_attention {label}, position "
                                         f"0", window=(cfg.sliding_window
                                                       if kind == "local"
-                                                      else 0))
+                                                      else 0), q_offset=off)
+                    del ops
+                if (arch, (data, model_ax)) in OFFSET_CHECKS:
+                    # B4's query-offset instances at the last position's
+                    # rows of the first causal layer; deepseek's is the
+                    # summary's row
+                    last_pos = data * model_ax - 1
+                    ops, _, off = position_operands(torch, cfg, params, toks,
+                                                    mesh, last_pos)
+                    row = attention_check(
+                        torch, dev, cfg, *ops, f"flash_attention {label}, "
+                        f"position {last_pos} (query offset)", q_offset=off)
+                    if arch == "deepseek-coder-33b":
+                        offset_row = dict(
+                            row, name="flash_attention (query offset)",
+                            note=f"(instances with a query offset > 0, timed "
+                                 f"at {tuple(ops[0].shape)} rows from "
+                                 f"position {off} of {ops[1].shape[1]} keys; "
+                                 f"launched in the sharded prefills whose "
+                                 f"rows split)")
                     del ops
                 torch.cuda.empty_cache()
                 lap("kernel check")
@@ -4121,14 +4246,23 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
                 torch.cuda.synchronize()
                 t_prefill = time.perf_counter() - t0
                 launches = launch_counts(kernels)
+                n_offset = kernels["flash_attention"].offset_launches
                 pre_ex = {k: dict(v) for k, v in scope.exchange.items()}
                 want = {name: n * data * model_ax
                         for name, n in per_pos.items()}
                 check(all(launches[n] == want.get(n, 0) for n in launches),
                       f"{label} prefill launched each kernel once per layer "
                       f"that runs it and position ({launches}, want {want})")
+                want_offset = offset_launches(cfg, params, seq, data,
+                                              model_ax)
+                check(n_offset == want_offset,
+                      f"{label} prefill launched B4's query-offset instances "
+                      f"once per causal layer that splits its rows and "
+                      f"position but the first along \"model\" ({n_offset}, "
+                      f"want {want_offset})")
                 for name in total:
                     total[name] += launches[name]
+                total_offset += n_offset
                 drops = None
                 if is_moe:
                     drops = [int(d) for d, _ in moe.apply_moe.drops]
@@ -4170,14 +4304,18 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
                 lap("prefill and decode")
                 # one traced step each, warm from the steps above (the
                 # profiler's parse of a sharded step's events takes
-                # seconds)
-                wall, busy, ex_ms = exchange_profile(
-                    torch, lambda: M.decode_step(cfg, params, cache,
-                                                 fed[n_dec], seq + n_dec))
-                pre_wall, pre_busy, pre_ms = exchange_profile(
-                    torch, lambda: M.prefill_step(cfg, params, toks,
-                                                  frontend=fe,
-                                                  length=seq + n_dec + 1))
+                # seconds; not on the UNTRACED meshes)
+                untraced = (arch, (data, model_ax)) in UNTRACED
+                if not untraced:
+                    wall, busy, ex_ms = exchange_profile(
+                        torch, lambda: M.decode_step(cfg, params, cache,
+                                                     fed[n_dec],
+                                                     seq + n_dec))
+                    pre_wall, pre_busy, pre_ms = exchange_profile(
+                        torch, lambda: M.prefill_step(cfg, params, toks,
+                                                      frontend=fe,
+                                                      length=seq + n_dec
+                                                      + 1))
                 lap("traced step and prefill")
                 check(all(bool(torch.isfinite(o).all()) for o in outs)
                       and last.shape == (batch, cfg.vocab_size),
@@ -4223,7 +4361,9 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
                                   for k, v in sorted(ms.items())) or "0") \
                     + f" (total {sum(ms.values()):.4f})"
             kern = ", ".join(f"{n} launches {launches[n]}" for n in want
-                             if want[n])
+                             if want[n]) + (
+                f" ({n_offset} of them with a query offset)" if n_offset
+                else "")
             gap = (None if drops is None else
                    sum(abs(a - b) for a, b in zip(drops, ref["drops"])))
             dropped = ("" if drops is None else
@@ -4238,13 +4378,18 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
                        else "")
                     + f" in {t_prefill:.3f} s, "
                     f"{batch * seq / t_prefill:.1f} tokens/s, {kern}, "
-                    f"exchange {ex(pre_ex)}; traced prefill {pre_wall:.2f} "
-                    f"ms wall, device busy {pre_busy:.2f} ms, exchange "
-                    f"device ms {traced(pre_ms)}; decode "
+                    f"exchange {ex(pre_ex)}; "
+                    + ("prefill not traced" if untraced else
+                       f"traced prefill {pre_wall:.2f} ms wall, device busy "
+                       f"{pre_busy:.2f} ms, exchange device ms "
+                       f"{traced(pre_ms)}")
+                    + f"; decode "
                     f"{1e3 * t_decode / n_dec:.2f} ms a step, exchange a "
-                    f"step {ex({k: {n: x // n_dec for n, x in v.items()} for k, v in dec_ex.items()})}"
-                    f"; traced decode step {wall:.2f} ms wall, device busy "
-                    f"{busy:.2f} ms, exchange device ms {traced(ex_ms)}; "
+                    f"step {ex({k: {n: x // n_dec for n, x in v.items()} for k, v in dec_ex.items()})}; "
+                    + ("decode step not traced" if untraced else
+                       f"traced decode step {wall:.2f} ms wall, device busy "
+                       f"{busy:.2f} ms, exchange device ms {traced(ex_ms)}")
+                    + "; "
                     f"engine 4 requests in {stats['ticks']} ticks, "
                     f"{32 / t_eng:.1f} generated tokens/s; bytes a position "
                     f"{placed}{dropped}; against (1, 1): relative L2 of the "
@@ -4271,7 +4416,11 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
     for f32 in SHARDED_F32:
         lines.append(sharded_f32_check(torch, dev, smi_line, **f32))
     print(f"sharded lm phase: {time.perf_counter() - t_phase:.1f} s")
-    return total, lines
+    check(total_offset > 0 and offset_row is not None,
+          f"B4's query-offset instances launched in the sharded prefills "
+          f"({total_offset}) and checked")
+    offset_row["launches"] = total_offset
+    return total, lines, offset_row
 
 
 # adaptive decoding on a placed model: granite-34b at full width, 4 of 88
@@ -4350,7 +4499,8 @@ def sharded_adaptive_phase(torch, dev, kernels, smi_line):
             torch.cuda.empty_cache()
             placed = pl.position_bytes(params)
             with use_mesh(mesh) as scope:
-                ops, _ = position0_operands(torch, cfg, params, toks, mesh)
+                ops, _, _ = position_operands(torch, cfg, params, toks,
+                                              mesh)
                 attention_check(torch, dev, cfg, *ops,
                                 f"flash_attention {label}, position 0")
                 del ops
@@ -4859,7 +5009,7 @@ def main() -> int:
     bounded += lines
     # the dense attn LMs tensor- and data-parallel (ROADMAP A item 4) on
     # meshes of the one card; B4's row adds their prefills' launches
-    n, lines = sharded_lm_phase(torch, dev, kernels, smi_line)
+    n, lines, offset_row = sharded_lm_phase(torch, dev, kernels, smi_line)
     b4["launches"] += n["flash_attention"]
     parts.append(f"{n['flash_attention']} in the sharded prefills (once "
                  f"per attention layer and mesh position, twice per "
@@ -4880,6 +5030,7 @@ def main() -> int:
                   f"2048 tokens (once per layer and mesh position))")
     bounded += lines
     b4["note"] = f"({', '.join(parts)})"
+    rows.append(offset_row)
     # training last, so that nothing it leaves behind (pinned pools, its
     # subprocesses) runs beside the LM phases' timings
     torch.cuda.empty_cache()

@@ -30,6 +30,16 @@
 // (a bound tested at run time cost the causal bf16 kernel 10-14% of its
 // time on the H100 with the same bits).
 //
+// The query offset (q_offset >= 0, causal only) is the absolute position
+// of query row 0, for a block of rows cut from a longer sequence (the
+// context-parallel split of the rows over a mesh axis): query row i
+// stands at position i + q_offset, the mask and the causal tile skipping
+// compare keys with it, and keys past the block's last position are never
+// read. It is a template flag (QOFF), instantiated only for the pairs the
+// split launches (bf16 at head dims 64 and 128, f32 at 32 and 64), without
+// the cap; at q_offset == 0 the kernels run compiled without it, the code
+// they were before the offset existed.
+//
 // GQA/MQA: q is (B, Sq, H, hd) and k, v are (B, Sk, KV, hd) in the model's
 // layout; query head h reads key/value head h / (H / KV) directly, so the
 // K/V heads are never repeated in memory (the JAX wrapper repeats them).
@@ -119,12 +129,12 @@ __device__ __forceinline__ void stage(const float* __restrict__ src,
   }
 }
 
-template <int HD, bool CAP, bool BOUND>
+template <int HD, bool CAP, bool BOUND, bool QOFF>
 __global__ void __launch_bounds__(FA_THREADS, 1) fa_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out, int Sq, int Sk,
-    int kv_len, int H, int KV, int causal, int window, float scale,
-    float softcap) {
+    int kv_len, int H, int KV, int causal, int window, int q_offset,
+    float scale, float softcap) {
   constexpr int LD = HD + 4;        // padded smem row (floats)
   constexpr int PLD = FA_BK + 4;
   constexpr int NG = HD / 64;       // 4-wide column groups per thread
@@ -139,6 +149,7 @@ __global__ void __launch_bounds__(FA_THREADS, 1) fa_f32_kernel(
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / KV);
   const int q0 = blockIdx.x * FA_BQ;
+  const int p0 = q0 + (QOFF ? q_offset : 0);   // position of row q0
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const long long q_ld = static_cast<long long>(H) * HD;
   const long long kv_ld = static_cast<long long>(KV) * HD;
@@ -158,11 +169,11 @@ __global__ void __launch_bounds__(FA_THREADS, 1) fa_f32_kernel(
   stage<HD, false>(qb, q_ld, Qs, scale, FA_BQ);
 
   const int nkb = Sk / FA_BK;
-  int kb_end = causal ? min(nkb - 1, (q0 + FA_BQ - 1) / FA_BK) : nkb - 1;
+  int kb_end = causal ? min(nkb - 1, (p0 + FA_BQ - 1) / FA_BK) : nkb - 1;
   if (BOUND) kb_end = min(kb_end, (kv_len - 1) / FA_BK);
   for (int kbi = 0; kbi <= kb_end; ++kbi) {
     const int k0 = kbi * FA_BK;
-    if (causal && window > 0 && k0 + FA_BK - 1 <= q0 - window) continue;
+    if (causal && window > 0 && k0 + FA_BK - 1 <= p0 - window) continue;
     __syncthreads();                 // previous tiles fully consumed
     stage<HD, BOUND>(kb + k0 * kv_ld, kv_ld, Ks, 1.f, kv_len - k0);
     stage<HD, BOUND>(vb + k0 * kv_ld, kv_ld, Vs, 1.f, kv_len - k0);
@@ -195,7 +206,7 @@ __global__ void __launch_bounds__(FA_THREADS, 1) fa_f32_kernel(
 
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
-      const int qpos = q0 + 4 * ty + a;
+      const int qpos = p0 + 4 * ty + a;
       float mx = FA_NEG_INF;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -279,23 +290,24 @@ __global__ void __launch_bounds__(FA_THREADS, 1) fa_f32_kernel(
   }
 }
 
-template <int HD, bool CAP, bool BOUND>
+template <int HD, bool CAP, bool BOUND, bool QOFF>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
                int Sq, int Sk, int kv_len, int H, int KV, int causal,
-               int window, float scale, float softcap, cudaStream_t st) {
+               int window, int q_offset, float scale, float softcap,
+               cudaStream_t st) {
   if (Sq % FA_BQ || Sk % FA_BK) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       sizeof(float) * (FA_BQ * (HD + 4) + 2 * FA_BK * (HD + 4) +
                        FA_BQ * (FA_BK + 4));
   cudaError_t err = cudaFuncSetAttribute(
-      fa_f32_kernel<HD, CAP, BOUND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      fa_f32_kernel<HD, CAP, BOUND, QOFF>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(Sq / FA_BQ, B * H);
-  fa_f32_kernel<HD, CAP, BOUND><<<grid, FA_THREADS, smem, st>>>(
+  fa_f32_kernel<HD, CAP, BOUND, QOFF><<<grid, FA_THREADS, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, kv_len,
-      H, KV, causal, window, scale, softcap);
+      H, KV, causal, window, q_offset, scale, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -368,13 +380,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // With CAP, `scale_log2` is 2 scale log2(e) / cap and `cap_log2` is
 // cap log2(e) (the fold of the cap formula above); without, `scale_log2`
 // is scale log2(e) and `cap_log2` is not read.
-template <int HD, bool CAP, bool BOUND>
+template <int HD, bool CAP, bool BOUND, bool QOFF>
 __global__ void __launch_bounds__(TC_THREADS, 1) fa_bf16_kernel(
     const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
     int Sq, int Sk, int kv_len, int H, int KV, int causal, int window,
-    float scale_log2, float cap_log2) {
+    int q_offset, float scale_log2, float cap_log2) {
   using L = TcSmem<HD>;
   constexpr int BK = L::BK, STAGES = L::STAGES;
   extern __shared__ uint8_t tc_raw[];
@@ -392,11 +404,12 @@ __global__ void __launch_bounds__(TC_THREADS, 1) fa_bf16_kernel(
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int kvh = h / (H / KV);
   const int q0 = blockIdx.x * TC_BQ;
+  const int qo = QOFF ? q_offset : 0;   // position of row 0
   const int nkb = Sk / BK;
   int kb_lo = 0, kb_hi = nkb - 1;
   if (causal) {
-    kb_hi = min(nkb - 1, (q0 + TC_BQ - 1) / BK);
-    const int kmin = q0 - window + 1;   // first key of the first query's band
+    kb_hi = min(nkb - 1, (q0 + qo + TC_BQ - 1) / BK);
+    const int kmin = q0 + qo - window + 1;   // first key of the first query's band
     if (window > 0 && kmin > 0) kb_lo = kmin / BK;
   }
   if (BOUND) kb_hi = min(kb_hi, (kv_len - 1) / BK);   // no tile past it
@@ -451,6 +464,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1) fa_bf16_kernel(
   float m[2] = {FA_NEG_INF, FA_NEG_INF}, l[2] = {0.f, 0.f};
   const int qa = q0 + 64 * wg;                        // this warpgroup's rows
   const int row0 = qa + 16 * warp + lane / 4;         // and this thread's
+  const int qp = qa + qo, prow0 = row0 + qo;          // their positions
   const uint8_t* Qw = Qs + wg * L::PANELS * TC_QPANEL;
 
   mbar_wait(q_bar, 0);
@@ -459,10 +473,10 @@ __global__ void __launch_bounds__(TC_THREADS, 1) fa_bf16_kernel(
     const int stage = it % STAGES;
     const uint32_t parity = (it / STAGES) & 1;
     const int k0 = (kb_lo + it) * BK;
-    const bool skip = causal && (k0 > qa + 63 ||
-                                 (window > 0 && k0 + BK - 1 <= qa - window));
-    const bool masked = (causal && (k0 + BK - 1 > qa ||
-                                    (window > 0 && k0 <= qa + 63 - window)))
+    const bool skip = causal && (k0 > qp + 63 ||
+                                 (window > 0 && k0 + BK - 1 <= qp - window));
+    const bool masked = (causal && (k0 + BK - 1 > qp ||
+                                    (window > 0 && k0 <= qp + 63 - window)))
                         || (BOUND && k0 + BK > kv_len);
     mbar_wait(&full[stage], parity);
     __syncwarp();
@@ -491,7 +505,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1) fa_bf16_kernel(
           if (CAP)
             s = (1.f - __fdividef(2.f, fast_exp2(s) + 1.f)) * cap_log2;
           if (masked) {
-            const int qpos = row0 + 8 * (e / 2);
+            const int qpos = prow0 + 8 * (e / 2);
             const int kpos = k0 + 8 * i + 2 * (lane % 4) + e % 2;
             if (BOUND ? (causal && (kpos > qpos || (window > 0 &&
                                                     kpos <= qpos - window)))
@@ -625,10 +639,11 @@ static bool bounded_map(CUtensorMap* map, const void* ptr, int hd, int heads,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD, bool CAP, bool BOUND>
+template <int HD, bool CAP, bool BOUND, bool QOFF>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
                 int Sq, int Sk, int kv_len, int H, int KV, int causal,
-                int window, float scale, float softcap, cudaStream_t st) {
+                int window, int q_offset, float scale, float softcap,
+                cudaStream_t st) {
   constexpr int BK = TcCfg<HD>::BK;
   if (Sq % TC_BQ || Sk % BK) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
@@ -641,41 +656,49 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = TcSmem<HD>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      fa_bf16_kernel<HD, CAP, BOUND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      fa_bf16_kernel<HD, CAP, BOUND, QOFF>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(Sq / TC_BQ, B * H);
-  fa_bf16_kernel<HD, CAP, BOUND><<<grid, TC_THREADS, smem, st>>>(
+  fa_bf16_kernel<HD, CAP, BOUND, QOFF><<<grid, TC_THREADS, smem, st>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, kv_len, H, KV,
-      causal, window, CAP ? 2.f * scale * LOG2E / softcap : scale * LOG2E,
-      softcap * LOG2E);
+      causal, window, q_offset,
+      CAP ? 2.f * scale * LOG2E / softcap : scale * LOG2E, softcap * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool BF16, bool CAP, bool BOUND>
+// The (dtype, head dim) pairs with a QOFF instance: those the split of the
+// query rows launches (deepseek-coder-33b's 128 and whisper-small's 64 in
+// bf16, 64 and the smoke configs' 32 in f32)
+template <bool BF16, int HD>
+constexpr bool kQoffPair = BF16 ? (HD == 64 || HD == 128)
+                                : (HD == 32 || HD == 64);
+
+template <bool BF16, bool CAP, bool BOUND, bool QOFF>
 int launch_hd(const void* q, const void* k, const void* v, void* out, int B,
               int Sq, int Sk, int kv_len, int H, int KV, int hd, int causal,
-              int window, float scale, float softcap, cudaStream_t st) {
+              int window, int q_offset, float scale, float softcap,
+              cudaStream_t st) {
   switch (hd) {
 #define FA_CASE(D)                                                           \
   case D:                                                                    \
-    return BF16 ? launch_bf16<D, CAP, BOUND>(q, k, v, out, B, Sq, Sk, kv_len, \
-                                             H, KV, causal, window, scale,   \
-                                             softcap, st)                    \
-                : launch_f32<D, CAP, BOUND>(q, k, v, out, B, Sq, Sk, kv_len, \
-                                            H, KV, causal, window, scale,    \
-                                            softcap, st);
+    if constexpr (QOFF && !kQoffPair<BF16, D>)                               \
+      return static_cast<int>(cudaErrorInvalidValue);                        \
+    else if constexpr (BF16 && D == 32)                                      \
+      return static_cast<int>(cudaErrorInvalidValue);                        \
+    else if constexpr (BF16)                                                 \
+      return launch_bf16<D, CAP, BOUND, QOFF>(q, k, v, out, B, Sq, Sk,       \
+                                              kv_len, H, KV, causal, window, \
+                                              q_offset, scale, softcap, st); \
+    else                                                                     \
+      return launch_f32<D, CAP, BOUND, QOFF>(q, k, v, out, B, Sq, Sk, kv_len, \
+                                             H, KV, causal, window, q_offset, \
+                                             scale, softcap, st);
+    FA_CASE(32)   // f32 only (the smoke configs); the bf16 kernel has no 32
     FA_CASE(64)
     FA_CASE(128)
     FA_CASE(256)
 #undef FA_CASE
-    case 32:   // f32 only (the smoke configs); the bf16 kernel has no 32
-      if constexpr (BF16)
-        return static_cast<int>(cudaErrorInvalidValue);
-      else
-        return launch_f32<32, CAP, BOUND>(q, k, v, out, B, Sq, Sk, kv_len, H,
-                                          KV, causal, window, scale, softcap,
-                                          st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -687,31 +710,46 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int B,
 // dtype (is_bf16: bfloat16 on the tensor cores, else float32 on the CUDA
 // cores), contiguous, 16-byte aligned; Sq % 128 == 0, Sk % 128 == 0,
 // 0 < kv_len <= Sk (keys at or past kv_len are not read), H % KV == 0,
-// hd in {64, 128, 256}, or 32 in float32; softcap >= 0 (0: no cap).
+// hd in {64, 128, 256}, or 32 in float32; softcap >= 0 (0: no cap);
+// q_offset >= 0 the position of query row 0 (> 0: causal, no cap, and a
+// pair of kQoffPair).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B,
                                       int Sq, int Sk, int kv_len, int H,
                                       int KV, int hd, int causal, int window,
-                                      float scale, float softcap, int is_bf16,
-                                      int device, void* stream) {
+                                      int q_offset, float scale,
+                                      float softcap, int is_bf16, int device,
+                                      void* stream) {
   using namespace repro_torch;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (KV <= 0 || H % KV || !(softcap >= 0.f) || kv_len <= 0 || kv_len > Sk)
+  if (KV <= 0 || H % KV || !(softcap >= 0.f) || kv_len <= 0 || kv_len > Sk ||
+      q_offset < 0 || (q_offset > 0 && (!causal || softcap > 0.f)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0 || H == 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
-  // one instance per (dtype, cap, bound): no flag is tested at run time
+  // one instance per (dtype, cap, bound, offset): no flag is tested at run
+  // time; the offset has no capped instance
   const bool cap = softcap > 0.f, bound = kv_len < Sk;
   using Launch = int (*)(const void*, const void*, const void*, void*, int,
-                         int, int, int, int, int, int, int, int, float,
+                         int, int, int, int, int, int, int, int, int, float,
                          float, cudaStream_t);
   static const Launch table[2][2][2] = {
-      {{launch_hd<false, false, false>, launch_hd<false, false, true>},
-       {launch_hd<false, true, false>, launch_hd<false, true, true>}},
-      {{launch_hd<true, false, false>, launch_hd<true, false, true>},
-       {launch_hd<true, true, false>, launch_hd<true, true, true>}}};
-  return table[is_bf16 != 0][cap][bound](q, k, v, out, B, Sq, Sk, kv_len, H,
-                                         KV, hd, causal, window, scale,
-                                         cap ? softcap : 0.f, st);
+      {{launch_hd<false, false, false, false>,
+        launch_hd<false, false, true, false>},
+       {launch_hd<false, true, false, false>,
+        launch_hd<false, true, true, false>}},
+      {{launch_hd<true, false, false, false>,
+        launch_hd<true, false, true, false>},
+       {launch_hd<true, true, false, false>,
+        launch_hd<true, true, true, false>}}};
+  static const Launch offset_table[2][2] = {
+      {launch_hd<false, false, false, true>,
+       launch_hd<false, false, true, true>},
+      {launch_hd<true, false, false, true>,
+       launch_hd<true, false, true, true>}};
+  const Launch fn = q_offset > 0 ? offset_table[is_bf16 != 0][bound]
+                                 : table[is_bf16 != 0][cap][bound];
+  return fn(q, k, v, out, B, Sq, Sk, kv_len, H, KV, hd, causal, window,
+            q_offset, scale, cap ? softcap : 0.f, st);
 }

@@ -33,7 +33,9 @@ at the global causal GQA shape of dbrx-132b and grok-1-314b, q (4, 2048,
 30 (q and k scaled by 6, so that logits pass the cap); the two versions'
 outputs are compared bit for bit in each case, in bf16 and in f32 on the
 first 1024 positions (the key bound, which a version since the bound
-takes after Sk, is Sk: nothing cut). B5 on
+takes after Sk, is Sk: nothing cut; the query offset, which a version
+since the offset takes after the window, is 0: the instances without
+it). B5 on
 rwkv6-3b's prefill shape, (B, T, H, hd) = (4, 2048, 40, 64) f32, each
 version in the layout it reads (a version that takes (B*H, T, hd) gets
 that copy, made outside the timing), and this version's B5 once more at
@@ -137,11 +139,13 @@ def b4_args(n: int, ops, out, B, S, H, KV, hd, W, cap):
     """`flash_attention_launch`'s arguments before the device and the
     stream, for a version whose entry point takes `n` arguments: 16 (PRs
     12-18), 17 (PR 19: the soft-cap after the scale), 18 (the key bound
-    kv_len after Sk, here S: nothing is cut)."""
+    kv_len after Sk, here S: nothing is cut), 19 (the query offset after
+    the window, here 0: the instances without it)."""
     if n < 17 and cap:
         raise ValueError("this version of B4 has no soft-cap")
     return (*[t.data_ptr() for t in ops], out.data_ptr(), B, S, S,
-            *((S,) if n > 17 else ()), H, KV, hd, 1, W, 1.0 / hd ** 0.5,
+            *((S,) if n > 17 else ()), H, KV, hd, 1, W,
+            *((0,) if n > 18 else ()), 1.0 / hd ** 0.5,
             *((cap,) if n > 16 else ()), int(ops[0].dtype == torch.bfloat16))
 
 

@@ -46,7 +46,7 @@ SIGNATURES = {
     "wkv6_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
                     _I, _I, _P),
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _F, _F, _I, _I, _P),
+                               _I, _I, _I, _F, _F, _I, _I, _P),
 }
 
 

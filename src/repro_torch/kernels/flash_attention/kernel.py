@@ -13,17 +13,24 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.checks import (check, kernel_device,
                                         refuse_grad, stream_of)
-from repro_torch.kernels.flash_attention import BK, BQ, HEAD_DIMS
+from repro_torch.kernels.flash_attention import (BK, BQ, HEAD_DIMS,
+                                                 OFFSET_HEAD_DIMS)
 from repro_torch.kernels.flash_attention.ref import ref_attention
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    softcap: float = 0.0, kv_len=None) -> torch.Tensor:
+                    softcap: float = 0.0, kv_len=None,
+                    q_offset=None) -> torch.Tensor:
     """q (B, Sq, H, hd); k, v (B, Sk, KV, hd); Sq % BQ == 0 == Sk % BK,
     H % KV == 0; float32 or bfloat16. Causal attention (Sq == Sk), banded
     to the last `window` keys when window > 0; not causal, any Sq and no
-    mask but the key bound. Softmax in f32, output (B, Sq, H, hd) in q's
+    mask but the key bound. With `q_offset` (>= 0, causal only) the
+    queries are rows of a longer sequence, row 0 at position q_offset:
+    query i attends keys j <= i + q_offset (any Sq and Sk), and keys past
+    the rows' last position are never read; on the card an offset > 0
+    runs the instances compiled with it (`OFFSET_HEAD_DIMS`, no soft-cap),
+    an offset of 0 those without it. Softmax in f32, output (B, Sq, H, hd) in q's
     dtype. softcap > 0 caps the scaled logits to softcap * tanh(s /
     softcap) before the mask (grok-1); at 0 the kernels run compiled
     without the cap. Keys at positions >= `kv_len` (0 < kv_len <= Sk;
@@ -44,8 +51,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if Sq % BQ or Sk % BK:
         raise ValueError(f"sequence lengths {Sq}, {Sk} must be multiples of "
                          f"{BQ}, {BK}")
-    if causal and Sq != Sk:
-        raise ValueError(f"causal attention needs Sq == Sk, got {Sq}, {Sk}")
+    if causal and Sq != Sk and q_offset is None:
+        raise ValueError(f"causal attention needs Sq == Sk, got {Sq}, {Sk} "
+                         f"(or a q_offset)")
+    q_offset = 0 if q_offset is None else int(q_offset)
+    if q_offset < 0 or (q_offset and not causal):
+        raise ValueError(f"q_offset {q_offset}: expected >= 0, and 0 when "
+                         f"not causal")
     kv_len = Sk if kv_len is None else int(kv_len)
     if not 0 < kv_len <= Sk:
         raise ValueError(f"kv_len {kv_len}: expected 0 < kv_len <= {Sk}")
@@ -62,19 +74,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"softcap {softcap}: expected >= 0 (0: no cap)")
     if dev.type == "cpu":
         return ref_attention(q, k, v, causal=causal, window=window,
-                             softcap=softcap, kv_len=kv_len)
-    dims = HEAD_DIMS[str(q.dtype).removeprefix("torch.")]
-    if hd not in dims:
+                             softcap=softcap, kv_len=kv_len,
+                             q_offset=q_offset)
+    dtype = str(q.dtype).removeprefix("torch.")
+    dims = (OFFSET_HEAD_DIMS if q_offset else HEAD_DIMS)[dtype]
+    if hd not in dims or (q_offset and softcap):
         raise ValueError(f"head dim {hd}: the CUDA kernel takes {dims} in "
-                         f"{q.dtype}")
+                         f"{q.dtype}" + (" with a q_offset, without the "
+                                         "soft-cap" if q_offset else ""))
     out = torch.empty_like(q)
     err = build.library().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
-        kv_len, H, KV, hd, int(causal), window, 1.0 / hd ** 0.5, softcap,
-        int(q.dtype == torch.bfloat16), dev.index, stream_of(dev))
+        kv_len, H, KV, hd, int(causal), window, q_offset, 1.0 / hd ** 0.5,
+        softcap, int(q.dtype == torch.bfloat16), dev.index, stream_of(dev))
     build.check_launch("flash_attention", err)
     flash_attention.launches += 1
+    if q_offset:
+        flash_attention.offset_launches += 1
     return out
 
 
 flash_attention.launches = 0
+# the launches of the instances with a query offset (also in `launches`)
+flash_attention.offset_launches = 0

@@ -64,7 +64,10 @@ device and the cache placed by `cache_specs`; `init_cache` inside
 `use_mesh` places the cache too. A vocab that the model axis does not
 divide puts the axis on d instead: the embedding looks each id up in its
 columns and all-gathers them, the head is row-parallel with its partial
-logits all-reduced in f32 (`placement.D_FALLBACK`). On a mesh of one
+logits all-reduced in f32; query heads that it does not divide put it on
+d of `wq` and the head dim of `wo`, and the attention splits its query
+rows over "model" instead (`nn.attention`), as rwkv splits its (batch,
+head) pairs (`placement.FALLBACK_DIMS`). On a mesh of one
 position every function runs as unplaced on that position's tensors.
 
 Training on a mesh: a model placed with `shard_params(...,
@@ -438,10 +441,9 @@ def prefill_step(cfg, params, tokens, *, frontend=None,
     if mesh is not None:
         logits, cache = prefill_step(cfg, pl.local_tree(params), tokens,
                                      frontend=frontend, length=length)
-        specs = cache_specs(cfg, tokens.shape[0], length or tokens.shape[1])
-        return logits, [{n: pl.wrap((t,), pl.fitted(cs[n], t.shape, mesh),
+        return logits, [{n: pl.wrap((t,), fit_cache(cfg, n, t.shape, mesh),
                                     mesh) for n, t in c.items()}
-                        for c, cs in zip(cache, specs)]
+                        for c in cache]
     S = tokens.shape[1]
     positions = _positions(tokens)
     x = _embed_tokens(cfg, params, tokens, positions)
@@ -473,10 +475,9 @@ def init_cache(cfg, batch: int, length: int, device="cuda") -> List[dict]:
     if dev != mesh.devices[0]:
         raise ValueError(f"init_cache on {dev} inside use_mesh({mesh}): "
                          f"pass the mesh's first device")
-    return [{n: pl.zeros(named(mesh, pl.fitted(cs[n], t.shape, mesh)),
+    return [{n: pl.zeros(named(mesh, fit_cache(cfg, n, t.shape, mesh)),
                          t.shape, t.dtype) for n, t in c.items()}
-            for c, cs in zip(abstract_cache(cfg, batch, length),
-                             cache_specs(cfg, batch, length))]
+            for c in abstract_cache(cfg, batch, length)]
 
 
 def abstract_cache(cfg, batch: int, length: int) -> List[dict]:
@@ -510,13 +511,27 @@ def _kv_cache_logical(cfg):
     return ("batch", "cache_seq", None, None)
 
 
+def _cache_logical(cfg, name: str) -> tuple:
+    """The logical axes of the cache entry `name`."""
+    if name in ("k", "v", "xk", "xv"):
+        return _kv_cache_logical(cfg)
+    return _CACHE_LOGICAL[name]
+
+
 def cache_specs(cfg, batch: int, length: int) -> List[dict]:
     """Each cache entry's partition spec, one dict per layer (the
     reference's per-layer spec, without its "layers" entry)."""
-    kv_logical = _kv_cache_logical(cfg)
-    return [{n: logical_spec(*(kv_logical if n in ("k", "v", "xk", "xv")
-                               else _CACHE_LOGICAL[n])) for n in c}
+    return [{n: logical_spec(*_cache_logical(cfg, n)) for n in c}
             for c in abstract_cache(cfg, batch, length)]
+
+
+def fit_cache(cfg, name: str, shape, mesh):
+    """The spec of the cache entry `name` of `shape` on `mesh`: its
+    `cache_specs` entry through `placement.fitted` with its logical axes
+    (rwkv's state takes "model" on its key dim where the heads do not
+    divide it)."""
+    logical = _cache_logical(cfg, name)
+    return pl.fitted(logical_spec(*logical), shape, mesh, logical)
 
 
 @torch.no_grad()
@@ -606,20 +621,19 @@ def _sharded_frontend(cfg, params, frontend, mesh, differentiable=False):
 
 @torch.no_grad()
 def _sharded_prefill(cfg, params, tokens, frontend, length, mesh):
-    Bsz, S = tokens.shape
+    S = tokens.shape[1]
     toks, positions = _sharded_tokens(cfg, tokens, mesh)
     fe = _sharded_frontend(cfg, params, frontend, mesh)
     x = _embed_tokens(cfg, params, toks, positions)
     caches = []
-    for p, kind, cs in zip(params["layers"], cfg.layer_kinds,
-                           cache_specs(cfg, Bsz, length or S)):
+    for p, kind in zip(params["layers"], cfg.layer_kinds):
         x, c, _ = B.apply_layer(cfg, kind, p, x, mode="prefill",
                                 positions=positions, frontend=fe)
         if kind in ("attn", "attn_moe", "encdec") and length is not None \
                 and length > S:
             c = dict(c, **{n: pl.local_map(lambda t: torch.nn.functional.pad(
                 t, (0, 0, 0, 0, 0, length - S)), c[n]) for n in ("k", "v")})
-        caches.append({n: pl.relayout(t, pl.fitted(cs[n], t.shape, mesh))
+        caches.append({n: pl.relayout(t, fit_cache(cfg, n, t.shape, mesh))
                        for n, t in c.items()})
     x = apply_norm(cfg, params["final_norm"],
                    pl.local_map(lambda t: t[:, -1:, :], x))

@@ -31,16 +31,34 @@ column-parallel as k / v are, its full-sequence path re-lays k / v out to
 whole heads for B4 (not causal, the key bound the frontend's length) as
 self-attention does, and decode reads the placed `xk` / `xv` in the
 cache's layout as self-attention decode reads `k` / `v`.
+
+The query rows over "model" (`splits_rows`): where the reference's
+`_seq_shard` splits them (context-parallel attention, logical axis
+"qseq": `cfg.seq_shard_attn` and S >= 256, S % 16 == 0), and where the
+query heads do not divide the axis (`fit_spec` then puts it on d of `wq`
+and on the head dim of `wo`), the full-sequence paths of self- and
+cross-attention split the rows instead of the heads: x padded to a
+multiple of the axis, each position's partial q of its columns of x
+reduce-scattered into its rows (or q's heads moved to the rows
+all-to-all), B4 once per position on its rows against the whole k / v,
+causal with its first row's position as the kernel's query offset (so
+it reads the keys up to its last row only), or not causal with the keys'
+bound; `differentiable` runs `_plain_self_attention` on the rows under
+`causal_mask(..., offset)`. The output rows are re-laid out all-to-all
+as `wo` is placed, the padding cut, and `wo` contracts them row-parallel.
+Decode keeps the cache's layout and hands `wo` its output laid out so.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import gqa_flash_attention
 from repro_torch.nn.basic import rotary
 from repro_torch.nn.params import ParamDef
 from repro_torch.sharding import placement as pl
-from repro_torch.sharding.logical import fit_spec, spec
+from repro_torch.sharding.logical import (axis_sizes, entry_axes, fit_spec,
+                                          spec)
 
 NEG_INF = -2.0e38
 
@@ -123,15 +141,16 @@ CHUNK_THRESHOLD = 8192
 Q_CHUNK = 512
 
 
-def _chunked_sdpa(cfg, q, k, v, *, window: int):
+def _chunked_sdpa(cfg, q, k, v, *, window: int, offset: int = 0):
     """Causal (optionally banded) `_sdpa` over query chunks of Q_CHUNK
-    (S % Q_CHUNK == 0), each against all S keys under its rows of the
-    mask, as the reference's `lax.scan` computes it."""
+    (Sq % Q_CHUNK == 0), each against all Sk keys under its rows of the
+    mask, as the reference's `lax.scan` computes it; query row 0 stands
+    at position `offset`."""
     S = q.shape[1]
-    kpos = torch.arange(S, device=q.device)[None, :]
+    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
     outs = []
     for off in range(0, S, Q_CHUNK):
-        qpos = off + torch.arange(Q_CHUNK, device=q.device)[:, None]
+        qpos = offset + off + torch.arange(Q_CHUNK, device=q.device)[:, None]
         m = kpos <= qpos
         if window and window > 0:
             m &= kpos > qpos - window
@@ -139,16 +158,20 @@ def _chunked_sdpa(cfg, q, k, v, *, window: int):
     return torch.cat(outs, dim=1)
 
 
-def _plain_self_attention(cfg, q, k, v, *, window: int, causal: bool):
+def _plain_self_attention(cfg, q, k, v, *, window: int, causal: bool,
+                          offset: int = 0):
     """The differentiable full-sequence attention of the reference's
     training path: unmasked when not `causal`, query chunks above
-    CHUNK_THRESHOLD, else one `_sdpa` under `causal_mask`."""
-    S = q.shape[1]
+    CHUNK_THRESHOLD keys, else one `_sdpa` under `causal_mask`. The
+    queries may be rows of the keys' sequence, row 0 at position
+    `offset` (a position's rows of the context-parallel split)."""
+    Sq, Sk = q.shape[1], k.shape[1]
     if not causal:
         return _sdpa(cfg, q, k, v, None)
-    if S > CHUNK_THRESHOLD and S % Q_CHUNK == 0:
-        return _chunked_sdpa(cfg, q, k, v, window=window)
-    return _sdpa(cfg, q, k, v, causal_mask(S, S, window, device=q.device))
+    if Sk > CHUNK_THRESHOLD and Sq % Q_CHUNK == 0:
+        return _chunked_sdpa(cfg, q, k, v, window=window, offset=offset)
+    return _sdpa(cfg, q, k, v, causal_mask(Sq, Sk, window, offset,
+                                           device=q.device))
 
 
 def _project_qkv(cfg, p, x, positions):
@@ -257,14 +280,93 @@ def _whole_head_dim(t):
                                    t.shape, t.mesh, fallback=False))
 
 
-def _sharded_qkv(cfg, p, x, positions):
-    q = pl.einsum("bsd,dhe->bshe", x, p["wq"])
+def _rope(cfg, t, positions):
+    """RoPE on a placed q or k at its rows' placed positions."""
+    return pl.local_map(lambda t_, p_: rotary(t_, p_, cfg.rope_theta), t,
+                        positions)
+
+
+def _sharded_kv(cfg, p, x, positions):
     k = _whole_head_dim(pl.einsum("bsd,dke->bske", x, p["wk"]))
     v = _whole_head_dim(pl.einsum("bsd,dke->bske", x, p["wv"]))
+    return (_rope(cfg, k, positions) if cfg.use_rope else k), v
+
+
+def _sharded_qkv(cfg, p, x, positions):
+    q = pl.einsum("bsd,dhe->bshe", x, p["wq"])
     if cfg.use_rope:
-        q, k = (pl.local_map(lambda t_, p_: rotary(t_, p_, cfg.rope_theta),
-                             t, positions) for t in (q, k))
-    return q, k, v
+        q = _rope(cfg, q, positions)
+    return (q, *_sharded_kv(cfg, p, x, positions))
+
+
+# ------------------------------------------- the query rows over "model"
+def splits_rows(cfg, wq, S: int) -> bool:
+    """Do S > 1 queries split their rows over "model": where the
+    reference's `_seq_shard` splits them (`cfg.seq_shard_attn`, S >= 256,
+    S % 16 == 0: context-parallel attention, logical axis "qseq"), and
+    where the query heads do not divide the axis (`wq` then has it on
+    d), so that no position runs the attention of all heads?"""
+    n = axis_sizes(wq.mesh).get("model", 1)
+    if S == 1 or n == 1:
+        return False
+    return (cfg.seq_shard_attn and S >= 256 and S % 16 == 0) \
+        or "model" not in entry_axes(wq.spec[1])
+
+
+def _row_queries(cfg, wq, x, positions=None):
+    """q of the placed x (B, S, d) with its rows split over "model",
+    padded with zero rows to a multiple of the axis: (B, S_pad, H, hd)
+    placed ("data", "model", None, None). With "model" on d of `wq` each
+    position's partial q of its columns of x are summed in f32 into its
+    rows (`reduce_scatter`); q column-parallel over the heads moves its
+    axis to the rows (all-to-all). RoPE at the rows' `positions` where
+    they are given."""
+    n = axis_sizes(x.mesh)["model"]
+    pad = (-x.shape[1]) % n
+    rows = (x.spec[0], "model")
+    if pad:
+        x = pl.local_map(lambda t: F.pad(t, (0, 0, 0, pad)), x)
+    q = pl.relayout(pl.einsum("bsd,dhe->bshe", x, wq, scatter_dim=1),
+                    (*rows, None, None))
+    if positions is None:
+        return q
+    if pad:
+        positions = pl.local_map(lambda t: F.pad(t, (0, pad)), positions)
+    return _rope(cfg, q, pl.relayout(positions, rows))
+
+
+def _row_attention(cfg, q, k, v, *, causal: bool, window: int = 0,
+                   differentiable: bool = False):
+    """Each position's query rows (`_row_queries`) against the whole k / v:
+    B4 once per position, causal with its first row's position as the
+    query offset (so that it reads only the keys up to its last row), or
+    not causal with the keys' length as its bound; the plain
+    `_plain_self_attention` under the same mask when `differentiable`."""
+    rep = (k.spec[0], None, None, None)
+    k, v = pl.relayout(k, rep), pl.relayout(v, rep)
+
+    def attend(i):
+        start = q.block(i, 1)[0] if causal else 0
+        if differentiable:
+            return _plain_self_attention(cfg, q.locals[i], k.locals[i],
+                                         v.locals[i], window=window,
+                                         causal=causal, offset=start)
+        return gqa_flash_attention(q.locals[i], k.locals[i], v.locals[i],
+                                   causal=causal, window=window,
+                                   softcap=cfg.attn_logit_softcap,
+                                   q_offset=start if causal else None)
+    return pl.wrap([attend(i) for i in range(len(q.locals))], q.spec,
+                   q.mesh)
+
+
+def _row_output(out, wo, S: int):
+    """The attention's output rows re-laid out as `wo` is placed (its
+    heads or, the fallback, its head dim over "model"), the padded rows
+    cut off, then `wo` row-parallel with its all-reduce."""
+    out = pl.relayout(out, (out.spec[0], None, *wo.spec[:2]))
+    if out.shape[1] != S:
+        out = pl.local_map(lambda t: t[:, :S], out)
+    return pl.einsum("bshe,hed->bsd", out, wo)
 
 
 def _kv_for_heads(q, kv, i: int):
@@ -305,6 +407,13 @@ def _per_position_attention(cfg, q, k, v, *, causal: bool, window: int = 0,
 
 def _sharded_self_attention(cfg, p, x, positions, *, window: int,
                             causal: bool, differentiable: bool = False):
+    if splits_rows(cfg, p["wq"], x.shape[1]):
+        k, v = _sharded_kv(cfg, p, x, positions)
+        q = _row_queries(cfg, p["wq"], x,
+                         positions if cfg.use_rope else None)
+        out = _row_attention(cfg, q, k, v, causal=causal, window=window,
+                             differentiable=differentiable)
+        return _row_output(out, p["wo"], x.shape[1]), (k, v)
     q, k, v = _sharded_qkv(cfg, p, x, positions)
     out = _per_position_attention(cfg, q, k, v, causal=causal, window=window,
                                   differentiable=differentiable)
@@ -318,6 +427,10 @@ def _sharded_cross_attention(cfg, p, x, kv, differentiable=False):
     `_sharded_decode_self_attention` reads `k` / `v`. Then the
     row-parallel `wo`."""
     k, v = kv
+    if splits_rows(cfg, p["wq"], x.shape[1]):
+        out = _row_attention(cfg, _row_queries(cfg, p["wq"], x), k, v,
+                             causal=False, differentiable=differentiable)
+        return _row_output(out, p["wo"], x.shape[1])
     q = pl.einsum("bsd,dhe->bshe", x, p["wq"])
     if q.shape[1] > 1:
         out = _per_position_attention(cfg, q, _whole_head_dim(k),
@@ -325,7 +438,7 @@ def _sharded_cross_attention(cfg, p, x, kv, differentiable=False):
                                       differentiable=differentiable)
     else:
         out = _attend_cache(cfg, pl.relayout(q, k.spec), k, v,
-                            lambda dev: None)
+                            lambda dev: None, p["wo"])
     return pl.einsum("bshe,hed->bsd", out, p["wo"])
 
 
@@ -365,20 +478,20 @@ def _sharded_decode_self_attention(cfg, p, x, cache, pos: int, *,
     def mask(dev):
         return (torch.arange(L, device=dev) <= last)[None, None]
 
-    out = _attend_cache(cfg, q, ck, cv, mask)
+    out = _attend_cache(cfg, q, ck, cv, mask, p["wo"])
     return pl.einsum("bshe,hed->bsd", out, p["wo"]), {"k": ck, "v": cv}
 
 
-def _attend_cache(cfg, q, ck, cv, mask):
+def _attend_cache(cfg, q, ck, cv, mask, wo):
     """One query's attention over a placed cache, q laid out as the cache
     is: `_sdpa` per position, or `_sdpa_over_head_dim` where the cache
-    splits the head dim; the result with its heads over "model" for
-    `wo`. `mask(device)` gives the keys' mask (None: all)."""
+    splits the head dim; the result laid out as `wo` contracts it (its
+    heads, or the fallback's head dim, over "model"). `mask(device)`
+    gives the keys' mask (None: all)."""
     if ck.spec[3] is None:
         out = pl.local_map(lambda q_, k_, v_: _sdpa(cfg, q_, k_, v_,
                                                     mask(q_.device)),
                            q, ck, cv)
     else:
         out = _sdpa_over_head_dim(cfg, q, ck, cv, mask, ck.spec[3])
-    return pl.relayout(out, fit_spec(spec("batch", "seq", "heads", None),
-                                     out.shape, out.mesh, fallback=False))
+    return pl.relayout(out, (out.spec[0], None, *wo.spec[:2]))

@@ -19,13 +19,23 @@ mix `w_ck` is column-parallel over "mlp", `w_cv` row-parallel with an
 all-reduce, `w_cr` replicated. The state lies over the heads; the shift
 states `x_t` and `x_c` are replicated over "model". `differentiable`
 runs `_wkv_chunked` on each position's heads instead of B5.
+
+Where the heads do not divide "model" (rwkv6-3b's 40 at 16: 2.5 heads a
+position), each position's columns are regrouped into whole (batch row,
+head) pairs split over the axis (`placement.columns_to_pairs`, padded
+with zero pairs), B5 runs once per position on its pairs (u per pair)
+and the group norm on them, and the normed output goes back to the
+columns for the gate and `w_o`. The state then lies over its key dim
+(`decoder_lm.fit_cache`): a decode step all-gathers the token's r, k, v
+and decay, updates each position's key rows and adds the partial
+outputs with an f32 all-reduce.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.wkv6 import CHUNK, wkv6_heads
+from repro_torch.kernels.wkv6 import CHUNK, wkv6, wkv6_heads
 from repro_torch.nn.params import ParamDef
 from repro_torch.sharding import placement as pl
 
@@ -135,24 +145,31 @@ def _tmix_project(cfg, p, x, x_prev):
     return r, k, v, g, logw
 
 
+def _wkv_columns(cfg, p, x):
+    """r, k, v, logw (B, T_pad, D) f32 of the time mix on x (B, T, d), T
+    padded to CHUNK by state-neutral steps (k = 0, logw = 0), and the
+    gate g (B, T, D), D the columns of `p`."""
+    T = x.shape[1]
+    pad = (-T) % CHUNK
+    xp = F.pad(x, (0, 0, 0, pad))
+    r, k, v, g, logw = _tmix_project(cfg, p, xp, _shift(xp))
+    rf, kf, vf = (a.float() for a in (r, k, v))
+    if pad:  # padded steps: w=1 (logw=0), k=0 -> state untouched
+        mask = (torch.arange(T + pad, device=x.device) < T)[None, :, None]
+        kf = kf * mask
+        logw = logw * mask
+    return rf, kf, vf, logw, g[:, :T]
+
+
 def wkv_inputs(cfg, p, x):
     """The WKV operands of the time-mix on x (B, T, d): r, k, v, logw
     (B, T_pad, H, hd) f32 with T padded to CHUNK by state-neutral steps
     (k = 0, logw = 0), u (H, hd) f32, and the gate g (B, T, D)."""
-    B, T, _ = x.shape
     H, hd = _heads(cfg, p)
-    pad = (-T) % CHUNK
-    xp = F.pad(x, (0, 0, 0, pad))
-    r, k, v, g, logw = _tmix_project(cfg, p, xp, _shift(xp))
-    shp = (B, T + pad, H, hd)
-    rf, kf, vf = (a.float().reshape(shp) for a in (r, k, v))
-    lw = logw.reshape(shp)
-    if pad:  # padded steps: w=1 (logw=0), k=0 -> state untouched
-        mask = (torch.arange(T + pad, device=x.device) < T)[None, :, None,
-                                                            None]
-        kf = kf * mask
-        lw = lw * mask
-    return rf, kf, vf, lw, p["u"].float().reshape(H, hd), g[:, :T]
+    *ops, g = _wkv_columns(cfg, p, x)
+    shp = (x.shape[0], ops[0].shape[1], H, hd)
+    return (*(a.reshape(shp) for a in ops), p["u"].float().reshape(H, hd),
+            g)
 
 
 def _mixed_heads(cfg, p, x, differentiable: bool = False):
@@ -172,18 +189,78 @@ def _mixed_heads(cfg, p, x, differentiable: bool = False):
     return _group_norm(p, out, H, hd) * F.silu(g), state
 
 
-def _head_specs(cfg, x, p):
-    """On a mesh: the specs of the heads' output (B, T, D) and of the
-    state (B, H, hd, hd), the batch as x's, the heads as `w_r`'s
-    columns, which must hold whole heads."""
-    H, hd = _heads(cfg)
-    if p["u"].locals[0].shape[0] % hd:
-        raise NotImplementedError(
-            f"{H} rwkv heads over {p['w_r'].spec[1]}: a position would hold "
-            f"part of a head, and the state needs fit_spec's fallback; not "
-            f"sharded yet (ROADMAP A, item 4c)")
+def _head_specs(x, p):
+    """On a mesh, where `w_r`'s column blocks hold whole heads: the specs
+    of the heads' output (B, T, D) and of the state (B, H, hd, hd), the
+    batch as x's, the heads as `w_r`'s columns."""
     return (x.spec[0], None, p["w_r"].spec[1]), (x.spec[0], p["w_r"].spec[1],
                                                   None, None)
+
+
+def _whole_heads(cfg, p) -> bool:
+    """Does each position's block of `w_r`'s columns hold whole heads?"""
+    return p["u"].locals[0].shape[0] % cfg.rwkv_head_dim == 0
+
+
+def pair_inputs(cfg, p, x):
+    """The WKV operands where a mesh position's columns of `w_r` split
+    heads: r, k, v, logw regrouped into (batch row, head) pairs (G, n * m,
+    T_pad, hd) f32 placed over the axis (`placement.columns_to_pairs`),
+    each position's u and ln_scale rows of its pairs' heads ((m, hd) f32,
+    a list by position), and the gate g (B, T, D) in its columns."""
+    hd = cfg.rwkv_head_dim
+    axis = p["w_r"].spec[1]
+    *ops, g = pl.local_map_n(lambda x_, p_: _wkv_columns(cfg, p_, x_), x, p,
+                             specs=[(x.spec[0], None, axis)] * 5)
+    pairs = [pl.columns_to_pairs(t, hd) for t in ops]
+    H = p["u"].shape[0] // hd
+
+    def rows(t, i):
+        start, m = pairs[0].block(i, 1)
+        heads = torch.arange(start, start + m, device=t.device) % H
+        return t.float().reshape(H, hd)[heads]
+    u, ln_scale = ([rows(t, i) for i, t in enumerate(
+        pl.all_gather(p[n], axis).locals)] for n in ("u", "ln_scale"))
+    return pairs, u, ln_scale, g
+
+
+def _paired_heads(cfg, p, x, differentiable: bool):
+    """`_mixed_heads` on a mesh whose positions' column blocks split
+    heads: each position projects its columns, `columns_to_pairs` hands
+    it whole (batch row, head) pairs, on which it runs B5 (or
+    `_wkv_chunked` when `differentiable`) and the group norm, and
+    `pairs_to_columns` brings the normed output back to its columns for
+    the gate and `w_o`. The final state goes over its key dim
+    (`decoder_lm.fit_cache`'s layout, all-to-all from the pairs)."""
+    B_l, T = x.locals[0].shape[:2]
+    hd = cfg.rwkv_head_dim
+    axis = p["w_r"].spec[1]
+    (rf, kf, vf, lw), us, lss, g = pair_inputs(cfg, p, x)
+
+    def mix(i):
+        r_, k_, v_, w_ = (t.locals[i][0] for t in (rf, kf, vf, lw))
+        m = r_.shape[0]
+        if differentiable:
+            out, state = _wkv_chunked(*(t.transpose(0, 1)[None] for t in
+                                        (r_, k_, v_, w_)), us[i],
+                                      r_.new_zeros((1, m, hd, hd)))
+            out, state = out[0].transpose(0, 1), state[0]
+        else:
+            out, state = wkv6(r_, k_, v_, w_, us[i])
+        # each pair one head of its own ln_scale row
+        normed = _group_norm({"ln_scale": lss[i][:, None]},
+                             out[:, :T].to(x.dtype), 1, hd)
+        return normed[None], state[None]
+    outs, states = zip(*(mix(i) for i in range(len(x.locals))))
+    pairs = (x.spec[0], axis, None, None)
+    normed = pl.pairs_to_columns(pl.wrap(outs, pairs, x.mesh), g)
+    out = pl.local_map(lambda y_, g_: y_ * F.silu(g_), normed, g)
+    H = p["u"].shape[0] // hd
+    state = pl.local_map(
+        lambda t: t[0, :B_l * H].reshape(B_l, H, -1, hd),
+        pl.all_to_all(pl.wrap(states, pairs, x.mesh), axis, 2),
+        spec=(x.spec[0], None, axis, None))
+    return out, state
 
 
 def rwkv_time_mix_full(cfg, p, x, differentiable: bool = False):
@@ -191,9 +268,12 @@ def rwkv_time_mix_full(cfg, p, x, differentiable: bool = False):
     f32); the recurrence runs in kernel B5, or in `_wkv_chunked` when
     `differentiable`."""
     if pl.is_sharded(x):
-        out, state = pl.local_map_n(
-            lambda x_, p_: _mixed_heads(cfg, p_, x_, differentiable), x, p,
-            specs=_head_specs(cfg, x, p))
+        if _whole_heads(cfg, p):
+            out, state = pl.local_map_n(
+                lambda x_, p_: _mixed_heads(cfg, p_, x_, differentiable), x,
+                p, specs=_head_specs(x, p))
+        else:
+            out, state = _paired_heads(cfg, p, x, differentiable)
         return pl.einsum("bte,ed->btd", out, p["w_o"]), state
     out, state = _mixed_heads(cfg, p, x, differentiable)
     return out @ p["w_o"], state
@@ -255,13 +335,61 @@ def _decode_heads(cfg, p, x, state, x_prev):
     return _group_norm(p, out, H, hd) * F.silu(g), state
 
 
+def _decode_over_keys(cfg, p, x, state, x_prev):
+    """`_decode_heads` on a mesh where the state lies over its key dim
+    (`_paired_heads`' layout): r, k, v and the decay all-gathered (one
+    token), each position updates its key rows of every head's state and
+    forms its partial output r_c (S_cd + u_c k_c v_d) over its keys c,
+    the f32 all-reduce adds the partials, and each position norms the
+    heads and gates its own columns for `w_o`."""
+    hd = cfg.rwkv_head_dim
+    axis = state.spec[2]
+    cols = (x.spec[0], None, axis)
+
+    def project(x_, p_, xp):
+        r, k, v, g, logw = _tmix_project(cfg, p_, x_, xp[:, None, :])
+        return torch.stack([r.float(), k.float(), v.float(), logw]), g
+    rkvw, g = pl.local_map_n(project, x, p, x_prev,
+                             specs=((None, *cols), cols))
+    rkvw = pl.all_gather(rkvw, axis)
+    u, ln_scale = (pl.all_gather(p[n], axis) for n in ("u", "ln_scale"))
+    H = u.shape[0] // hd
+
+    def step(i):
+        B = x.locals[i].shape[0]
+        rf, kf, vf, lw = (t.reshape(B, H, hd) for t in rkvw.locals[i])
+        c0, n_c = state.block(i, 2)
+        keys = slice(c0, c0 + n_c)
+        uc = u.locals[i].float().reshape(H, hd)[:, keys]
+        kv = kf[..., keys, None] * vf[..., None, :]
+        s_ = state.locals[i]
+        part = torch.einsum("bhc,bhcd->bhd", rf[..., keys],
+                            s_ + uc[..., None] * kv)
+        return part, s_ * torch.exp(lw[..., keys])[..., None] + kv
+    parts, states = zip(*(step(i) for i in range(len(x.locals))))
+    out = pl.all_reduce_sum(pl.wrap(parts, (x.spec[0], None, None), x.mesh),
+                            axis)
+
+    def gate(o, ls, g_, i):
+        normed = _group_norm({"ln_scale": ls}, o.reshape(
+            o.shape[0], 1, H * hd).to(x.dtype), H, hd)
+        a, c = g.block(i, 2)
+        return normed[..., a:a + c] * F.silu(g_)
+    y = pl.wrap([gate(out.locals[i], ln_scale.locals[i], g.locals[i], i)
+                 for i in range(len(x.locals))], cols, x.mesh)
+    return y, pl.wrap(states, state.spec, x.mesh)
+
+
 def rwkv_tmix_decode(cfg, p, x, state, x_prev):
     """One token time-mix. x (B,1,d); state (B,H,hd,hd) f32; x_prev (B,d).
     Returns (y (B,1,d), new_state)."""
     if pl.is_sharded(x):
-        out, state = pl.local_map_n(
-            lambda x_, p_, s_, xp: _decode_heads(cfg, p_, x_, s_, xp), x, p,
-            state, x_prev, specs=_head_specs(cfg, x, p))
+        if state.spec[2] is not None:
+            out, state = _decode_over_keys(cfg, p, x, state, x_prev)
+        else:
+            out, state = pl.local_map_n(
+                lambda x_, p_, s_, xp: _decode_heads(cfg, p_, x_, s_, xp),
+                x, p, state, x_prev, specs=_head_specs(x, p))
         return pl.einsum("bte,ed->btd", out, p["w_o"]), state
     out, state = _decode_heads(cfg, p, x, state, x_prev)
     return out @ p["w_o"], state

@@ -24,7 +24,10 @@ axis, so that two runs give the same bits:
   the sharded dim;
 * `all_to_all`: a mesh axis moves from one dim to another (each position
   sends the i-th slice of its block to the i-th position), as the
-  attention's heads <-> head-dim re-layout needs.
+  attention's heads <-> head-dim re-layout needs;
+* `columns_to_pairs` / `pairs_to_columns`: column blocks that split heads
+  to whole (batch row, head) pairs over the same axis and back, as rwkv's
+  time mix needs where its heads do not divide the axis.
 
 Inside `use_mesh` each collective adds to the scope's `exchange` counter
 the blocks it copied from one position to another and their bytes, and
@@ -35,13 +38,15 @@ contracted dim that is sharded (Megatron's row-parallel product).
 `shard_params`, `shard_cache` and `shard_inputs` place a model, a decode
 cache and a batch by `param_specs` (the `ParamDef`s' logical axes),
 `cache_specs` and `input_shardings`, each fitted with `fit_spec`. Where
-`fit_spec` had to move an axis to a fallback dim, the layers run one
-pattern: "model" moved onto d, the contracting dim of the k / v
-projections and of the head, or the embedding table's columns (a KV head
-count or a vocab that the axis does not divide; `D_FALLBACK`). `einsum`
-then slices the activations' d and all-reduces the partial products, and
-the lookup all-gathers the columns. Any other fallback raises
-`NotImplementedError` (ROADMAP A, item 4c).
+`fit_spec` had to move an axis to a fallback dim, the layers run the
+moves of `FALLBACK_DIMS` (a head count or a vocab that the axis does not
+divide): "model" moved onto d, the contracting dim of the q, k and v
+projections and of the head, or the embedding table's columns, where
+`einsum` slices the activations' d and sums the partial products, and
+the lookup all-gathers the columns; onto the head dim of `wo`, which the
+attention's output is re-laid out to; onto the key dim of rwkv's state,
+which its decode step updates in that layout. Any other fallback raises
+`NotImplementedError`.
 
 Training. `shard_params(..., trainable=True)` makes every position's
 block a leaf that takes a gradient. The collectives are copies, slices,
@@ -201,28 +206,32 @@ def per_position(fn, *args, spec: Optional[Sequence] = None):
 
 
 # ------------------------------------------------------------ place, gather
-# the weights (by their logical axes) whose fallback layout the layers run:
-# "model" moved onto d, the input dim of the k / v projections and of the
-# head, and the embedding table's columns
-D_FALLBACK = {("embed", "kv_heads", "head_dim"), ("embed", "vocab"),
-              ("vocab", "embed")}
+# the tensors (by their logical axes) whose fallback layout the layers run,
+# and the dim the moved axis takes there: d, the input dim of the q, k and
+# v projections and of the head, and the embedding table's columns; the
+# head dim of `wo`; the key dim of rwkv's state (fit_spec places leftmost
+# first, so these are the dims it picks)
+FALLBACK_DIMS = {("embed", "kv_heads", "head_dim"): 0,
+                 ("embed", "heads", "head_dim"): 0,
+                 ("heads", "head_dim", "embed"): 1,
+                 ("embed", "vocab"): 0, ("vocab", "embed"): 1,
+                 ("batch", "heads", None, None): 2}
 
 
 def fitted(s: P, shape: Sequence[int], mesh,
            logical: Optional[Sequence] = None) -> P:
     """`fit_spec` of `s` for `shape`. Where the fit had to move an axis to
     a fallback dim it raises, unless `logical` (the tensor's logical axes)
-    names a weight of `D_FALLBACK` and the axis went to its "embed" dim."""
+    is one of `FALLBACK_DIMS` and the axis went to the dim named there."""
     out = fit_spec(s, shape, mesh)
     plain = fit_spec(s, shape, mesh, fallback=False)
     moved = {i for i, (a, b) in enumerate(zip(out, plain)) if a != b}
     if moved and not (logical is not None
-                      and tuple(logical) in D_FALLBACK
-                      and moved == {list(logical).index("embed")}):
+                      and moved == {FALLBACK_DIMS.get(tuple(logical))}):
         raise NotImplementedError(
             f"placing shape {tuple(shape)} by {s} on mesh "
             f"{axis_sizes(mesh)} needs fit_spec's fallback ({out}); no layer "
-            f"runs such a layout yet (ROADMAP A, item 4c)")
+            f"runs such a layout")
     return out
 
 
@@ -477,6 +486,90 @@ def all_to_all(st: ShardedTensor, axis: str, to_dim: int) -> ShardedTensor:
     return wrap(out, entries, st.mesh)
 
 
+def columns_to_pairs(st: ShardedTensor, width: int) -> ShardedTensor:
+    """`st` (B, T, H * width) placed (batch entry, None, axis), its columns
+    split over the axis in blocks that need not hold whole groups of
+    `width` (heads), re-laid out as (batch row, head) pairs: in each group
+    of positions along the axis, pair b * H + h of its B_l * H is head h
+    of its batch row b, and position r of the group receives pairs r * m
+    to r * m + m - 1 (m = ceil(B_l * H / n); the last position's missing
+    pairs are zeros), each whole: a tensor (G, n * m, T, width) placed
+    (batch entry, axis, None, None), G the batch's shards. Each position
+    receives from each holder of its heads' columns one slice a batch
+    row; counted as "columns_to_pairs"."""
+    axis = st.spec[2]
+    n = axis_sizes(st.mesh)[axis]
+    B_l, T, c = st.locals[0].shape
+    H = st.shape[2] // width
+    P_ = B_l * H
+    m = -(-P_ // n)
+    out = [None] * len(st.locals)
+    copies = nbytes = 0
+    with torch.profiler.record_function("exchange.columns_to_pairs"):
+        for group in _groups(st.mesh, axis):
+            for r, i in enumerate(group):
+                dev = st.mesh.devices[i]
+                parts, p = [], r * m
+                while p < min(r * m + m, P_):
+                    b, h0 = divmod(p, H)
+                    h1 = min(H, h0 + min(r * m + m, P_) - p)
+                    lo, hi = h0 * width, h1 * width
+                    cols = []
+                    for j in range(lo // c, (hi - 1) // c + 1):
+                        piece = st.locals[group[j]][
+                            b, :, max(lo, j * c) - j * c:min(hi, j * c + c)
+                            - j * c]
+                        if group[j] != i:
+                            copies += 1
+                            nbytes += _nbytes(piece)
+                        cols.append(piece.to(dev))
+                    parts.append(torch.cat(cols, -1).reshape(
+                        T, h1 - h0, width).transpose(0, 1))
+                    p += h1 - h0
+                blk = torch.cat(parts) if parts else st.locals[i].new_zeros(
+                    (0, T, width))
+                out[i] = torch.nn.functional.pad(
+                    blk, (0, 0, 0, 0, 0, m - blk.shape[0]))[None].contiguous()
+    _record("columns_to_pairs", copies, nbytes)
+    return wrap(out, (st.spec[0], axis, None, None), st.mesh)
+
+
+def pairs_to_columns(pt: ShardedTensor, like: ShardedTensor) -> ShardedTensor:
+    """The inverse of `columns_to_pairs`: pairs `pt` (G, n * m, T, width)
+    back to the column blocks of `like` (B, T, H * width), placed as
+    `like` is (the pairs' T, any dtype); counted as "pairs_to_columns"."""
+    axis = pt.spec[1]
+    B_l, _, c = like.locals[0].shape
+    m, T, width = pt.locals[0].shape[1:]
+    H = like.shape[2] // width
+    out = [None] * len(pt.locals)
+    copies = nbytes = 0
+    with torch.profiler.record_function("exchange.pairs_to_columns"):
+        for group in _groups(pt.mesh, axis):
+            for r, i in enumerate(group):
+                dev = pt.mesh.devices[i]
+                h0, h1 = r * c // width, (r * c + c - 1) // width + 1
+                rows = []
+                for b in range(B_l):
+                    pieces, p = [], b * H + h0
+                    while p < b * H + h1:
+                        j, q0 = divmod(p, m)
+                        k = min(b * H + h1 - p, m - q0)
+                        piece = pt.locals[group[j]][0, q0:q0 + k]
+                        if group[j] != i:
+                            copies += 1
+                            nbytes += _nbytes(piece)
+                        pieces.append(piece.to(dev))
+                        p += k
+                    cols = torch.cat(pieces).transpose(0, 1).reshape(
+                        T, (h1 - h0) * width)
+                    off = r * c - h0 * width
+                    rows.append(cols[:, off:off + c])
+                out[i] = torch.stack(rows)
+    _record("pairs_to_columns", copies, nbytes)
+    return wrap(out, like.spec, like.mesh)
+
+
 def _split(st: ShardedTensor, axis: str, dim: int) -> ShardedTensor:
     """Shard the replicated `dim` over `axis`: each position keeps (a
     copy of) its slice; nothing crosses between positions."""
@@ -524,11 +617,14 @@ def relayout(st: ShardedTensor, target: Sequence) -> ShardedTensor:
     return st
 
 
-def einsum(eq: str, a: ShardedTensor, b: ShardedTensor) -> ShardedTensor:
+def einsum(eq: str, a: ShardedTensor, b: ShardedTensor,
+           scatter_dim: Optional[int] = None) -> ShardedTensor:
     """`torch.einsum(eq, a, b)` on placed operands, position by position.
     A letter sharded in one operand and replicated in the other is sliced
     there; an output letter keeps its axis; a contracted letter that is
-    sharded leaves partial sums, which `all_reduce_sum` adds."""
+    sharded leaves partial sums, which `all_reduce_sum` adds, or, with
+    `scatter_dim`, `reduce_scatter` adds into slices of that output dim
+    (the same bits as the all-reduce's slice)."""
     ins, out = eq.split("->")
     la, lb = ins.split(",")
     ea = dict(zip(la, _padded(a.spec, len(la))))
@@ -546,7 +642,8 @@ def einsum(eq: str, a: ShardedTensor, b: ShardedTensor) -> ShardedTensor:
     partial = {ax for k in (set(la) | set(lb)) - set(out)
                for ax in entry_axes(ea.get(k) or eb.get(k))}
     for ax in sorted(partial):
-        res = all_reduce_sum(res, ax)
+        res = (all_reduce_sum(res, ax) if scatter_dim is None
+               else reduce_scatter(res, ax, scatter_dim))
     return res
 
 
@@ -611,13 +708,11 @@ def shard_params(model, mesh, release: bool = False,
 
 def shard_cache(cfg, cache: Sequence[dict], mesh) -> List[dict]:
     """A decode cache (`decoder_lm.init_cache`'s list of per-layer dicts)
-    placed by `decoder_lm.cache_specs`."""
-    from repro_torch.models.decoder_lm import cache_specs
-    k0 = next(iter(cache[0].values()))
-    specs = cache_specs(cfg, k0.shape[0], 1)
-    return [{n: shard(t, NamedSharding(mesh, fitted(specs[i][n], t.shape,
-                                                    mesh)))
-             for n, t in c.items()} for i, c in enumerate(cache)]
+    placed by `decoder_lm.cache_specs` (`decoder_lm.fit_cache`)."""
+    from repro_torch.models.decoder_lm import fit_cache
+    return [{n: shard(t, NamedSharding(mesh, fit_cache(cfg, n, t.shape,
+                                                       mesh)))
+             for n, t in c.items()} for c in cache]
 
 
 def shard_inputs(cfg, batch: Dict[str, torch.Tensor], mesh

@@ -17,7 +17,12 @@ against the unsharded model (f32 1e-4), and B4 / B5 at the query, KV
 and rwkv heads one mesh position holds at model 2 and 4; the
 cross-attention and encoder kinds and adaptive decoding on a (1, 2) mesh
 (f32 1e-4, `seed_frontend_cache` bitwise the placed prefill's, exit
-blocks equal) and B4 at their per-position shapes. Run on a GPU
+blocks equal) and B4 at their per-position shapes; B4's query offset
+(QOFF) against its plain version and, at offsets on its row blocks,
+bit for bit the rows of the whole causal call, and the fallback
+placements (query rows over "model", rwkv's (batch row, head) pairs) of
+smoke models on the card against the unsharded model (f32 1e-4). Run on
+a GPU
 machine with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -487,6 +492,86 @@ def test_flash_attention_kv_len_matches_plain(cuda, dtype, hd, H, KV, Sq,
     k[:, kv_len:], v[:, kv_len:] = float("nan"), float("nan")
     nan = flash_attention(q, k, v, causal=causal, kv_len=kv_len)
     assert torch.equal(nan, out)
+
+
+@pytest.mark.parametrize("dtype,hd,H,KV,Sq,Sk,q_offset,window", [
+    (torch.bfloat16, 128, 56, 8, 128, 2048, 1920, 0),   # deepseek, last rows
+    (torch.bfloat16, 128, 8, 2, 256, 1024, 384, 0),
+    (torch.bfloat16, 64, 12, 12, 128, 384, 128, 0),
+    (torch.bfloat16, 64, 4, 1, 256, 1024, 640, 200),    # banded
+    (torch.float32, 64, 12, 12, 128, 512, 256, 0),
+    (torch.float32, 64, 4, 2, 128, 256, 100, 48),       # not block-aligned
+    (torch.float32, 32, 6, 2, 128, 256, 128, 0),        # the smoke models
+    (torch.float32, 32, 6, 6, 128, 256, 64, 16),
+])
+def test_flash_attention_q_offset_matches_plain(cuda, dtype, hd, H, KV, Sq,
+                                                Sk, q_offset, window):
+    """The instances with a query offset (QOFF): rows standing at
+    q_offset.. of a causal sequence against the plain version with the
+    same offset, counted in `offset_launches`; where the offset is a
+    multiple of the kernel's row block, the same bits as those rows of
+    the causal call over the whole sequence (the same key tiles, masks
+    and order). At q_offset 0 the instances without the flag: the bits
+    of a call that names no offset on the keys the rows reach."""
+    g = torch.Generator().manual_seed(q_offset + hd)
+    B = 2
+    q = torch.randn((B, max(q_offset + Sq, Sk), H, hd), generator=g).to(
+        cuda, dtype)
+    k = torch.randn((B, Sk, KV, hd), generator=g).to(cuda, dtype)
+    v = torch.randn((B, Sk, KV, hd), generator=g).to(cuda, dtype)
+    rows = q[:, q_offset:q_offset + Sq].contiguous()
+    before = (flash_attention.launches, flash_attention.offset_launches)
+    out = flash_attention(rows, k, v, window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.offset_launches) \
+        == (before[0] + 1, before[1] + 1)
+    ref = ref_attention(rows, k, v, window=window, q_offset=q_offset)
+    tol = dict(rtol=1e-4, atol=2e-5) if dtype == torch.float32 \
+        else dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    block = 64 if dtype == torch.float32 else 128
+    if q_offset % block == 0 and Sk == q.shape[1]:
+        full = flash_attention(q, k, v, window=window)
+        assert torch.equal(out, full[:, q_offset:q_offset + Sq])
+    head = q[:, :Sq].contiguous()
+    zero = flash_attention(head, k, v, window=window, q_offset=0)
+    assert flash_attention.offset_launches == before[1] + 1
+    assert torch.equal(zero, flash_attention(
+        head, k[:, :Sq].contiguous(), v[:, :Sq].contiguous(), window=window))
+    torch.testing.assert_close(zero.float(), ref_attention(
+        head, k, v, window=window, q_offset=0).float(), **tol)
+
+
+def test_flash_attention_q_offset_refusals_on_cuda(cuda):
+    """No QOFF instance with the soft-cap, at bf16 head dim 256 or f32 128;
+    an offset only when causal."""
+    q = torch.zeros((1, 128, 4, 128), device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros((1, 256, 4, 128), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention(q, k, k, q_offset=128, softcap=30.0)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention(q.float(), k.float(), k.float(), q_offset=128)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention(q, k, k, q_offset=128, causal=False)
+    q256 = torch.zeros((1, 128, 2, 256), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention(q256, q256, q256, q_offset=64)
+
+
+def test_gqa_flash_attention_q_offset_rows_on_card(cuda):
+    """whisper-small's decoder rows at model 8 (28 of 224 tokens a
+    position, padded to 128 rows, keys padded to 256 and bounded at 224):
+    each position's rows through the wrapper with its offset, stacked,
+    against the plain causal attention over the whole sequence."""
+    g = torch.Generator().manual_seed(28)
+    for dtype, tol in ((torch.float32, dict(rtol=1e-4, atol=2e-5)),
+                       (torch.bfloat16, dict(rtol=1e-2, atol=1e-2))):
+        q, k, v = (torch.randn((2, 224, 12, 64), generator=g).to(cuda, dtype)
+                   for _ in range(3))
+        parts = [gqa_flash_attention(q[:, r:r + 28], k, v, q_offset=r)
+                 for r in range(0, 224, 28)]
+        torch.testing.assert_close(torch.cat(parts, 1).float(),
+                                   ref_attention(q, k, v).float(), **tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1340,6 +1425,70 @@ def test_flash_attention_at_per_position_frontend_shapes(cuda, case, model):
     ref = ref_attention(q, k, v, causal=causal)
     torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2,
                                atol=1e-2)
+
+
+@pytest.mark.parametrize("case", ["deepseek-6h", "deepseek-8h",
+                                  "whisper-6h", "rwkv-m16"])
+def test_fallback_placements_on_card(cuda, case):
+    """f32 smoke models placed where the heads do not divide "model" (or
+    the reference's `_seq_shard` splits the rows, "deepseek-8h") on a
+    mesh of the card repeated: prefill of 256 tokens (B4 once per
+    attention layer and position on the position's rows, causal ones at
+    their first row's offset through the query-offset instances of f32
+    head dim 32; B5 once per rwkv layer and position on its (batch row,
+    head) pairs) and 3 decode steps against the unsharded model on the
+    card, the logits within 1e-4 relative L2; two placed runs bitwise
+    equal."""
+    import dataclasses
+    from repro_torch.configs import ARCHS, smoke
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import decoder_lm as M
+    from repro_torch.sharding import placement as pl
+    from repro_torch.sharding import use_mesh
+    arch, kw, model = {
+        "deepseek-6h": ("deepseek-coder-33b",
+                        dict(num_heads=6, num_kv_heads=2), 4),
+        "deepseek-8h": ("deepseek-coder-33b",
+                        dict(num_heads=8, num_kv_heads=2), 4),
+        "whisper-6h": ("whisper-small", dict(num_heads=6, num_kv_heads=6),
+                       4),
+        "rwkv-m16": ("rwkv6-3b", {}, 16)}[case]
+    cfg = dataclasses.replace(smoke(ARCHS[arch]), **kw)
+    base = _soft_model(cfg, cuda)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (4, 256), generator=g).to(cuda)
+    fe = (torch.randn((4, cfg.encoder_seq, cfg.d_model), generator=g).to(
+        cuda) if cfg.is_encdec else None)
+
+    def run(params):
+        last, cache = M.prefill_step(cfg, params, toks, frontend=fe,
+                                     length=259)
+        out = [last]
+        for pos in range(256, 259):
+            lg, cache = M.decode_step(cfg, params, cache, toks[:, :1], pos)
+            out.append(lg[:, 0])
+        return out
+
+    want = run(base)
+    mesh = make_mesh((cuda,) * model, {"data": 1, "model": model})
+    params = pl.shard_params(base, mesh)
+    with use_mesh(mesh):
+        before = (flash_attention.launches, flash_attention.offset_launches,
+                  wkv6.launches)
+        got = run(params)
+        n = (flash_attention.launches - before[0],
+             flash_attention.offset_launches - before[1],
+             wkv6.launches - before[2])
+        again = run(params)
+    layers = cfg.num_layers
+    if arch == "rwkv6-3b":
+        assert n == (0, 0, layers * model)
+    else:
+        per = 2 * layers + cfg.encoder_layers if cfg.is_encdec else layers
+        assert n == (per * model, layers * (model - 1), 0)
+    for a, b in zip(got, want):
+        assert float((a - b).norm() / b.norm()) < 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-small"])

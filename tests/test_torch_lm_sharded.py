@@ -261,36 +261,34 @@ def test_every_layer_kind_runs_on_a_mesh(arch):
 def test_fallback_placements_raise(arch, mesh_shape):
     """`smoke()` recurrentgemma-9b's one KV head, and rwkv6-3b's 2 heads at
     model 4, do not divide the model axis, so `fit_spec` moves it to
-    another dim. For recurrentgemma that is d of wk / wv, their
-    contracting dim, which the layers run (the "model"-on-d placement of
-    ROADMAP A, item 4c): the model places, and its prefill and decode
-    equal the unsharded model's. rwkv's weights place (128 columns over
-    4), but a position would hold half a head: its layer and its cache
-    still raise (item 4c)."""
+    another dim: d of recurrentgemma's wk / wv, their contracting dim;
+    rwkv's state cache onto its key dim, while its weights place 32
+    columns (half a head) a position. The layers run both layouts
+    (`placement.FALLBACK_DIMS`; rwkv regroups its columns into whole
+    (batch row, head) pairs): the model places, and its prefill and
+    decode equal the unsharded model's."""
     cfg = smoke(ARCHS[arch])
     model = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     seq = torch.randint(0, cfg.vocab_size, (2, 16))
     mesh = _mesh(*mesh_shape)
+    want = M.prefill_step(cfg, model, seq[:, :12], length=16)
+    want = [want[0], M.decode_step(cfg, model, want[1], seq[:, 12:13],
+                                   12)[0][:, 0]]
+    params = pl.shard_params(model, mesh)
     if arch == "recurrentgemma-9b":
-        want = M.prefill_step(cfg, model, seq[:, :12], length=16)
-        want = [want[0], M.decode_step(cfg, model, want[1], seq[:, 12:13],
-                                       12)[0][:, 0]]
-        params = pl.shard_params(model, mesh)
         assert params["layers"][2]["attn"]["wk"].spec == ("model", None, None)
-        with use_mesh(mesh):
-            last, cache = M.prefill_step(cfg, params, seq[:, :12], length=16)
-            got = [last, M.decode_step(cfg, params, cache, seq[:, 12:13],
-                                       12)[0][:, 0]]
-        for a, b in zip(got, want):
-            _close(a, b, PORT, f"{arch} on {mesh_shape}")
-        return
-    with pytest.raises(NotImplementedError, match="fallback.*item 4c"):
-        params = pl.shard_params(model, mesh)
-        with use_mesh(mesh):
-            M.forward(cfg, params, seq)
-    with use_mesh(mesh), pytest.raises(NotImplementedError,
-                                       match="fallback.*item 4c"):
-        M.init_cache(cfg, 2, 16, "cpu")
+    else:
+        assert params["layers"][0]["tmix"]["w_r"].spec == (None, "model")
+    with use_mesh(mesh):
+        last, cache = M.prefill_step(cfg, params, seq[:, :12], length=16)
+        got = [last, M.decode_step(cfg, params, cache, seq[:, 12:13],
+                                   12)[0][:, 0]]
+        if arch == "rwkv6-3b":
+            assert cache[0]["state"].spec == ("data", None, "model", None)
+            assert M.init_cache(cfg, 2, 16, "cpu")[0]["state"].spec == \
+                cache[0]["state"].spec
+    for a, b in zip(got, want):
+        _close(a, b, PORT, f"{arch} on {mesh_shape}")
 
 
 def test_placed_models_and_caches_are_checked(models):

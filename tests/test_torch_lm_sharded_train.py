@@ -12,8 +12,8 @@ position) and "granite-exits" (granite-34b at 4 layers with exit heads
 at blocks 0-2: one KV head, so wk / wv put "model" on d, and the
 Inception Distillation term on the placed states); the dry run's
 train-step half (`_train_cfg` against the reference's rule, the
-optimizer state's shapes and specs); rwkv's half head (item 4c), which
-still raises. `test_torch_lm_sharded_train_kinds.py` and
+optimizer state's shapes and specs); rwkv's half head, whose placed loss
+and gradients equal the unplaced ones. `test_torch_lm_sharded_train_kinds.py` and
 `test_torch_lm_sharded_train_frontends.py` run the same checks on the
 MoE and recurrent kinds and on the frontend kinds.
 
@@ -389,17 +389,32 @@ def test_sync_grads_sums_over_the_free_axes():
     assert all(b.grad is None for st in tree.values() for b in st.locals)
 
 
-def test_rwkv_half_head_still_raises():
-    """rwkv6-3b smoke's 2 heads at model 4: its training raises naming
-    item 4c, as its forward does."""
+def test_rwkv_half_head_trains():
+    """rwkv6-3b smoke's 2 heads at model 4 (half a head a position): the
+    placed `loss_fn` regroups the columns into whole (batch row, head)
+    pairs, and its loss and synced gradients equal the unplaced ones."""
     cfg = smoke(ARCHS["rwkv6-3b"])
+    seq = torch.randint(0, cfg.vocab_size, (2, 16),
+                        generator=torch.Generator().manual_seed(2))
     model = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    mesh = mesh_of(1, 4)
-    params = pl.shard_params(model, mesh, trainable=True)
-    seq = torch.randint(0, cfg.vocab_size, (2, 16))
-    with use_mesh(mesh), pytest.raises(NotImplementedError,
-                                       match="item 4c"):
-        M.loss_fn(cfg, params, {"tokens": seq})
+    with torch.no_grad():
+        for p in model.layers:
+            for n in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w"):
+                p["tmix"][n].uniform_(0.1, 0.9)
+    params = pl.shard_params(model, mesh_of(1, 4), trainable=True)
+    model.requires_grad_()
+    want, _ = M.loss_fn(cfg, model, {"tokens": seq})
+    want.backward()
+    with use_mesh(mesh_of(1, 4)):
+        loss, _ = M.loss_fn(cfg, params, {"tokens": seq})
+        loss.backward()
+        grads = pl.sync_grads(params)
+    np.testing.assert_allclose(float(loss.detach()), float(want.detach()),
+                               **PORT)
+    for (path, st) in pl.named_leaves(grads):
+        g0 = dict(model.named_parameters())[module_name(path)].grad
+        assert float((pl.gather(st) - g0).norm()) <= GRAD_REL * float(
+            g0.norm()) + 1e-12, path
 
 
 # ------------------------------------------------------------- the dry run

@@ -4,11 +4,12 @@ kinds, on meshes of the CPU repeated, by the checks of
 and grok-1-314b (GELU experts, soft-capped logits), 4 experts top-2,
 their experts FSDP over "data" both ways (the tokens moved below
 `moe.GATHER_WEIGHTS_AT`, the weights gathered at it, patched to 0),
-with the aux loss on the global batch; rwkv6-3b (2 heads: meshes with
-model 2 at most; model 4 would split a head, `test_rwkv_half_head_
-still_raises`); recurrentgemma-9b (`rglru` with its f32 reduce-scatter
-of the gates, the banded `local` attention, and one KV head of 4 query
-heads, so wk / wv put "model" on d, `placement.D_FALLBACK`)."""
+with the aux loss on the global batch; rwkv6-3b (2 heads: at model 4 a
+position's columns hold half a head, and the time mix regroups them into
+whole (batch row, head) pairs, the state over its key dim);
+recurrentgemma-9b (`rglru` with its f32 reduce-scatter of the gates, the
+banded `local` attention, and one KV head of 4 query heads, so wk / wv
+put "model" on d, `placement.FALLBACK_DIMS`)."""
 import pytest
 
 from repro_torch.nn import moe
@@ -23,8 +24,7 @@ CONFIGS = {
     "recurrentgemma-9b": ("recurrentgemma-9b", {}, False),
 }
 REFERENCE = Reference(CONFIGS)
-CASES = [(name, m) for name in CONFIGS for m in MESHES
-         if not (name == "rwkv6-3b" and m[1] > 2)]
+CASES = [(name, m) for name in CONFIGS for m in MESHES]
 
 
 @pytest.mark.parametrize("name,mesh_shape", CASES)

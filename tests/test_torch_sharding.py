@@ -334,10 +334,11 @@ def test_make_debug_mesh():
 def test_a_fallback_placement_raises():
     """granite-34b at smoke size: one KV head and 4 query heads, so wk and
     wv stay on `kv_heads` and fit_spec moves the model axis to d, their
-    contracting dim, a layout the layers run (ROADMAP A, item 4c). A
-    fallback elsewhere still raises: rwkv6-3b's 2 heads at model 4, where
-    the state cache would take the axis on its head dim (half a head a
-    position)."""
+    contracting dim, a layout the layers run. rwkv6-3b's 2 heads at
+    model 4: its state cache takes the axis on its key dim, which its
+    decode step runs too (`placement.FALLBACK_DIMS`). A fallback no layer
+    runs still raises: a KV cache of 3 heads at model 4, whose axis would
+    go to its sequence dim."""
     from repro_torch.configs import smoke
     cfg = smoke(ARCHS["granite-34b"])
     model = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -350,5 +351,14 @@ def test_a_fallback_placement_raises():
     pl.shard_params(model, _cpu_mesh(2, 1))          # data only: fine
     rwkv = smoke(ARCHS["rwkv6-3b"])
     cache = M.init_cache(rwkv, 2, 8, "cpu")
-    with pytest.raises(NotImplementedError, match="fallback.*item 4c"):
-        pl.shard_cache(rwkv, cache, _cpu_mesh(1, 4))
+    placed = pl.shard_cache(rwkv, cache, _cpu_mesh(1, 4))
+    assert placed[0]["state"].spec == L.P("data", None, "model", None)
+    assert torch.equal(pl.gather(placed[0]["state"]), cache[0]["state"])
+    kv = L.spec("batch", "cache_seq", "kv_heads", None)
+    assert L.fit_spec(kv, (2, 8, 3, 32), {"data": 1, "model": 4}) == \
+        L.P("data", "model", None, None)
+    with pytest.raises(NotImplementedError, match="fallback.*no layer runs"):
+        pl.shard(torch.zeros((2, 8, 3, 32)), L.NamedSharding(
+            _cpu_mesh(1, 4), pl.fitted(kv, (2, 8, 3, 32), _cpu_mesh(1, 4),
+                                       ("batch", "cache_seq", "kv_heads",
+                                        None))))
