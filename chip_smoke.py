@@ -244,6 +244,17 @@ fails (non-zero exit, no result line) on any failed check:
    grad_norm within SHARDED_TRAIN_BF16_REL of (1, 1)'s; then one f32
    step at smoke size for every family on two meshes of the card
    against (1, 1) on the card and on the CPU (`train_f32_checks`).
+   Then checkpoints of a placed training state (`placed_ckpt_phase`,
+   ROADMAP A item 1): whisper-small whole, bf16, trained on (1, 2), a
+   run of 4 steps against 2 steps, a save, a load into a fresh placement
+   and 2 more steps: the state, the losses and both models' prefill
+   logits (B4 through its key bound) bitwise equal, the file loaded onto
+   (2, 2) gathering to its arrays bit for bit; the file's bytes and the
+   save and load seconds. Last, the dry run (`dryrun_lines`, ROADMAP
+   A11): `launch.dryrun.lower_combo` on `meta` devices for granite-34b's
+   training and mistral-large-123b's prefill at the sizes above, on (1,
+   1) and (1, 4), each record's data-sheet roofline terms beside the
+   step or prefill ms and the device busy ms measured above.
 5. train (`train_phase`, last, so that nothing it leaves behind runs
    beside the LM timings): the paper's training procedure (`train_nai`,
    Inception Distillation, `DistillConfig()`'s 300/200/200 epochs) on the
@@ -330,9 +341,13 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
-PEAK_BYTES_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
-PEAK_F32_FLOP_S = 67e12       # H100 SXM f32 outside the tensor cores
-PEAK_BF16_FLOP_S = 989e12     # H100 SXM bf16 tensor cores, dense
+sys.path.insert(0, str(REPO / "src"))
+from repro_torch.common import H100_SXM  # noqa: E402
+
+# NVIDIA's data-sheet figures of the H100 SXM (`repro_torch.common`)
+PEAK_BYTES_S = H100_SXM.hbm_bw               # HBM3
+PEAK_F32_FLOP_S = H100_SXM.peak_flops_f32    # f32 outside the tensor cores
+PEAK_BF16_FLOP_S = H100_SXM.peak_flops       # bf16 tensor cores, dense
 D2_MARGIN = 1e-4
 F32_REL = 1e-3
 MAX_NEAR_SHARE = 0.05
@@ -4082,7 +4097,7 @@ def sharded_f32_check(torch, dev, smi_line, arch, batch, seq, n_dec):
     return line
 
 
-def sharded_lm_phase(torch, dev, kernels, smi_line):
+def sharded_lm_phase(torch, dev, kernels, smi_line, measured=None):
     """The LMs tensor- and data-parallel (ROADMAP A item 4, 4a) on ("data",
     "model") meshes of the one card repeated (`make_mesh((dev,) * n,
     ...)`): the sharded path and its exchanges, not the capacity of n
@@ -4111,8 +4126,10 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
     relative L2 of the logits against (1, 1) (held under SHARDED_REL) and
     the greedy-token agreement with it; the analytic per-position
     parameter bytes of the full-depth mistral at model 4 and 8; and
-    `sharded_f32_check`. Returns (each kernel's launches in the prefills,
-    the lines for the summary)."""
+    `sharded_f32_check`. Into `measured` (when given) goes each mesh's
+    prefill ms and traced device busy ms, keyed (arch, "prefill", (data,
+    model)). Returns (each kernel's launches in the prefills, the lines
+    for the summary, B4's query-offset row)."""
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import synthetic_lm_batch
     from repro_torch.launch.mesh import make_mesh
@@ -4400,6 +4417,9 @@ def sharded_lm_phase(torch, dev, kernels, smi_line):
             print(line)
             lines.append(line)
             print(f"{label} seconds: {secs}")
+            if measured is not None:
+                measured[arch, "prefill", (data, model_ax)] = dict(
+                    ms=1e3 * t_prefill, busy_ms=None if untraced else pre_busy)
             lim = SHARDED_REL[arch]
             check(err_pre < lim and err_dec < lim,
                   f"{label} logits within {lim} of (1, 1) "
@@ -4780,7 +4800,7 @@ def train_f32_checks(torch, dev, smi_line) -> str:
     return line
 
 
-def sharded_train_phase(torch, dev, kernels, smi_line):
+def sharded_train_phase(torch, dev, kernels, smi_line, measured=None):
     """Training a placed LM (ROADMAP A item 4a): granite-34b by
     SHARDED_TRAIN, bf16, random weights from a CUDA generator seeded 0
     (conditioned as `condition_weights` says), drawn anew for each mesh and
@@ -4795,8 +4815,10 @@ def sharded_train_phase(torch, dev, kernels, smi_line):
     step's loss and grad_norm, the exchange of step 2 (counted bytes) and
     of the traced step (device ms), the gradient sync apart; step 1's loss
     and grad_norm held within SHARDED_TRAIN_BF16_REL of (1, 1)'s, the loss
-    at the last step below step 1's. Then `train_f32_checks`. Returns the
-    lines for the summary."""
+    at the last step below step 1's. Then `train_f32_checks`. Into
+    `measured` (when given) goes each mesh's step ms and traced device busy
+    ms, keyed (arch, "train", (data, model)). Returns the lines for the
+    summary."""
     from repro_torch.common import AdaptiveDepthConfig
     from repro_torch.configs import get_config
     from repro_torch.data import synthetic_stream
@@ -4922,6 +4944,9 @@ def sharded_train_phase(torch, dev, kernels, smi_line):
                 f" {smi_line}")
         print(line)
         lines.append(line)
+        if measured is not None:
+            measured[st_["arch"], "train", (data, model_ax)] = dict(
+                ms=ms, busy_ms=busy)
         check(err_loss < SHARDED_TRAIN_BF16_REL
               and err_norm < SHARDED_TRAIN_BF16_REL,
               f"{label}: step 1's loss and grad_norm within "
@@ -4935,13 +4960,263 @@ def sharded_train_phase(torch, dev, kernels, smi_line):
     return lines
 
 
+# a placed training state saved and resumed: whisper-small whole (full
+# width and depth, the published config), bf16, trained placed on the
+# (data, model) mesh `mesh`, cut after `cut` of `steps` steps, saved,
+# loaded into a fresh placement and run on; then loaded onto `load_mesh`
+PLACED_CKPT = dict(arch="whisper-small", mesh=(1, 2), load_mesh=(2, 2),
+                   batch=8, seq=128, steps=4, cut=2, lr=1e-3,
+                   prefill=(16, 224))
+# the dry run's records beside the measurements of this run: granite-34b
+# training at SHARDED_TRAIN's size and mistral-large-123b's prefill at the
+# sharded LM phase's, each on two of the meshes those phases ran
+DRYRUN_MESHES = ((1, 1), (1, 4))
+
+
+def _leaf(tree, dotted: str):
+    """The leaf of a nested dict (`read_tree`'s, int keys for list items)
+    at a `named_leaves` path."""
+    for part in dotted.split("."):
+        tree = tree[int(part) if part.isdigit() else part]
+    return tree
+
+
+def placed_ckpt_phase(torch, dev, kernels, smi_line):
+    """Checkpoints of a placed training state (ROADMAP A item 1) by
+    PLACED_CKPT: whisper-small whole, bf16, random weights from a CUDA
+    generator seeded 0 (conditioned as `condition_weights` says), placed
+    on the (1, 2) mesh of the card by `shard_params(trainable=True)` with
+    f32 moments (`adamw_init`), trained by `build_train_step` on
+    `synthetic_stream` with its 1500-frame frontend. A run of 4 steps
+    without a break; the same weights drawn again and run 2 steps, saved
+    (`save_checkpoint` gathers each placed leaf to the CPU), the
+    parameters and the state deleted and the cache emptied, loaded into
+    a fresh placement (weights seeded 1) and run on for steps 3-4. Gates:
+    every parameter block, both moments' blocks and the count bitwise
+    the unbroken run's, the losses of steps 3-4 too; both models'
+    prefills of 16 x 224 tokens and 16 x 1500 frames (B4 through its key
+    bound) give the same logits bit for bit, B4 launched once per
+    attention and position; the file loaded onto (2, 2) gathers every
+    leaf to the file's arrays bit for bit. Prints the file's bytes and
+    the save and load seconds, deletes the file. Returns (B4's launches
+    in the prefills, the line for the summary)."""
+    from repro_torch.checkpoint import (load_checkpoint, read_tree,
+                                        save_checkpoint)
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_stream
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.launch.dryrun import build_train_step
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.models import decoder_lm as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import placement as pl
+    from repro_torch.sharding import use_mesh
+
+    pc = PLACED_CKPT
+    phase(f"placed checkpoint {pc['arch']}")
+    t_phase = time.perf_counter()
+    cfg = get_config(pc["arch"])
+    step, tc = build_train_step(cfg, learning_rate=pc["lr"], warmup_steps=1,
+                                total_steps=pc["steps"], weight_decay=0.01)
+    stream = synthetic_stream(0, pc["batch"], pc["seq"], cfg.vocab_size, cfg)
+    batches = [lm_batch(cfg, next(stream), dev) for _ in range(pc["steps"])]
+
+    def mesh_of(shape):
+        data, model_ax = shape
+        return make_mesh((dev,) * (data * model_ax),
+                         {"data": data, "model": model_ax})
+    mesh = mesh_of(pc["mesh"])
+
+    def placed(on, seed):
+        gen = torch.Generator(dev).manual_seed(seed)
+        model = M.init_params(cfg, gen, device=dev)
+        condition_weights(torch, cfg, model, gen)
+        params = pl.shard_params(model, on, release=True, trainable=True)
+        return params, adamw_init(params, tc)
+
+    def run(params, opt, steps):
+        losses = []
+        with use_mesh(mesh):
+            for i in steps:
+                _, _, m = step(params, opt, batches[i])
+                losses.append(float(m["loss"]))
+        return losses
+
+    def state_leaves(params, opt):
+        return [(f"{k}.{path}", st) for k, tree in (
+            ("params", params), ("opt.mu", opt["mu"]), ("opt.nu", opt["nu"]))
+            for path, st in pl.named_leaves(tree)]
+
+    label = (f"{pc['arch']} placed checkpoint, mesh (data {pc['mesh'][0]}, "
+             f"model {pc['mesh'][1]})")
+    params_a, opt_a = placed(mesh, 0)
+    losses_a = run(params_a, opt_a, range(pc["steps"]))
+    params_b, opt_b = placed(mesh, 0)
+    losses_b = run(params_b, opt_b, range(pc["cut"]))
+    path = REPO / "build" / "placed_state.ckpt"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(str(path), {"params": params_b, "opt": opt_b}, pc["cut"])
+    t_save = time.perf_counter() - t0
+    size = path.stat().st_size
+    del params_b, opt_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    like, like_opt = placed(mesh, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, at = load_checkpoint(str(path), {"params": like, "opt": like_opt})
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    del like, like_opt
+    check(at == pc["cut"], f"{label}: the file's step {at}")
+    params_b, opt_b = state["params"], state["opt"]
+    del state
+    losses_b += run(params_b, opt_b, range(pc["cut"], pc["steps"]))
+    a_leaves, b_leaves = (state_leaves(params_a, opt_a),
+                          state_leaves(params_b, opt_b))
+    differ = [n for (n, a), (_, b) in zip(a_leaves, b_leaves)
+              if a.spec != b.spec or not all(
+                  torch.equal(x, y) for x, y in zip(a.locals, b.locals))]
+    check(not differ and len(a_leaves) == len(b_leaves)
+          and torch.equal(opt_a["count"], opt_b["count"]),
+          f"{label}: every parameter and moment block and the count after "
+          f"the resumed steps {pc['cut'] + 1}-{pc['steps']} bitwise the "
+          f"unbroken run's (differ: {differ[:5]})")
+    check(losses_b == losses_a, f"{label}: the resumed losses {losses_b} "
+          f"bitwise the unbroken run's {losses_a}")
+    # both models' prefills, B4 with its key bound on the frames
+    pb, ps = pc["prefill"]
+    toks = torch.from_numpy(synthetic_lm_batch(
+        np.random.default_rng(0), pb, ps, cfg.vocab_size)["tokens"]).long(
+    ).to(dev)
+    fe = draw_frontend(torch, dev, cfg, pb)
+    zero_counts(kernels)
+    with use_mesh(mesh):
+        logits_a, _ = M.prefill_step(cfg, params_a, toks, frontend=fe)
+        logits_b, _ = M.prefill_step(cfg, params_b, toks, frontend=fe)
+    torch.cuda.synchronize()
+    n_b4 = kernels["flash_attention"].launches
+    want = 2 * prefill_launches(cfg)["flash_attention"] * len(mesh.devices)
+    check(n_b4 == want, f"{label}: B4 launched {n_b4} times in the two "
+          f"prefills (want {want}: once per attention and position)")
+    check(bool(torch.isfinite(logits_a).all())
+          and logits_a.shape == (pb, cfg.vocab_size)
+          and torch.equal(logits_a, logits_b),
+          f"{label}: the resumed model's prefill logits bitwise the "
+          f"unbroken run's")
+    del params_a, opt_a, params_b, opt_b, logits_a, logits_b, fe
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same file onto another mesh
+    like, like_opt = placed(mesh_of(pc["load_mesh"]), 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = load_checkpoint(str(path), {"params": like, "opt": like_opt})
+    torch.cuda.synchronize()
+    t_load2 = time.perf_counter() - t0
+    del like, like_opt
+    file, _ = read_tree(str(path))
+    moved = state_leaves(state["params"], state["opt"])
+    differ = [n for n, st in moved
+              if not torch.equal(pl.gather(st, "cpu"), _leaf(file, n))]
+    check(not differ and torch.equal(state["opt"]["count"],
+                                     file["opt"]["count"]),
+          f"{label}: the file loaded onto {pc['load_mesh']} gathers every "
+          f"leaf to the file's arrays bit for bit (differ: {differ[:5]})")
+    del state, file, moved
+    os.remove(path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    line = (f"{label}: {cfg.num_layers} + {cfg.encoder_layers} layers, "
+            f"bf16, f32 moments, batch {pc['batch']} x {pc['seq']} with "
+            f"{cfg.encoder_seq} frames; losses {losses_a} unbroken, "
+            f"{losses_b} cut after step {pc['cut']}, saved, loaded into a "
+            f"fresh placement and resumed: every block of the state and the "
+            f"losses bitwise equal, the {pb} x {ps} prefill logits bitwise "
+            f"equal (B4 {n_b4} launches); file {size} bytes ({size / 1e9:.3f}"
+            f" GB), saved in {t_save:.2f} s ({size / t_save / 1e9:.2f} GB/s "
+            f"from the card to the disk), loaded onto {pc['mesh']} in "
+            f"{t_load:.2f} s and onto {pc['load_mesh']} in {t_load2:.2f} s "
+            f"(every leaf gathers to the file's arrays bitwise); the phase "
+            f"{time.perf_counter() - t_phase:.1f} s; {smi_line}")
+    print(line)
+    return n_b4, line
+
+
+def dryrun_lines(measured, smi_line):
+    """The dry run (`launch.dryrun.lower_combo`, on `meta` devices, on the
+    host's CPU) at the sizes this run measured: granite-34b's training at
+    SHARDED_TRAIN's size and mistral-large-123b's prefill at the sharded
+    LM phase's, on DRYRUN_MESHES; each record's data-sheet roofline terms
+    beside the step or prefill ms and the traced device busy ms measured
+    above (a mesh of n positions on the one card runs n positions' work,
+    so its terms, which are a position's, go beside it times n). Returns
+    the lines for the summary."""
+    from repro_torch.common import ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import lower_combo
+
+    phase("dry run at this run's sizes")
+    t_phase = time.perf_counter()
+    st_ = SHARDED_TRAIN
+    full = get_config(st_["arch"])
+    train_cfg = dataclasses.replace(
+        full, num_layers=st_["layers"], adaptive=dataclasses.replace(
+            full.adaptive, enabled=True, exit_layers=st_["exits"], t_min=0,
+            t_max=max(st_["exits"])))
+    arch = "mistral-large-123b"
+    sh = SHARDED_SHAPES.get(arch, SHARDED_SHAPE)
+    prefill_cfg = dataclasses.replace(get_config(arch),
+                                      num_layers=SHARDED_LAYERS[arch])
+    combos = [(st_["arch"], train_cfg, ShapeConfig(
+        "sharded_train", st_["seq"], st_["batch"], "train")),
+        (arch, prefill_cfg, ShapeConfig("sharded_prefill", sh["seq"],
+                                        sh["batch"], "prefill"))]
+    lines = []
+    for name, cfg, shape in combos:
+        for data, model_ax in DRYRUN_MESHES:
+            rec = lower_combo(name, shape.name, cfg=cfg, shape=shape,
+                              mesh={"data": data, "model": model_ax},
+                              verbose=False)
+            r, mem = rec["roofline"], rec["memory"]
+            got = measured.get((name, shape.mode, (data, model_ax)))
+            n = data * model_ax
+            terms = [1e3 * r[k] for k in ("t_compute_s", "t_memory_s",
+                                          "t_collective_s")]
+            line = (f"dry run {name} {shape.mode} {cfg.num_layers} of "
+                    f"{get_config(name).num_layers} layers, batch "
+                    f"{shape.global_batch} x {shape.seq_len}, mesh (data "
+                    f"{data}, model {model_ax}): counted a position "
+                    f"{r['hlo_flops_per_chip']:.4g} flops, "
+                    f"{r['hlo_bytes_per_chip']:.4g} bytes of traffic, "
+                    f"{r['collective_bytes_per_chip']:.4g} collective bytes,"
+                    f" {mem['per_chip_gb']} GB held; roofline terms "
+                    f"(H100 SXM data sheet, a position): compute "
+                    f"{terms[0]:.3f} ms, memory {terms[1]:.3f} ms, "
+                    f"collective {terms[2]:.3f} ms ({r['dominant']}); x {n} "
+                    f"positions: {', '.join(f'{n * t:.3f}' for t in terms)}"
+                    f" ms; measured in this run: " + (
+                        "not measured" if got is None else
+                        f"{'step' if shape.mode == 'train' else 'prefill'} "
+                        f"{got['ms']:.2f} ms, device busy "
+                        + ("not traced" if got["busy_ms"] is None
+                           else f"{got['busy_ms']:.2f} ms"))
+                    + f" (lower {rec['lower_s']} s, count "
+                    f"{rec['compile_s']} s on the host); {smi_line}")
+            print(line)
+            lines.append(line)
+    print(f"dry run: {time.perf_counter() - t_phase:.1f} s")
+    return lines
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(REPO / "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.nap_exit import nap_exit
@@ -5009,7 +5284,9 @@ def main() -> int:
     bounded += lines
     # the dense attn LMs tensor- and data-parallel (ROADMAP A item 4) on
     # meshes of the one card; B4's row adds their prefills' launches
-    n, lines, offset_row = sharded_lm_phase(torch, dev, kernels, smi_line)
+    measured = {}      # the times the dry run's lines go beside
+    n, lines, offset_row = sharded_lm_phase(torch, dev, kernels, smi_line,
+                                            measured)
     b4["launches"] += n["flash_attention"]
     parts.append(f"{n['flash_attention']} in the sharded prefills (once "
                  f"per attention layer and mesh position, twice per "
@@ -5022,7 +5299,16 @@ def main() -> int:
     bounded += lines_a
     # training a placed granite-34b (ROADMAP A item 4a): no kernel runs in
     # its steps (B4 and B5 have no backward)
-    bounded += sharded_train_phase(torch, dev, kernels, smi_line)
+    bounded += sharded_train_phase(torch, dev, kernels, smi_line, measured)
+    # a placed training state saved and resumed (ROADMAP A item 1); B4's
+    # row adds its prefills' launches
+    n_c, line_c = placed_ckpt_phase(torch, dev, kernels, smi_line)
+    b4["launches"] += n_c
+    parts.append(f"{n_c} in the placed whisper-small prefills after the "
+                 f"checkpoint")
+    bounded.append(line_c)
+    # the dry run (ROADMAP A11) beside what this run measured
+    bounded += dryrun_lines(measured, smi_line)
     b5 = next(r for r in rows if r["name"] == "wkv6")
     b5["launches"] += n["wkv6"]
     b5["note"] = (f"({b5['launches'] - n['wkv6']} {b5['note']}, "

@@ -10,6 +10,15 @@ flattened to path-keyed records: the keys of each level joined by "/"
 moved into place with `os.replace`. bfloat16 goes by its dtype name
 "bfloat16" as its raw bytes.
 
+A placed tree (`repro_torch.sharding.placement.ShardedTensor` leaves, a
+training state on a mesh) is gathered, as the reference gathers its
+sharded arrays to the host before it saves: each placed leaf is written
+as the record of the global tensor, so that one file loads in both
+packages and onto any mesh. The file is written leaf by leaf (each leaf
+gathered to the CPU, encoded, written and let go), so that a save holds
+one gathered leaf at a time, and read through a memory map, one leaf at
+a time. `load_checkpoint` places a leaf where its like-leaf is placed.
+
 The machine with the card has no `msgpack`, so this module carries its
 own encoder and decoder of the subset the format uses: maps with str
 keys, str, int, bin, lists, and nil / bool / float64 for completeness.
@@ -18,12 +27,15 @@ The encoder picks the same (smallest) representations as
 """
 from __future__ import annotations
 
+import mmap
 import os
 import struct
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.sharding import placement
 
 # dtype names of the format (numpy's, "bfloat16" as ml_dtypes names it)
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
@@ -64,15 +76,19 @@ def _pack(obj, out: list) -> None:
         for item in obj:
             _pack(item, out)
     elif isinstance(obj, Mapping):
-        n = len(obj)
-        out.append(bytes([0x80 | n]) if n < 16 else
-                   b"\xde" + struct.pack(">H", n) if n <= 0xffff else
-                   b"\xdf" + struct.pack(">I", n))
+        out.append(_map_header(len(obj)))
         for k, v in obj.items():
             _pack(k, out)
             _pack(v, out)
     else:
         raise TypeError(f"cannot encode {type(obj).__name__}")
+
+
+def _map_header(n: int) -> bytes:
+    """The msgpack head of a map of `n` entries (its items follow)."""
+    return (bytes([0x80 | n]) if n < 16 else
+            b"\xde" + struct.pack(">H", n) if n <= 0xffff else
+            b"\xdf" + struct.pack(">I", n))
 
 
 def _pack_int(v: int) -> bytes:
@@ -111,7 +127,9 @@ _LEN = {0xd9: 1, 0xda: 2, 0xdb: 4, 0xc4: 1, 0xc5: 2, 0xc6: 4, 0xdc: 2,
         0xdd: 4, 0xde: 2, 0xdf: 4}
 
 
-def _unpack(buf: memoryview, i: int):
+def _unpack(buf: memoryview, i: int, views: bool = False):
+    """(object, end) of the encoding at byte i; with `views` a bin is a
+    memoryview of `buf` (no copy) instead of bytes."""
     c = buf[i]
     i += 1
     if c < 0x80:
@@ -145,18 +163,20 @@ def _unpack(buf: memoryview, i: int):
     if kind in ("str", "bin"):
         if i + n > len(buf):
             raise ValueError("truncated msgpack data")
+        if kind == "bin" and views:
+            return buf[i:i + n], i + n
         raw = bytes(buf[i:i + n])
         return (raw.decode("utf-8") if kind == "str" else raw), i + n
     if kind == "list":
         items = []
         for _ in range(n):
-            v, i = _unpack(buf, i)
+            v, i = _unpack(buf, i, views)
             items.append(v)
         return items, i
     out = {}
     for _ in range(n):
-        k, i = _unpack(buf, i)
-        out[k], i = _unpack(buf, i)
+        k, i = _unpack(buf, i, views)
+        out[k], i = _unpack(buf, i, views)
     return out, i
 
 
@@ -190,11 +210,16 @@ def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
     return out
 
 
+@torch.no_grad()
 def _record(leaf) -> dict:
+    """The record of one leaf; a placed leaf gathered to the CPU. The
+    data is a view of the CPU tensor's bytes (no further copy)."""
+    if placement.is_sharded(leaf):
+        leaf = placement.gather(leaf, "cpu")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu").contiguous()
         name = str(t.dtype).removeprefix("torch.")
-        data = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        data = memoryview(t.reshape(-1).view(torch.uint8).numpy())
         shape = list(t.shape)
     else:
         a = np.ascontiguousarray(leaf)
@@ -213,22 +238,38 @@ def _tensor(rec: Mapping) -> torch.Tensor:
 
 
 def save_checkpoint(path: str, tree: Any, step: int = 0) -> None:
-    """Write `tree` (tensors on any device, or numpy arrays) and `step`
-    to `path` atomically: a ".tmp" file, then `os.replace`."""
-    arrays = {k: _record(v) for k, v in _flatten(tree).items()}
+    """Write `tree` (tensors on any device, numpy arrays, or placed
+    tensors, each gathered) and `step` to `path` atomically: a ".tmp"
+    file, then `os.replace`. The leaves are written one at a time, in
+    the bytes ``msgpack.packb({"step": step, "arrays": records})`` gives."""
+    leaves = _flatten(tree)
     tmp = path + ".tmp"
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    chunks: list = []
-    _pack({"step": int(step), "arrays": arrays}, chunks)
+    head: list = [_map_header(2)]
+    for obj in ("step", int(step), "arrays"):
+        _pack(obj, head)
+    head.append(_map_header(len(leaves)))
     with open(tmp, "wb") as f:
-        for chunk in chunks:
-            f.write(chunk)
+        f.write(b"".join(head))
+        for key, leaf in leaves.items():
+            chunks: list = []
+            _pack(key, chunks)
+            _pack(_record(leaf), chunks)
+            for chunk in chunks:
+                f.write(chunk)
+            del chunks
     os.replace(tmp, path)
 
 
 def _read(path: str) -> Tuple[Dict[str, Mapping], int]:
+    """The file's records, each record's data a view of the file mapped
+    into memory (read as a leaf is built, one at a time), and its step."""
     with open(path, "rb") as f:
-        payload = unpackb(f.read())
+        mapped = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+    buf = memoryview(mapped)
+    payload, end = _unpack(buf, 0, views=True)
+    if end != len(buf):
+        raise ValueError(f"{len(buf) - end} trailing bytes after the object")
     return payload["arrays"], payload["step"]
 
 
@@ -249,9 +290,13 @@ def read_tree(path: str) -> Tuple[Dict, int]:
 
 def load_checkpoint(path: str, like: Any):
     """Restore into the structure of `like` (nested dicts / lists /
-    tuples of tensors or arrays): each leaf becomes a tensor of the
-    file's dtype on the like-leaf's device (the CPU for arrays), its
-    shape checked against the leaf's. Returns (tree, step)."""
+    tuples of tensors, arrays or placed tensors): each leaf becomes a
+    tensor of the file's dtype on the like-leaf's device (the CPU for
+    arrays), its shape checked against the leaf's (a placed leaf's global
+    shape). A placed like-leaf gives a placed leaf: the file's array
+    `shard`ed by the like-leaf's sharding on its mesh, each block taking
+    its like-block's `requires_grad`, so that a file saved on one mesh
+    (or unplaced) loads onto any other. Returns (tree, step)."""
     arrays, step = _read(path)
 
     def build(node, prefix):
@@ -263,6 +308,11 @@ def load_checkpoint(path: str, like: Any):
             if tuple(t.shape) != tuple(node.shape):
                 raise ValueError(f"{prefix}: shape {tuple(t.shape)} in the "
                                  f"file, expected {tuple(node.shape)}")
+            if placement.is_sharded(node):
+                st = placement.shard(t, node.sharding)
+                for b, want in zip(st.locals, node.locals):
+                    b.requires_grad_(want.requires_grad)
+                return st
             dev = node.device if isinstance(node, torch.Tensor) else "cpu"
             return t.to(dev)
         built = {k: build(v, f"{prefix}/{k}" if prefix else k)

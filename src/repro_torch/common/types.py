@@ -1,9 +1,12 @@
-"""Config dataclasses of the LM substrate and the trainer (the port of
+"""Config dataclasses of the LM substrate, the trainer, the production
+mesh and the hardware of the roofline (the port of
 `repro.common.types`).
 
 Frozen dataclasses, so configs are hashable and compare by value. The
-mesh and TPU hardware configs of the JAX package wait for the sharding
-and tooling slices (ROADMAP A7/A11).
+reference's `HardwareConfig` describes a TPU v5e (`TPU_V5E`); the port
+keeps its fields, names the link and the on-chip memory for what they
+are on an NVIDIA H100, and has one instance, `H100_SXM`, with NVIDIA's
+data-sheet figures. `TPU_V5E` is not ported: its numbers are a TPU's.
 """
 from __future__ import annotations
 
@@ -167,3 +170,48 @@ class TrainConfig:
     schedule: str = "cosine"             # cosine | linear | constant
     remat: bool = True
     moment_dtype: str = "float32"        # bf16 for the >100B dry-runs
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The production mesh: one 16 x 16 ("data", "model") slice, or two
+    of them on a leading "pod" axis (`launch.mesh.make_production_mesh`)."""
+    multi_pod: bool = False
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (2, 16, 16) if self.multi_pod else (16, 16)
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        return (("pod", "data", "model") if self.multi_pod
+                else ("data", "model"))
+
+
+@dataclass(frozen=True)
+class HardwareConfig:
+    """Per-device constants of the roofline (`launch.roofline`): peak
+    dense FLOP/s in bf16 (tensor cores) and in f32 (outside them), the
+    memory's rate and size, the rate of one device's link to its peers
+    one way (the reference's `ici_bw`), and the on-chip memory a kernel
+    tiles into (the reference's `vmem_bytes`). On the H100 the link is
+    NVLink, which joins the 8 GPUs of one node: a "model" axis of 16
+    spans two nodes, joined by a slower network, so there the collective
+    term of the roofline is a lower bound."""
+    name: str
+    peak_flops: float                    # bf16 dense FLOP/s per device
+    peak_flops_f32: float                # f32 FLOP/s outside the tensor cores
+    hbm_bw: float                        # bytes/s per device
+    nvlink_bw: float                     # bytes/s per device, one way
+    hbm_bytes: float                     # capacity per device
+    smem_bytes: float                    # shared memory per SM
+
+
+# NVIDIA H100 SXM5 80 GB, data-sheet figures at the 700 W limit: 989e12
+# bf16 FLOP/s dense, 67e12 f32 FLOP/s, HBM3 at 3.35e12 bytes/s, NVLink 4
+# at 900e9 bytes/s both ways (450e9 one way), 228 KiB of shared memory
+# per SM
+H100_SXM = HardwareConfig(name="h100_sxm", peak_flops=989e12,
+                          peak_flops_f32=67e12, hbm_bw=3.35e12,
+                          nvlink_bw=450e9, hbm_bytes=80e9,
+                          smem_bytes=228 * 2**10)

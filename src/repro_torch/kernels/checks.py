@@ -1,7 +1,9 @@
 """Argument checks shared by the kernel wrappers.
 
 A wrapper takes its kernel's plain PyTorch version only when every tensor
-lies on the CPU; on CUDA tensors it launches the kernel or raises. Mixed
+lies on the CPU; on CUDA tensors it launches the kernel or raises; on
+`meta` tensors (the dry run) a wrapper that has a `cost` returns an empty
+output of the kernel's shape and hands the cost over. Mixed
 devices, wrong dtypes, shapes or strides raise `ValueError` before any
 pointer reaches native code. A kernel without a backward refuses inputs
 that require grad while grad mode is on (`refuse_grad`), on the CPU too,
@@ -14,14 +16,16 @@ from typing import Optional, Sequence
 import torch
 
 
-def kernel_device(**tensors: torch.Tensor) -> torch.device:
-    """The one device all `tensors` live on; raises on a mix."""
+def kernel_device(meta: bool = False, **tensors: torch.Tensor
+                  ) -> torch.device:
+    """The one device all `tensors` live on; raises on a mix, and on
+    `meta` unless `meta` (a wrapper with a `cost`)."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError("kernel operands on several devices: " + ", ".join(
             f"{k}={t.device}" for k, t in tensors.items()))
     dev = devices.pop()
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda") + (("meta",) if meta else ()):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

@@ -10,9 +10,10 @@ HEAD_DIMS = {"float32": (32, 64, 128, 256), "bfloat16": (64, 128, 256)}
 # in bf16, 64 and the smoke configs' 32 in f32), none with the soft-cap
 OFFSET_HEAD_DIMS = {"float32": (32, 64), "bfloat16": (64, 128)}
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    cost, flash_attention)
 from repro_torch.kernels.flash_attention.ops import gqa_flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import ref_attention  # noqa: E402
 
-__all__ = ["BQ", "BK", "HEAD_DIMS", "OFFSET_HEAD_DIMS", "flash_attention", "gqa_flash_attention",
-           "ref_attention"]
+__all__ = ["BQ", "BK", "HEAD_DIMS", "OFFSET_HEAD_DIMS", "cost", "flash_attention",
+           "gqa_flash_attention", "ref_attention"]

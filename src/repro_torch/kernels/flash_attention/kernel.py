@@ -5,9 +5,16 @@ TPU kernel). It takes the model's (batch, seq, heads, head_dim) layout
 with fewer key/value heads than query heads (GQA/MQA) as they are: the
 kernel reads key/value head h // (H / KV) for query head h. The JAX
 kernel's (BH, S, hd) layout is the case H = KV = 1.
+
+On `meta` inputs (the dry run, `repro_torch.launch.dryrun`) the wrapper
+makes its checks and returns an empty output of the kernel's shape and
+dtype, handing the kernel's `cost` to the running
+`launch.cost_analysis.analyze`: shape inference, as a `torch.library`
+fake would give, not a fallback.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -16,6 +23,41 @@ from repro_torch.kernels.checks import (check, kernel_device,
 from repro_torch.kernels.flash_attention import (BK, BQ, HEAD_DIMS,
                                                  OFFSET_HEAD_DIMS)
 from repro_torch.kernels.flash_attention.ref import ref_attention
+from repro_torch.launch import cost_analysis
+
+
+def pairs(Sq: int, Sk: int, *, causal: bool = True, window: int = 0,
+          kv_len=None, q_offset=None) -> int:
+    """The (query, key) pairs a row of heads attends: under the causal
+    band (query i at position i + q_offset sees keys j <= that position,
+    and within `window` of it when window > 0) and the key bound (keys
+    j < kv_len); every key below the bound when not causal."""
+    kv_len = Sk if kv_len is None else int(kv_len)
+    if not causal:
+        return Sq * kv_len
+    pos = np.arange(Sq, dtype=np.int64) + int(q_offset or 0)
+    hi = np.minimum(pos, kv_len - 1)
+    lo = np.maximum(pos - window + 1, 0) if window > 0 else 0
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool = True, window: int = 0, softcap: float = 0.0,
+         kv_len=None, q_offset=None):
+    """(flops, bytes) of one call with these arguments: 4·B·H·hd flops
+    for each (query, key) pair under the mask (`pairs`: Q K^T and P V,
+    2 flops a multiply-add each), and q read and the output written once
+    with the keys and values that the rows reach read once (causal: up to
+    the last row's position; the key bound caps them)."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    n = pairs(Sq, Sk, causal=causal, window=window, kv_len=kv_len,
+              q_offset=q_offset)
+    reach = Sk if kv_len is None else int(kv_len)
+    if causal:
+        reach = min(reach, int(q_offset or 0) + Sq)
+    nbytes = (2 * B * Sq * H * hd + 2 * B * reach * KV * hd) * q.element_size()
+    return 4 * B * H * n * hd, nbytes
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -44,7 +86,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Neither falls back to the other: a failed launch raises. The kernel
     has no backward: with grad mode on, an input that requires grad
     raises (training goes through `repro_torch.nn.attention._sdpa`)."""
-    dev = kernel_device(q=q, k=k, v=v)
+    dev = kernel_device(meta=True, q=q, k=k, v=v)
     refuse_grad("flash_attention", q=q, k=k, v=v)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -72,6 +114,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     window, softcap = int(window), float(softcap)
     if not softcap >= 0.0:
         raise ValueError(f"softcap {softcap}: expected >= 0 (0: no cap)")
+    if dev.type == "meta":
+        cost_analysis.kernel_flops(cost(
+            q, k, v, causal=causal, window=window, kv_len=kv_len,
+            q_offset=q_offset)[0])
+        return torch.empty_like(q)
     if dev.type == "cpu":
         return ref_attention(q, k, v, causal=causal, window=window,
                              softcap=softcap, kv_len=kv_len,

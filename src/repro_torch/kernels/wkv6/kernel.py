@@ -6,6 +6,11 @@ serving prefill stores in its cache (the JAX layer takes it from
 `repro.nn.rwkv._wkv_chunked`). The kernel reads its operands through
 strides, so the model's (B, T, H, hd) layout goes in without a copy
 (`launch_heads`, for `ops.wkv6_heads`).
+
+On `meta` inputs (the dry run, `repro_torch.launch.dryrun`) both make
+their checks and return empty outputs of the kernel's shapes and dtypes,
+handing the kernel's `cost` to the running
+`launch.cost_analysis.analyze`: shape inference, not a fallback.
 """
 from __future__ import annotations
 
@@ -16,6 +21,26 @@ from repro_torch.kernels.checks import (check, kernel_device,
                                         refuse_grad, stream_of)
 from repro_torch.kernels.wkv6 import CHUNK, HEAD_DIMS
 from repro_torch.kernels.wkv6.ref import ref_wkv6
+from repro_torch.launch import cost_analysis
+
+
+def cost(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         logw: torch.Tensor, u: torch.Tensor):
+    """(flops, bytes) of one call on r/k/v/logw (BH, T, hd) as `wkv6`
+    takes them or (B, T, H, hd) as `launch_heads` does: per (batch row,
+    head) and chunk of CHUNK steps, the intra-chunk products (4·C²·hd),
+    the state's read and update (4·C·hd²) and the elementwise decay terms
+    (10·C·hd); r, k, v, logw read and the output written once (f32), u
+    read once per (batch row, head) and the final state written once."""
+    if r.dim() == 4:
+        B, T, H, hd = r.shape
+        BH = B * H
+    else:
+        BH, T, hd = r.shape
+    C = CHUNK
+    flops = BH * -(-T // C) * (4 * C * C * hd + 4 * C * hd * hd
+                               + 10 * C * hd)
+    return flops, (5 * BH * T * hd + BH * hd + BH * hd * hd) * 4
 
 
 def _launch(r, k, v, logw, u, B: int, H: int, T: int, hd: int,
@@ -28,6 +53,9 @@ def _launch(r, k, v, logw, u, B: int, H: int, T: int, hd: int,
     dev = r.device
     out = torch.empty_like(r)
     state = torch.empty((B * H, hd, hd), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        cost_analysis.kernel_flops(cost(r, k, v, logw, u)[0])
+        return out, state
     sB, sT, sH = strides
     err = build.library().wkv6_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
@@ -45,7 +73,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hd) f32, state (BH, hd, hd) f32), state[b, c, d] the key-c value-d
     entry after the last step. No backward: inputs that require grad
     raise while grad mode is on (`checks.refuse_grad`)."""
-    dev = kernel_device(r=r, k=k, v=v, logw=logw, u=u)
+    dev = kernel_device(meta=True, r=r, k=k, v=v, logw=logw, u=u)
     refuse_grad("wkv6", r=r, k=k, v=v, logw=logw, u=u)
     BH, T, hd = r.shape
     if T % CHUNK:
@@ -60,17 +88,18 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def launch_heads(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  logw: torch.Tensor, u: torch.Tensor):
-    """The kernel on the model's layout, CUDA tensors only: r/k/v/logw
-    (B, T, H, hd) f32 contiguous, any T (the last chunk's missing steps
-    count as state-neutral); u (H, hd) f32. Returns (out (B, T, H, hd),
-    state (B, H, hd, hd))."""
-    dev = kernel_device(r=r, k=k, v=v, logw=logw, u=u)
+    """The kernel on the model's layout, CUDA (or `meta`) tensors only:
+    r/k/v/logw (B, T, H, hd) f32 contiguous, any T (the last chunk's
+    missing steps count as state-neutral); u (H, hd) f32. Returns (out
+    (B, T, H, hd), state (B, H, hd, hd))."""
+    dev = kernel_device(meta=True, r=r, k=k, v=v, logw=logw, u=u)
     refuse_grad("wkv6", r=r, k=k, v=v, logw=logw, u=u)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"launch_heads runs the CUDA kernel; got {dev}")
     B, T, H, hd = r.shape
     for name, t in (("r", r), ("k", k), ("v", v), ("logw", logw)):
-        check(name, t, torch.float32, (B, T, H, hd), aligned=True)
+        check(name, t, torch.float32, (B, T, H, hd),
+              aligned=dev.type == "cuda")
     check("u", u, torch.float32, (H, hd))
     out, state = _launch(r, k, v, logw, u, B, H, T, hd,
                          (T * H * hd, H * hd, hd), 0)

@@ -1,5 +1,4 @@
-"""Device meshes of the port (`repro.launch.mesh`, without the TPU pods'
-`make_production_mesh`).
+"""Device meshes of the port (`repro.launch.mesh`).
 
 The port runs sharded work from ONE controlling process: the process packs
 every shard, holds an ordered list of devices, and moves blocks between
@@ -13,7 +12,9 @@ between shards are peer copies. A mesh may also repeat a device — D shards
 on one card (``devices=("cuda:0",) * D``) or on the CPU (``("cpu",) * D``)
 — which runs the same code and the same exchanges, and so shows
 correctness and the exchange's cost, not the capacity of D cards. Such a
-mesh is only built from an explicit ``devices=``.
+mesh is only built from an explicit ``devices=``. So is a mesh of `meta`
+devices (``("meta",) * 256``): the production mesh of the dry run
+(`launch.dryrun`), whose blocks have shapes and no memory.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.common import MeshConfig
 from repro_torch.device import resolve_device
 
 
@@ -70,6 +72,26 @@ def make_mesh(devices: Sequence, shape: Dict[str, int]) -> DeviceMesh:
                              f"{torch.cuda.device_count()} GPUs exist")
     return DeviceMesh(devs, tuple(shape), tuple(int(v)
                                                 for v in shape.values()))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Optional[Sequence] = None) -> DeviceMesh:
+    """16 x 16 = 256 positions ("data", "model"), or 2 x 16 x 16 = 512
+    ("pod", "data", "model") with `multi_pod`: "data" carries the batch
+    and FSDP, "model" the tensor parallelism, "pod" pure data parallelism
+    (the logical rules put "batch" over ("pod", "data")). Without
+    `devices`: the first 256 or 512 GPUs, raising when fewer exist; with
+    them (``("meta",) * 256`` for the dry run): those devices."""
+    mc = MeshConfig(multi_pod=multi_pod)
+    n = math.prod(mc.shape)
+    if devices is None:
+        avail = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n > avail:
+            raise ValueError(f"make_production_mesh(multi_pod={multi_pod}): "
+                             f"{n} GPUs needed, only {avail} available "
+                             f"(pass devices=, e.g. ('meta',) * {n})")
+        devices = [f"cuda:{i}" for i in range(n)]
+    return make_mesh(devices, dict(zip(mc.axes, mc.shape)))
 
 
 def make_debug_mesh(n_devices: int = 1, *,

@@ -462,6 +462,14 @@ def prefill_step(cfg, params, tokens, *, frontend=None,
 
 
 # ------------------------------------------------------------------- decode
+def _decode_len(cfg, shape_seq: int) -> int:
+    """KV length actually materialized for a decode shape. Full-attention
+    configs serving long contexts switch to the sliding-window variant."""
+    if shape_seq > 32_768 and cfg.supports_long_context == "window":
+        return cfg.long_context_window
+    return shape_seq
+
+
 def init_cache(cfg, batch: int, length: int, device="cuda") -> List[dict]:
     """One dict of zeroed buffers per layer (`blocks.init_layer_cache`).
     Inside `use_mesh(mesh)` (`device` then being the mesh's first device)

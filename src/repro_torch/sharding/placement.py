@@ -31,8 +31,11 @@ axis, so that two runs give the same bits:
 
 Inside `use_mesh` each collective adds to the scope's `exchange` counter
 the blocks it copied from one position to another and their bytes, and
-runs under a ``exchange.<op>`` profiler range. `relayout` composes them;
-`einsum` runs a product position by position and all-reduces a
+runs under a ``exchange.<op>`` profiler range. Under
+`launch.cost_analysis.analyze` each also counts as one op, whose result
+blocks the receiving positions get (the reference's per-device
+collective bytes), not as the copies and sums it runs. `relayout`
+composes them; `einsum` runs a product position by position and all-reduces a
 contracted dim that is sharded (Megatron's row-parallel product).
 
 `shard_params`, `shard_cache` and `shard_inputs` place a model, a decode
@@ -62,12 +65,14 @@ the logical tensor (a norm) counts once.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.launch import cost_analysis
 from repro_torch.sharding.logical import (P, NamedSharding, axis_product,
                                           axis_sizes, current_mesh,
                                           current_scope, entry_axes, fit_spec,
@@ -262,15 +267,16 @@ def gather(st: ShardedTensor, device=None) -> torch.Tensor:
     """The global tensor on `device` (default: the mesh's first device),
     each distinct block copied once."""
     dev = st.mesh.devices[0] if device is None else torch.device(device)
-    out = torch.empty(st.shape, dtype=st.dtype, device=dev)
     coords = _coords(st.mesh)
     copies = nbytes = 0
-    for i in distinct(st):
-        out[st.sharding.index(coords[i], st.shape)] = st.locals[i].to(dev)
-        if i:
-            copies += 1
-            nbytes += _nbytes(st.locals[i])
-    _record("gather", copies, nbytes)
+    with cost_analysis.one_op():
+        out = torch.empty(st.shape, dtype=st.dtype, device=dev)
+        for i in distinct(st):
+            out[st.sharding.index(coords[i], st.shape)] = st.locals[i].to(dev)
+            if i:
+                copies += 1
+                nbytes += _nbytes(st.locals[i])
+    _record("gather", copies, nbytes, [out] if len(st.locals) > 1 else [])
     return out
 
 
@@ -313,10 +319,25 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _record(op: str, copies: int, nbytes: int) -> None:
+def _record(op: str, copies: int, nbytes: int,
+            received: Sequence[torch.Tensor] = ()) -> None:
+    """A collective's copies from one position to another and their bytes
+    (the scope's `exchange`), and the result blocks its positions
+    received (`cost_analysis.collective`)."""
     scope = current_scope()
     if scope is not None and copies:
         scope.record(op, copies, nbytes)
+    if received:
+        cost_analysis.collective(op, sum(_nbytes(t) for t in received))
+
+
+@contextlib.contextmanager
+def _exchange(op: str):
+    """The context of a collective's copies: a profiler range, and one op
+    for `cost_analysis`."""
+    with torch.profiler.record_function(f"exchange.{op}"), \
+            cost_analysis.one_op():
+        yield
 
 
 def _groups(mesh, axes) -> List[List[int]]:
@@ -360,7 +381,7 @@ def _sum_over(st: ShardedTensor, axes: Sequence[str], op: str
         return st
     devs = st.mesh.devices
     out = [None] * len(st.locals)
-    with torch.profiler.record_function(f"exchange.{op}"):
+    with _exchange(op):
         for group in _groups(st.mesh, axes):
             for i in group:
                 acc = st.locals[group[0]].to(devs[i], torch.float32,
@@ -369,7 +390,7 @@ def _sum_over(st: ShardedTensor, axes: Sequence[str], op: str
                     acc.add_(st.locals[j].to(devs[i]))
                 out[i] = acc.to(st.dtype)
     _record(op, len(st.locals) * (n - 1),
-            len(st.locals) * (n - 1) * _nbytes(st.locals[0]))
+            len(st.locals) * (n - 1) * _nbytes(st.locals[0]), out)
     return dataclasses.replace(st, locals=tuple(out))
 
 
@@ -420,7 +441,7 @@ def reduce_scatter(st: ShardedTensor, axis: str, dim: int
     if n == 1:
         return wrap(st.locals, entries, st.mesh)
     out = [None] * len(st.locals)
-    with torch.profiler.record_function("exchange.reduce_scatter"):
+    with _exchange("reduce_scatter"):
         for group in _groups(st.mesh, axis):
             parts = [st.locals[j].chunk(n, dim) for j in group]
             for r, i in enumerate(group):
@@ -430,7 +451,7 @@ def reduce_scatter(st: ShardedTensor, axis: str, dim: int
                     acc.add_(p[r].to(dev))
                 out[i] = acc.to(st.dtype)
     _record("reduce_scatter", len(st.locals) * (n - 1),
-            len(st.locals) * (n - 1) * _nbytes(st.locals[0]) // n)
+            len(st.locals) * (n - 1) * _nbytes(st.locals[0]) // n, out)
     return wrap(out, entries, st.mesh)
 
 
@@ -446,14 +467,14 @@ def all_gather(st: ShardedTensor, axis: str) -> ShardedTensor:
     if n == 1:
         return wrap(st.locals, entries, st.mesh)
     out = [None] * len(st.locals)
-    with torch.profiler.record_function("exchange.all_gather"):
+    with _exchange("all_gather"):
         for group in _groups(st.mesh, axis):
             for i in group:
                 dev = st.mesh.devices[i]
                 out[i] = torch.cat([st.locals[j].to(dev) for j in group],
                                    dim)
     _record("all_gather", len(st.locals) * (n - 1),
-            len(st.locals) * (n - 1) * _nbytes(st.locals[0]))
+            len(st.locals) * (n - 1) * _nbytes(st.locals[0]), out)
     return wrap(out, entries, st.mesh)
 
 
@@ -475,14 +496,14 @@ def all_to_all(st: ShardedTensor, axis: str, to_dim: int) -> ShardedTensor:
     if n == 1:
         return wrap(st.locals, entries, st.mesh)
     out = [None] * len(st.locals)
-    with torch.profiler.record_function("exchange.all_to_all"):
+    with _exchange("all_to_all"):
         for group in _groups(st.mesh, axis):
             parts = [st.locals[j].chunk(n, to_dim) for j in group]
             for r, i in enumerate(group):
                 dev = st.mesh.devices[i]
                 out[i] = torch.cat([p[r].to(dev) for p in parts], dim)
     _record("all_to_all", len(st.locals) * (n - 1),
-            len(st.locals) * (n - 1) * _nbytes(st.locals[0]) // n)
+            len(st.locals) * (n - 1) * _nbytes(st.locals[0]) // n, out)
     return wrap(out, entries, st.mesh)
 
 
@@ -505,7 +526,7 @@ def columns_to_pairs(st: ShardedTensor, width: int) -> ShardedTensor:
     m = -(-P_ // n)
     out = [None] * len(st.locals)
     copies = nbytes = 0
-    with torch.profiler.record_function("exchange.columns_to_pairs"):
+    with _exchange("columns_to_pairs"):
         for group in _groups(st.mesh, axis):
             for r, i in enumerate(group):
                 dev = st.mesh.devices[i]
@@ -530,7 +551,7 @@ def columns_to_pairs(st: ShardedTensor, width: int) -> ShardedTensor:
                     (0, T, width))
                 out[i] = torch.nn.functional.pad(
                     blk, (0, 0, 0, 0, 0, m - blk.shape[0]))[None].contiguous()
-    _record("columns_to_pairs", copies, nbytes)
+    _record("columns_to_pairs", copies, nbytes, out)
     return wrap(out, (st.spec[0], axis, None, None), st.mesh)
 
 
@@ -544,7 +565,7 @@ def pairs_to_columns(pt: ShardedTensor, like: ShardedTensor) -> ShardedTensor:
     H = like.shape[2] // width
     out = [None] * len(pt.locals)
     copies = nbytes = 0
-    with torch.profiler.record_function("exchange.pairs_to_columns"):
+    with _exchange("pairs_to_columns"):
         for group in _groups(pt.mesh, axis):
             for r, i in enumerate(group):
                 dev = pt.mesh.devices[i]
@@ -566,7 +587,7 @@ def pairs_to_columns(pt: ShardedTensor, like: ShardedTensor) -> ShardedTensor:
                     off = r * c - h0 * width
                     rows.append(cols[:, off:off + c])
                 out[i] = torch.stack(rows)
-    _record("pairs_to_columns", copies, nbytes)
+    _record("pairs_to_columns", copies, nbytes, out)
     return wrap(out, like.spec, like.mesh)
 
 
@@ -589,19 +610,22 @@ def _split(st: ShardedTensor, axis: str, dim: int) -> ShardedTensor:
 
 
 def relayout(st: ShardedTensor, target: Sequence) -> ShardedTensor:
-    """Re-lay `st` out by `target` (a spec of single axes), one mesh axis
-    at a time: an axis leaving a dim is all-gathered, one moving between
-    dims goes all-to-all, and one arriving on a replicated dim is sliced
-    in place."""
+    """Re-lay `st` out by `target`, one mesh axis at a time: an axis
+    leaving a dim is all-gathered, one moving between dims goes
+    all-to-all, and one arriving on a replicated dim is sliced in place.
+    A dim of several axes (the batch over ("pod", "data")) must keep its
+    entry; only single axes move."""
     target = _padded(target, st.ndim)
     if list(st.spec) == target:
         return st
-    for e in (*st.spec, *target):
-        if isinstance(e, tuple):
+    for a, b in zip(st.spec, target):
+        if a != b and (isinstance(a, tuple) or isinstance(b, tuple)):
             raise NotImplementedError(f"relayout of multi-axis dims "
                                       f"({st.spec} -> {target})")
-    src = {e: d for d, e in enumerate(st.spec) if e is not None}
-    dst = {e: d for d, e in enumerate(target) if e is not None}
+    src = {e: d for d, e in enumerate(st.spec)
+           if e is not None and not isinstance(e, tuple)}
+    dst = {e: d for d, e in enumerate(target)
+           if e is not None and not isinstance(e, tuple)}
     for a, d in src.items():                      # leave
         if a not in dst:
             st = all_gather(st, a)

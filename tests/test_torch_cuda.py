@@ -1642,3 +1642,94 @@ def test_placed_training_step_on_card(cuda, arch, meshes):
             for n, w in want.items():
                 err = float((got[n] - w).norm())
                 assert err <= 1e-4 * float(w.norm()) + 1e-12, (arch, n, err)
+
+
+@pytest.mark.parametrize("arch", ["granite-34b", "dbrx-132b", "rwkv6-3b",
+                                  "whisper-small"])
+def test_placed_checkpoint_on_card(cuda, arch, tmp_path):
+    """A smoke model placed trainable on a (1, 2) mesh of the card: two
+    `build_train_step` steps against one step, a save, a load into a
+    fresh placement and the second step: every block of the parameters
+    and moments, the count and the second loss bitwise equal; the file
+    loaded onto (2, 2) of the card gathers to the file's arrays bit for
+    bit, and loaded unplaced onto the CPU equals the gathered state."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import ARCHS, smoke
+    from repro_torch.data import synthetic_stream
+    from repro_torch.launch.dryrun import build_train_step
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import placement as pl
+    from repro_torch.sharding import use_mesh
+    cfg = (_adaptive_granite() if arch == "granite-34b"
+           else smoke(ARCHS[arch]))
+    stream = synthetic_stream(0, 4, 32, cfg.vocab_size, cfg)
+    batches = [lm_batch(cfg, next(stream), cuda) for _ in range(2)]
+    step, tc = build_train_step(cfg, learning_rate=3e-3, warmup_steps=0,
+                                total_steps=10)
+
+    def mesh_of(data, model_ax):
+        return make_mesh((cuda,) * (data * model_ax),
+                         {"data": data, "model": model_ax})
+    mesh = mesh_of(1, 2)
+
+    def placed(on):
+        params = pl.shard_params(_soft_model(cfg, cuda), on, trainable=True)
+        return {"params": params, "opt": adamw_init(params, tc)}
+
+    def run(state, steps):
+        with use_mesh(mesh):
+            return [float(step(state["params"], state["opt"],
+                               batches[i])[2]["loss"]) for i in steps]
+
+    def leaves(state):
+        return [(f"{k}.{p}", st) for k, tree in (
+            ("params", state["params"]), ("mu", state["opt"]["mu"]),
+            ("nu", state["opt"]["nu"])) for p, st in pl.named_leaves(tree)]
+    whole = placed(mesh)
+    want_losses = run(whole, range(2))
+    cut = placed(mesh)
+    run(cut, range(1))
+    path = str(tmp_path / "state.ckpt")
+    save_checkpoint(path, cut, 1)
+    got, at = load_checkpoint(path, placed(mesh))
+    assert at == 1 and run(got, range(1, 2)) == want_losses[1:]
+    assert torch.equal(got["opt"]["count"], whole["opt"]["count"])
+    for (n, a), (_, b) in zip(leaves(whole), leaves(got)):
+        assert a.spec == b.spec and all(
+            torch.equal(x, y) for x, y in zip(a.locals, b.locals)), n
+    saved = dict(leaves(cut))
+    moved, _ = load_checkpoint(path, placed(mesh_of(2, 2)))
+    plain, _ = load_checkpoint(path, _unplaced_like(cut))
+    for n, st in leaves(moved):
+        want = pl.gather(saved[n], "cpu")
+        assert torch.equal(pl.gather(st, "cpu"), want), n
+        assert st.locals[0].requires_grad == n.startswith("params."), n
+    for n, t in dict(_unplaced_leaves(plain)).items():
+        assert t.device.type == "cpu" and torch.equal(
+            t, pl.gather(saved[n], "cpu")), n
+
+
+def _unplaced_like(state):
+    """The unplaced CPU tree of a placed training state's shapes."""
+    from repro_torch.sharding import placement as pl
+
+    def like(t):
+        if isinstance(t, dict):
+            return {k: like(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [like(v) for v in t]
+        if pl.is_sharded(t):
+            return torch.empty(t.shape, dtype=t.dtype)
+        return t.cpu()
+    return like(state)
+
+
+def _unplaced_leaves(state):
+    """(path, tensor) of an unplaced training state's parameters and
+    moments, named as `test_placed_checkpoint_on_card` names them."""
+    from repro_torch.sharding import placement as pl
+    return [(f"{k}.{p}", t) for k, tree in (
+        ("params", state["params"]), ("mu", state["opt"]["mu"]),
+        ("nu", state["opt"]["nu"])) for p, t in pl.named_leaves(tree)]
