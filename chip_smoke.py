@@ -180,15 +180,15 @@ fails (non-zero exit, no result line) on any failed check:
    mistral-large-123b (88 layers) at model 1, 4 and 8, from the fitted
    shard shapes of `abstract_params`; then mistral-large-123b (d 12288,
    96 / 8 heads of 128, d_ff 28672, vocab 32768) at full width with its
-   depth cut to 8 of 88 layers on the meshes (1, 1), (1, 2), (1, 4) and
+   depth cut to 4 of 88 layers on the meshes (1, 1), (1, 2), (1, 4) and
    (2, 2), gemma-7b whole (28 layers, 16 heads of 256, tied embedding,
    GeGLU) on (1, 1) and (1, 2), and on (1, 1), (1, 2) and (2, 2)
-   dbrx-132b (6 of 40 layers) and grok-1-314b (4 of 64) with their
-   experts FSDP over "data", rwkv6-3b (12 of 32 layers; also on (1,
+   dbrx-132b (3 of 40 layers) and grok-1-314b (4 of 64) with their
+   experts FSDP over "data", rwkv6-3b (6 of 32 layers; also on (1,
    16), where 2.5 of its 40 heads lie on a position: the time mix on
    (batch row, head) pairs, the state over its key dim) and
-   recurrentgemma-9b (14 of 38), and
-   the frontend models llama-3.2-vision-11b (10 of 40 layers, 4 x 1600
+   recurrentgemma-9b (8 of 38), and
+   the frontend models llama-3.2-vision-11b (5 of 40 layers, 4 x 1600
    image rows) and whisper-small whole (16 x 224 tokens, 16 x 1500
    frames; its odd vocab puts "model" on d of the embedding and the
    head; also on (1, 8), which its 12 heads do not divide: "model" on d
@@ -254,7 +254,24 @@ fails (non-zero exit, no result line) on any failed check:
    A11): `launch.dryrun.lower_combo` on `meta` devices for granite-34b's
    training and mistral-large-123b's prefill at the sizes above, on (1,
    1) and (1, 4), each record's data-sheet roofline terms beside the
-   step or prefill ms and the device busy ms measured above.
+   step or prefill ms and the device busy ms measured above. Then a
+   batch that the data axes do not divide and the MoE over ("pod",
+   "data") (`batch_one_phase`, ROADMAP C.9, C.11, C.12), on meshes of
+   the card repeated against (1, 1): mistral-large-123b (4 of 88
+   layers) prefills one prompt of 8,192 tokens, replicated over "data",
+   into a cache of long_500k's 524,288 positions split over "data" on
+   its sequence and decodes 16 steps (the split-key combine); rwkv6-3b
+   (12 of 32) at batch 1 on (2, 2) in bf16 and f32, its state over its
+   key dim; dbrx-132b (2 of 40) with its batch of 4 over ("pod",
+   "data"): B4 at the 8,192-row shape against its plain version on its
+   first and last rows (`long_attention_check`), B5 by `wkv_check`, the
+   prefill and decode times, the traced step's device busy ms, the
+   exchange counted and traced, the caches' layouts, the logits and MoE
+   drops against (1, 1)'s. The serve phase's traced passes (pipeline
+   depth 2, and fused at depth 1) also give the stream `Memcpy HtoD`
+   ran on (the engine's copy stream), its device ms, the ms of it beside
+   kernels (`copy_overlap`) and the new shape keys of the steady-state
+   pass (`jit_stats`), which must be none.
 5. train (`train_phase`, last, so that nothing it leaves behind runs
    beside the LM timings): the paper's training procedure (`train_nai`,
    Inception Distillation, `DistillConfig()`'s 300/200/200 epochs) on the
@@ -320,7 +337,11 @@ twice what an H100 gave) of the (1, 1) mesh's (the row-parallel partial
 products round to bf16 before their f32 sums, and the gradient sync adds
 in another order); in f32 at smoke size each parameter and moment after
 the step within TRAIN_F32_REL (1e-4) relative L2 of (1, 1)'s on the card
-and of the CPU's; every copy of a block equal bit for bit.
+and of the CPU's; every copy of a block equal bit for bit. The batch-one
+and multi-pod meshes: bf16 logits within SHARDED_REL of (1, 1)'s (the
+split-key combine and the row-parallel sums round otherwise), f32 within
+F32_REL, argmax agreement at least BATCH_ONE_AGREE (bf16 rwkv6-3b only
+reports it), MoE drops within MOE_DROP_GAP.
 
 The second-to-last line is a JSON object {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.
@@ -862,18 +883,41 @@ def gnn_phases(torch, dev, kernels):
 
     # a separate traced pass per backend (after the counted ones): device
     # busy time = union of the intervals of the kernels and copies the
-    # profiler saw on the card, against the pass's wall time
+    # profiler saw on the card, against the pass's wall time; the
+    # host-to-device copies' stream and their overlap with kernels, also
+    # for fused at pipeline depth 1 (ROADMAP A5.3)
     from torch.profiler import ProfilerActivity, profile
-    for impl, eng in engines.items():
+    serial = NAIServingEngine(cfg, nai, heads, g, device=dev,
+                              mode="compiled", spmm_impl="fused",
+                              pipeline_depth=1, max_wait_s=10.0)
+    serve(serial, requests)                               # warm
+    traced = [(impl, 2, eng) for impl, eng in engines.items()]
+    traced.append(("fused", 1, serial))
+    for impl, depth, eng in traced:
+        keys = eng.jit_stats["compiles"]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, _, wall = serve(eng, requests)
         busy, idle, by_name = device_spans(prof, wall)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-        print(f"{impl} traced pass: busy {busy:.1f} ms of "
-              f"{1e3 * wall:.1f} ms wall (idle share {idle:.3f}); most "
-              f"device time: " + ", ".join(f"{k[:48]} {v:.1f} ms"
-                                           for k, v in top))
+        h2d = copy_overlap(prof)
+        print(f"{impl} traced pass (pipeline depth {depth}): busy "
+              f"{busy:.1f} ms of {1e3 * wall:.1f} ms wall (idle share "
+              f"{idle:.3f}); most device time: "
+              + ", ".join(f"{k[:48]} {v:.1f} ms" for k, v in top)
+              + f"; Memcpy HtoD {h2d['ms']:.2f} ms of device time, "
+              f"{h2d['copy_stream_ms']:.2f} ms of it on the copy stream "
+              f"(streams {h2d['streams']}; kernels on {h2d['kernel_streams']}"
+              f"), {h2d['overlap_ms']:.2f} ms of it beside kernels; new "
+              f"shape keys (jit_compiles) {eng.jit_stats['compiles'] - keys}"
+              f" of {eng.jit_cache_size()}")
+        check(eng.jit_stats["compiles"] == keys,
+              f"{impl} depth {depth}: the steady-state pass adds no shape "
+              f"key ({eng.jit_stats})")
+        check(h2d["copy_stream_ms"] > 0.5 * h2d["ms"],
+              f"{impl} depth {depth}: Memcpy HtoD runs on the copy stream "
+              f"({h2d})")
+    del serial
 
     dist = request_distances(cfg, nai, g, requests, nai.batch_size)
     near = within_margin(dist, nai.t_s)
@@ -1390,6 +1434,37 @@ def device_spans(prof, wall_s):
         reach = max(reach, hi)
         by_name[kname] = by_name.get(kname, 0.0) + (hi - lo) / 1e3
     return busy_us / 1e3, 1 - busy_us / 1e3 / (1e3 * wall_s), by_name
+
+
+def copy_overlap(prof):
+    """The host-to-device copies of a profiled window: their device ms,
+    the streams they ran on, the ms of them on a stream that runs no
+    kernel (the engine's copy stream), the streams the kernels ran on,
+    and the ms of the copies during which a kernel ran."""
+    from torch.autograd import DeviceType
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in ev if "HtoD" in e.name]
+    kern = [e for e in ev if "Memcpy" not in e.name
+            and "Memset" not in e.name]
+    kstreams = sorted({e.device_resource_id for e in kern})
+    spans, reach = [], -np.inf
+    for lo, hi in sorted((e.time_range.start, e.time_range.end)
+                         for e in kern):
+        if lo > reach:
+            spans.append([lo, hi])
+        else:
+            spans[-1][1] = max(spans[-1][1], hi)
+        reach = max(reach, hi)
+    overlap = sum(max(0.0, min(hi, e.time_range.end)
+                      - max(lo, e.time_range.start))
+                  for e in copies for lo, hi in spans)
+    return dict(
+        ms=sum(e.time_range.end - e.time_range.start for e in copies) / 1e3,
+        copy_stream_ms=sum(e.time_range.end - e.time_range.start
+                           for e in copies
+                           if e.device_resource_id not in kstreams) / 1e3,
+        streams=sorted({e.device_resource_id for e in copies}),
+        kernel_streams=kstreams, overlap_ms=overlap / 1e3)
 
 
 def sharded_phase(torch, dev, kernels, g, cfg, nai, heads, requests, near):
@@ -3734,19 +3809,22 @@ def adaptive_phase(torch, dev, kernels, smi_line):
     return launches["flash_attention"], lines
 
 
-SHARDED_LAYERS = {"mistral-large-123b": 8,    # of 88: 23.76 GB of bf16
-                  "dbrx-132b": 6,             # of 40 and 64, as in the MoE
-                  "grok-1-314b": 4,           # phases; the others whole
-                  # 12 of 32 and 14 of 38 (four repeats of its (rglru,
-                  # rglru, local) pattern and two rglru): whole, their
-                  # meshes took 37.9 s and 58.7 s of a run that must stay
-                  # under 1,050 s with the sharded training phase (~40 s)
-                  "rwkv6-3b": 12, "recurrentgemma-9b": 14,
-                  # 10 of 40: two repeats of its (attn x 4, xattn)
-                  # pattern; whole, its three meshes took 74.5 s of a run
-                  # that must stay under 1,050 s ("NVIDIA H100 80GB HBM3,
-                  # 700.00 W"), the traced steps 37.7 s of them
-                  "llama-3.2-vision-11b": 10,
+# each model's depth in the sharded phase, halved (mistral 8, dbrx 6,
+# rwkv6-3b 12, recurrentgemma-9b 14 and llama 10 layers before) when the
+# batch-one phase was added: the whole run had taken 1,416.6 s of its
+# 1,200 s on a slower host ("NVIDIA H100 80GB HBM3, 700.00 W"; the phases
+# before it 1,087.5 s on another), the sharded phase 302.3 s of it.
+# gemma-7b, whisper-small and deepseek-coder-33b keep theirs.
+SHARDED_LAYERS = {"mistral-large-123b": 4,    # of 88: 11.1 GB of bf16
+                  # 3 of 40; grok 4 of 64 as before (at 2 layers its
+                  # (1, 2) decode logits were 0.0133 from (1, 1)'s, over
+                  # the limit set at 4, where an H100 gave 0.00607)
+                  "dbrx-132b": 3, "grok-1-314b": 4,
+                  # 6 of 32; 8 of 38 (two repeats of its (rglru, rglru,
+                  # local) pattern and two rglru)
+                  "rwkv6-3b": 6, "recurrentgemma-9b": 8,
+                  # 5 of 40: one repeat of its (attn x 4, xattn) pattern
+                  "llama-3.2-vision-11b": 5,
                   # 2 of 62 at full width (d 7168, 56 / 8 heads of 128):
                   # 1.06 GB a layer and 0.92 GB of embedding and head in
                   # bf16, so that its meshes stay within the run's time
@@ -5211,6 +5289,298 @@ def dryrun_lines(measured, smi_line):
     return lines
 
 
+# ROADMAP C.9, C.11 and C.12 on the card: one sequence prefilled with its
+# inputs replicated over the data axes and decoded from a cache of
+# long_500k's 524,288 positions split over "data" (split-key decode),
+# rwkv6-3b's state split over its key and value dims, and an MoE model
+# with its batch over ("pod", "data"); each model at full width, its
+# depth cut (mistral 4 of 88 layers: 11.1 GB of bf16 weights and 8.6 GB
+# of cache at (1, 1), twice the weights at (2, 1) and (2, 2), where
+# every data position holds its copy; rwkv 12 of 32 and dbrx 2 of 40),
+# to keep the run within its time
+BATCH_ONE = (
+    dict(arch="mistral-large-123b", layers=4, batch=1, seq=8192,
+         length=524_288, n_dec=16,
+         meshes=({"data": 1, "model": 1}, {"data": 2, "model": 1},
+                 {"data": 2, "model": 2})),
+    dict(arch="rwkv6-3b", layers=12, batch=1, seq=2048, length=None,
+         n_dec=16, meshes=({"data": 1, "model": 1}, {"data": 2, "model": 2}),
+         f32=True),
+    dict(arch="dbrx-132b", layers=2, batch=4, seq=2048, length=None,
+         n_dec=16, meshes=({"data": 1, "model": 1},
+                           {"pod": 2, "data": 2, "model": 1})))
+# the argmax agreement with (1, 1) each batch-one and multi-pod mesh must
+# reach (bf16 rwkv6-3b only reports it: its rounding grows with depth,
+# 0.7353 at 12 layers in the sharded phase); the sharded phase's meshes
+# gave 0.9559-1 ("NVIDIA H100 80GB HBM3, 700.00 W")
+BATCH_ONE_AGREE = 0.9
+# rows of B4's check at the batch-one prefill's per-position shape: the
+# first and the last rows of 8,192 (the plain version's scores of all
+# rows would take 13 GB)
+LONG_ROWS = 1024
+
+
+def _axes_label(axes) -> str:
+    return "(" + ", ".join(f"{a} {n}" for a, n in axes.items()) + ")"
+
+
+def long_attention_check(torch, q, k, v, label):
+    """B4 at a long causal prefill's per-position shape (1, S, H, hd)
+    against its plain version on LONG_ROWS rows at each end (rows 0.. of
+    the keys up to them; the last rows with their query offset against
+    all S keys, which is what the causal mask lets them read), within
+    `attention_check`'s bf16 tolerance; the kernel and SDPA timed at the
+    whole shape. Returns the line."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     ref_attention)
+    S, n = q.shape[1], LONG_ROWS
+    out = flash_attention(q, k, v)
+    first = ref_attention(q[:, :n], k[:, :n], v[:, :n])
+    last = ref_attention(q[:, -n:], k, v, q_offset=S - n)
+    torch.cuda.synchronize()
+    err = max(float((out[:, :n].float() - first.float()).abs().max()),
+              float((out[:, -n:].float() - last.float()).abs().max()))
+    atol = 2.0 ** -8 * float(v.float().abs().max())
+    check(torch.allclose(out[:, :n].float(), first.float(), rtol=2.0 ** -7,
+                         atol=atol)
+          and torch.allclose(out[:, -n:].float(), last.float(),
+                             rtol=2.0 ** -7, atol=atol),
+          f"{label}: flash_attention vs plain on the first and last {n} "
+          f"rows, max abs err {err}")
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    ms = time_ms(torch, lambda: flash_attention(q, k, v), reps=5)
+    sdpa = time_ms(torch, lambda: torch.nn.functional.
+                   scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                enable_gqa=True), reps=5)
+    B_, _, H, hd = q.shape
+    flops = 4 * B_ * H * (S * (S + 1) // 2) * hd
+    b_ms, by = bound((2 * q.numel() + 2 * k.numel()) * q.element_size(),
+                     flops, PEAK_BF16_FLOP_S)
+    line = (f"{label}: B {B_}, S {S}, {H} q heads, {k.shape[2]} kv heads, "
+            f"hd {hd}, causal; max abs err vs plain on rows 0-{n - 1} and "
+            f"{S - n}-{S - 1} {err:.3g} (atol {atol:.3g}); kernel {ms:.4f} "
+            f"ms ({b_ms / ms:.1%} of its bound {b_ms:.4f} ms, {by}), SDPA "
+            f"{sdpa:.4f} ms")
+    print(line)
+    return line
+
+
+def _ex_text(d) -> str:
+    """A counted exchange: bytes and copies in all, then by op."""
+    return (f"{sum(v['bytes'] for v in d.values())} bytes in "
+            f"{sum(v['copies'] for v in d.values())} copies ("
+            + ", ".join(f"{k} {v['calls']} calls {v['bytes']} B"
+                        for k, v in sorted(d.items())) + ")")
+
+
+def _traced_text(ms) -> str:
+    return (", ".join(f"{k.split('.')[1]} {v:.4f}"
+                      for k, v in sorted(ms.items())) or "0") \
+        + f" (total {sum(ms.values()):.4f})"
+
+
+def placed_run(torch, dev, kernels, cfg, axes, toks, length, n_dec,
+               feed=None, label=""):
+    """`cfg` drawn (a CUDA generator seeded 0, `condition_weights`),
+    placed on a mesh of the card repeated by `axes` (`shard_params`,
+    releasing the model) and run inside `use_mesh`: after a warm prefill
+    of 128 tokens, the kernel on position 0's operands of its first
+    layer (B4 at the whole prompt's rows by `long_attention_check`, B5 by
+    `wkv_check`), then the main path with the launch counters zeroed
+    before it: a prefill of `toks` into a cache of `length` positions
+    (default the prompt and the decode steps) and `n_dec` decode steps
+    fed `feed` (greedy where None), then one traced decode step. Returns
+    a dict of what it measured."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import decoder_lm as M
+    from repro_torch.nn import moe
+    from repro_torch.sharding import placement as pl
+    from repro_torch.sharding import use_mesh
+    seq = toks.shape[1]
+    length = length or seq + n_dec + 1
+    gen = torch.Generator(dev).manual_seed(0)
+    model = M.init_params(cfg, gen, device=dev)
+    condition_weights(torch, cfg, model, gen)
+    mesh = make_mesh((dev,) * int(np.prod(list(axes.values()))), axes)
+    params = pl.shard_params(model, mesh, release=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    placed = pl.position_bytes(params)
+    is_moe = "attn_moe" in cfg.layer_kinds
+    out = dict(placed=placed)
+    with use_mesh(mesh) as scope:
+        M.prefill_step(cfg, params, toks[:, :128])
+        torch.cuda.synchronize()                                # warm
+        ops, kind, _ = position_operands(torch, cfg, params, toks, mesh)
+        if kind == "rwkv":
+            wkv_check(torch, *ops, f"wkv6 {label}, position 0")
+        else:
+            out["kernel_line"] = long_attention_check(
+                torch, *ops, f"flash_attention {label}, position 0")
+        del ops
+        torch.cuda.empty_cache()
+        scope.exchange.clear()
+        zero_counts(kernels)
+        if is_moe:
+            moe.apply_moe.drops = []
+        t0 = time.perf_counter()
+        last, cache = M.prefill_step(cfg, params, toks, length=length)
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["launches"] = launch_counts(kernels)
+        out["offset_launches"] = kernels["flash_attention"].offset_launches
+        out["prefill_ex"] = {k: dict(v) for k, v in scope.exchange.items()}
+        if is_moe:
+            out["drops"] = [int(d) for d, _ in moe.apply_moe.drops]
+            out["assignments"] = sum(n for _, n in moe.apply_moe.drops)
+            moe.apply_moe.drops = None
+        fed = [last.argmax(-1, keepdim=True) if feed is None else feed[0]]
+        outs = [last]
+        scope.exchange.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(n_dec):
+            lg, cache = M.decode_step(cfg, params, cache, fed[-1], seq + t)
+            outs.append(lg[:, 0])
+            fed.append(lg[:, 0].argmax(-1, keepdim=True) if feed is None
+                       else feed[t + 1])
+        torch.cuda.synchronize()
+        out["decode_ms"] = 1e3 * (time.perf_counter() - t0) / n_dec
+        out["decode_ex"] = {k: {n: x // n_dec for n, x in v.items()}
+                            for k, v in scope.exchange.items()}
+        out["specs"] = {n: t.spec for c in cache[:1] for n, t in c.items()}
+        out["traced"] = exchange_profile(torch, lambda: M.decode_step(
+            cfg, params, cache, fed[n_dec], seq + n_dec))
+    out["logits"] = torch.stack([o.float() for o in outs])
+    out["tokens"] = fed
+    check(bool(torch.isfinite(out["logits"]).all())
+          and last.shape == (toks.shape[0], cfg.vocab_size),
+          f"{label} logits finite, shaped")
+    del params, cache, outs, last, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def batch_one_phase(torch, dev, kernels, smi_line):
+    """ROADMAP C.9, C.12 and C.11 on meshes of the one card repeated
+    (BATCH_ONE; bf16 unless named): mistral-large-123b prefills one
+    sequence of 8,192 tokens into a cache of long_500k's 524,288
+    positions, its inputs and prefill replicated over "data", the cache
+    split over "data" on its sequence, and decodes 16 steps (split-key
+    decode, the combine's gather of (m, l, P.v)); rwkv6-3b at batch 1
+    with its state over its key dim ("data") and value dim ("model"),
+    in bf16 and in f32; dbrx-132b with its batch of 4 over ("pod",
+    "data"). Each mesh against the (1, 1) mesh on the same tokens (fed
+    (1, 1)'s greedy tokens): the logits within SHARDED_REL (f32 within
+    F32_REL) and the argmax agreement, B4 / B5 launched once per layer
+    that runs it and position in the prefill, MoE drops within
+    MOE_DROP_GAP of (1, 1)'s; prints the prefill's and a decode step's
+    time, the traced step's device busy ms, the exchange (counted bytes
+    by op, traced device ms) and the cache's layouts. Returns (each
+    kernel's launches in the prefills, the lines for the summary)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_lm_batch
+
+    phase("batch one and multi-pod")
+    t_phase = time.perf_counter()
+    total, lines = {name: 0 for name in KERNEL_KINDS}, []
+    for job in BATCH_ONE:
+        arch, full = job["arch"], get_config(job["arch"])
+        runs = [(full.dtype, job)]
+        if job.get("f32"):
+            runs.append(("float32", job))
+        for dtype, _ in runs:
+            cfg = dataclasses.replace(full, num_layers=job["layers"],
+                                      dtype=dtype, param_dtype=dtype)
+            toks = torch.from_numpy(synthetic_lm_batch(
+                np.random.default_rng(0), job["batch"], job["seq"],
+                cfg.vocab_size)["tokens"]).long().to(dev)
+            tf32 = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            ref = None
+            try:
+                for axes in job["meshes"]:
+                    t_mesh = time.perf_counter()
+                    label = (f"{arch} {dtype} batch {job['batch']} mesh "
+                             f"{_axes_label(axes)}")
+                    r = placed_run(torch, dev, kernels, cfg, axes, toks,
+                                   job["length"], job["n_dec"],
+                                   None if ref is None else ref["tokens"],
+                                   label)
+                    n_pos = int(np.prod(list(axes.values())))
+                    per_pos = prefill_launches(cfg)
+                    want = {n: k * n_pos for n, k in per_pos.items()}
+                    check(all(r["launches"][n] == want.get(n, 0)
+                              for n in r["launches"]),
+                          f"{label} prefill launched each kernel once per "
+                          f"layer that runs it and position "
+                          f"({r['launches']}, want {want})")
+                    for n in total:
+                        total[n] += r["launches"][n]
+                    if ref is None:
+                        ref = r
+                    lg, lg0 = r["logits"], ref["logits"]
+                    err_pre, err_dec = rel_l2(lg[0], lg0[0]), \
+                        rel_l2(lg[1:], lg0[1:])
+                    agree = float((lg.argmax(-1) == lg0.argmax(-1)).float()
+                                  .mean())
+                    wall, busy, ex_ms = r["traced"]
+                    dropped = ""
+                    if "drops" in r:
+                        gap = sum(abs(a - b) for a, b in
+                                  zip(r["drops"], ref["drops"]))
+                        dropped = (f"; MoE assignments dropped in the "
+                                   f"prefill {sum(r['drops'])} of "
+                                   f"{r['assignments']} (per layer "
+                                   f"{r['drops']}; (1, 1) "
+                                   f"{sum(ref['drops'])}, layer by layer "
+                                   f"{gap})")
+                        check(gap <= MOE_DROP_GAP * r["assignments"],
+                              f"{label} prefill drops within "
+                              f"{MOE_DROP_GAP} of the assignments of "
+                              f"(1, 1)'s ({gap})")
+                    line = (f"{label}: {cfg.num_layers} of "
+                            f"{full.num_layers} layers, prefill "
+                            f"{job['batch']} x {job['seq']} into a cache of "
+                            f"{job['length'] or job['seq'] + job['n_dec'] + 1} "
+                            f"in {r['prefill_s']:.3f} s "
+                            f"({job['batch'] * job['seq'] / r['prefill_s']:.1f} "
+                            f"tokens/s), launches {r['launches']}, exchange "
+                            f"{_ex_text(r['prefill_ex'])}; decode "
+                            f"{r['decode_ms']:.2f} ms a step, exchange a step "
+                            f"{_ex_text(r['decode_ex'])}; traced decode step "
+                            f"{wall:.2f} ms wall, device busy {busy:.2f} ms, "
+                            f"exchange device ms {_traced_text(ex_ms)}; "
+                            f"cache layouts (layer 0) "
+                            + ", ".join(f"{n} {s}" for n, s in
+                                        r["specs"].items())
+                            + f"; bytes a position {r['placed']}{dropped}; "
+                            f"against (1, 1): relative L2 of the prefill "
+                            f"logits {err_pre:.4g}, of the {job['n_dec']} "
+                            f"decode steps' {err_dec:.4g}, argmax agreement "
+                            f"{agree:.4f}; {time.perf_counter() - t_mesh:.1f}"
+                            f" s; {smi_line}")
+                    print(line)
+                    lines.append(line)
+                    if "kernel_line" in r:
+                        lines.append(r["kernel_line"])
+                    lim = F32_REL if dtype == "float32" else SHARDED_REL[arch]
+                    check(err_pre < lim and err_dec < lim,
+                          f"{label} logits within {lim} of (1, 1) "
+                          f"({err_pre}, {err_dec})")
+                    check(agree >= BATCH_ONE_AGREE or (
+                        arch == "rwkv6-3b" and dtype != "float32"),
+                          f"{label} argmax agreement with (1, 1) {agree} "
+                          f">= {BATCH_ONE_AGREE}")
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"batch one and multi-pod phase: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return total, lines
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5309,11 +5679,20 @@ def main() -> int:
     bounded.append(line_c)
     # the dry run (ROADMAP A11) beside what this run measured
     bounded += dryrun_lines(measured, smi_line)
+    # a batch the data axes do not divide and the MoE over ("pod",
+    # "data") (ROADMAP C.9, C.11, C.12); B4's and B5's rows add their
+    # prefills' launches
+    n_b, lines_b = batch_one_phase(torch, dev, kernels, smi_line)
+    b4["launches"] += n_b["flash_attention"]
+    parts.append(f"{n_b['flash_attention']} in the batch-one mistral and "
+                 f"multi-pod dbrx prefills")
+    bounded += lines_b
     b5 = next(r for r in rows if r["name"] == "wkv6")
-    b5["launches"] += n["wkv6"]
-    b5["note"] = (f"({b5['launches'] - n['wkv6']} {b5['note']}, "
-                  f"{n['wkv6']} in the sharded rwkv6-3b prefills of 4 x "
-                  f"2048 tokens (once per layer and mesh position))")
+    b5["launches"] += n["wkv6"] + n_b["wkv6"]
+    b5["note"] = (f"({b5['launches'] - n['wkv6'] - n_b['wkv6']} "
+                  f"{b5['note']}, {n['wkv6']} in the sharded rwkv6-3b "
+                  f"prefills of 4 x 2048 tokens (once per layer and mesh "
+                  f"position), {n_b['wkv6']} in its batch-one prefills)")
     bounded += lines
     b4["note"] = f"({', '.join(parts)})"
     rows.append(offset_row)

@@ -100,7 +100,8 @@ from repro_torch.nn.params import (ParamDef, ParamGroup, abstract_tree,
                                    init_group, spec_tree, torch_dtype)
 from repro_torch.sharding import placement as pl
 from repro_torch.sharding.logical import (current_mesh, mesh_size,
-                                          named, spec as logical_spec)
+                                          named, positions as mesh_positions,
+                                          spec as logical_spec)
 
 MODES = ("train", "eval")
 STACKS = ("layers", "encoder")      # per-layer lists of parameter groups
@@ -511,7 +512,15 @@ def _kv_cache_logical(cfg):
     """KV cache TP dim. NEVER the sequence dim: a seq-sharded cache turns
     the per-step cache write into a whole-cache gather. Prefer kv_heads;
     fall back to head_dim (the partial-logits all-reduce is small); else
-    replicate over model."""
+    replicate over model.
+
+    (The rule above is the reference's and holds for "model". At a batch
+    that the data axes do not divide, `fit_spec` does put "data" or "pod"
+    on the sequence dim (`placement.FALLBACK_DIMS`). The port's decode
+    runs that layout without a gather: the one position whose block of
+    the sequence holds the new token's slot writes it, and the attention
+    combines each position's partial softmax over its own keys
+    (`nn.attention._split_key_sdpa`).)"""
     if cfg.num_kv_heads % _TP_AXIS == 0:
         return ("batch", "cache_seq", "kv_heads", None)
     if cfg.resolved_head_dim % _TP_AXIS == 0:
@@ -639,13 +648,36 @@ def _sharded_prefill(cfg, params, tokens, frontend, length, mesh):
                                 positions=positions, frontend=fe)
         if kind in ("attn", "attn_moe", "encdec") and length is not None \
                 and length > S:
-            c = dict(c, **{n: pl.local_map(lambda t: torch.nn.functional.pad(
-                t, (0, 0, 0, 0, 0, length - S)), c[n]) for n in ("k", "v")})
+            c = dict(c, **{n: _padded(cfg, n, c[n], length, mesh)
+                           for n in ("k", "v")})
         caches.append({n: pl.relayout(t, fit_cache(cfg, n, t.shape, mesh))
                        for n, t in c.items()})
     x = apply_norm(cfg, params["final_norm"],
                    pl.local_map(lambda t: t[:, -1:, :], x))
     return pl.gather(_project_logits(cfg, params, x))[:, 0, :], caches
+
+
+def _padded(cfg, name: str, t, length: int, mesh):
+    """A placed prefill's k or v (B, S, KV, hd) as the cache entry of
+    `length` positions, zero past S, in its fitted layout: re-laid out
+    with the sequence whole first (the prompt's S rows move, not the
+    cache's), then each position cuts its block of the padded sequence
+    (at a batch that the data axes do not divide, the block of the
+    sequence they split)."""
+    S = t.shape[1]
+    shape = (t.shape[0], length, *t.shape[2:])
+    spec_ = fit_cache(cfg, name, shape, mesh)
+    t = pl.relayout(t, (spec_[0], None, *spec_[2:]))
+    sharding = named(mesh, spec_)
+
+    def block(c, b):
+        start, size = sharding.block(c, 1, shape)
+        out = b.new_zeros((b.shape[0], size, *b.shape[2:]))
+        n = max(0, min(S, start + size) - start)
+        out[:, :n] = b[:, start:start + n]
+        return out
+    return pl.wrap([block(c, b) for c, b in zip(mesh_positions(mesh), t.locals)],
+                   spec_, mesh)
 
 
 @torch.no_grad()

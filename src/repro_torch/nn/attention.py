@@ -25,7 +25,11 @@ Decode follows the cache's layout (`decoder_lm.cache_specs`): over KV
 heads each position attends its own heads; over the head dim (the
 reference's `cache_hd`) q, k and v take head-dim slices, the partial q.k
 logits are all-reduced before the softmax, P.v runs on each slice, and
-an all-to-all brings the heads back for `wo`. Cross-attention on a placed
+an all-to-all brings the heads back for `wo`; over the sequence (a batch
+that the data axes do not divide: `fit_spec` moves them there) each
+position scores its own key slice and the partial softmaxes are combined
+(`_split_key_sdpa`), and only the position whose slice holds the new
+token's slot writes it. Cross-attention on a placed
 x reads a placed frontend or encoder output: `project_kv` is
 column-parallel as k / v are, its full-sequence path re-lays k / v out to
 whole heads for B4 (not causal, the key bound the frontend's length) as
@@ -437,8 +441,8 @@ def _sharded_cross_attention(cfg, p, x, kv, differentiable=False):
                                       _whole_head_dim(v), causal=False,
                                       differentiable=differentiable)
     else:
-        out = _attend_cache(cfg, pl.relayout(q, k.spec), k, v,
-                            lambda dev: None, p["wo"])
+        out = _attend_cache(cfg, pl.relayout(q, _one_token(k.spec)), k, v,
+                            lambda dev, start, size: None, p["wo"])
     return pl.einsum("bshe,hed->bsd", out, p["wo"])
 
 
@@ -447,15 +451,84 @@ def _sdpa_over_head_dim(cfg, q, k, v, mask, axis: str):
     partial q.k logits, summed in f32 by `all_reduce_sum`, the softmax on
     every position, then P.v on each position's head-dim slice."""
     Sq, H, hd = q.shape[1:]
-    KV = k.shape[2]
+    L = k.shape[1]
     logits = pl.local_map(lambda q_, k_: torch.einsum(
-        "bqkgh,bskh->bkgqs", _scaled_q(q_, KV, hd).float(), k_.float()),
-        q, k, spec=(q.spec[0], None, None, None, None))
-    w = pl.local_map(lambda lg: _weights(cfg, lg, mask(lg.device)),
+        "bqkgh,bskh->bkgqs", _scaled_q(q_, k_.shape[2], hd).float(),
+        k_.float()), q, k, spec=(q.spec[0], k.spec[2], None, None, None))
+    w = pl.local_map(lambda lg: _weights(cfg, lg, mask(lg.device, 0, L)),
                      pl.all_reduce_sum(logits, axis))
     return pl.local_map(lambda w_, v_: torch.einsum(
         "bkgqs,bskh->bqkgh", w_.to(v_.dtype).float(), v_.float()).reshape(
-        w_.shape[0], Sq, H, -1).to(q.dtype), w, v, spec=q.spec)
+        w_.shape[0], Sq, -1, v_.shape[-1]).to(q.dtype), w, v, spec=q.spec)
+
+
+def _split_key_sdpa(cfg, q, k, v, mask):
+    """`_sdpa` of one query over a cache whose sequence is split over an
+    axis (a batch that the data axes do not divide: `fit_spec` moves them
+    onto the sequence), and perhaps its head dim over another (whose
+    partial q.k logits are summed in f32 first, as `_sdpa_over_head_dim`
+    does). Each position scores its own key slice, masked at the slice's
+    global key positions, and keeps its row max m, its sum l of
+    exp(logit - m) and its unnormalised P.v (P rounded to v's dtype, as
+    `_sdpa` rounds the weights), in f32; `all_gather` brings every
+    position the (m, l, o) of the whole sequence (a few KB), and each
+    combines them in axis order: o = sum_j e^(m_j - M) o_j / sum_j
+    e^(m_j - M) l_j, M the largest m_j. Every copy holds the same bits."""
+    sax, hax = k.spec[1], k.spec[3]
+    hd = q.shape[3]
+
+    def local(i):
+        q_, k_, v_ = q.locals[i], k.locals[i], v.locals[i]
+        return torch.einsum("bqkgh,bskh->bkgqs",
+                            _scaled_q(q_, k_.shape[2], hd).float(), k_.float())
+    logits = pl.wrap([local(i) for i in range(len(q.locals))],
+                     (q.spec[0], k.spec[2], None, None, sax), q.mesh)
+    if hax is not None:
+        logits = pl.all_reduce_sum(logits, hax)
+
+    def partial(i):
+        s0, n = k.block(i, 1)
+        lg = _soft_cap(logits.locals[i], cfg.attn_logit_softcap)
+        m_ = mask(lg.device, s0, n)
+        if m_ is not None:
+            lg = lg + torch.where(m_, 0.0, NEG_INF).float()[:, None, None]
+        m = lg.amax(-1)
+        p_ = torch.exp(lg - m[..., None])
+        v_ = v.locals[i]
+        o = torch.einsum("bkgqs,bskh->bqkgh", p_.to(v_.dtype).float(),
+                         v_.float())
+        return torch.cat([m.flatten(), p_.sum(-1).flatten(),
+                          o.flatten()])[None], (m.shape, o.shape)
+    parts, shapes = zip(*(partial(i) for i in range(len(q.locals))))
+    gathered = pl.all_gather(pl.wrap(parts, (sax, None), q.mesh), sax)
+
+    def combine(i):
+        (m_shape, o_shape), g = shapes[i], gathered.locals[i]
+        nm, no = m_shape.numel(), o_shape.numel()
+        ms = [r[:nm].view(m_shape) for r in g]
+        M = ms[0]
+        for m in ms[1:]:
+            M = torch.maximum(M, m)
+        num = den = None
+        for m, r in zip(ms, g):
+            e = torch.exp(m - M)
+            lo = e * r[nm:2 * nm].view(m_shape)
+            oo = r[2 * nm:2 * nm + no].view(o_shape) * \
+                e.permute(0, 3, 1, 2)[..., None]
+            num = oo if num is None else num + oo
+            den = lo if den is None else den + lo
+        out = num / den.permute(0, 3, 1, 2)[..., None]
+        B, Sq = o_shape[:2]
+        return out.reshape(B, Sq, -1, o_shape[-1]).to(q.dtype)
+    return pl.wrap([combine(i) for i in range(len(q.locals))], q.spec,
+                   q.mesh)
+
+
+def _one_token(cache_spec):
+    """The layout of one token's q, k or v beside a cache laid out by
+    `cache_spec`: the cache's batch, head and head-dim entries, its
+    sequence entry dropped (a split-key cache's axis stays free)."""
+    return (cache_spec[0], None, *cache_spec[2:])
 
 
 def _sharded_decode_self_attention(cfg, p, x, cache, pos: int, *,
@@ -466,17 +539,23 @@ def _sharded_decode_self_attention(cfg, p, x, cache, pos: int, *,
         spec=x.spec[:2])
     q, k, v = _sharded_qkv(cfg, p, x, positions)
     # the reference's constraint sites: q, k and v take the cache's layout
-    q, k, v = (pl.relayout(t, c.spec) for t, c in ((q, ck), (k, ck),
-                                                     (v, cv)))
+    # (its head and head-dim entries; a sequence split stays with the keys)
+    q, k, v = (pl.relayout(t, _one_token(c.spec))
+               for t, c in ((q, ck), (k, ck), (v, cv)))
     slot = pos % window if window > 0 else pos
-    for kl, vl, ckl, cvl in zip(k.locals, v.locals, ck.locals, cv.locals):
-        ckl[:, slot] = kl[:, 0].to(ckl.dtype)
-        cvl[:, slot] = vl[:, 0].to(cvl.dtype)
+    # the positions whose block of the sequence holds the slot write it
+    for i, (kl, vl, ckl, cvl) in enumerate(zip(k.locals, v.locals,
+                                               ck.locals, cv.locals)):
+        s0, n = ck.block(i, 1)
+        if s0 <= slot < s0 + n:
+            ckl[:, slot - s0] = kl[:, 0].to(ckl.dtype)
+            cvl[:, slot - s0] = vl[:, 0].to(cvl.dtype)
     L = ck.shape[1]
     last = min(pos, L - 1) if window > 0 else pos
 
-    def mask(dev):
-        return (torch.arange(L, device=dev) <= last)[None, None]
+    def mask(dev, start, size):
+        return (torch.arange(start, start + size, device=dev) <= last
+                )[None, None]
 
     out = _attend_cache(cfg, q, ck, cv, mask, p["wo"])
     return pl.einsum("bshe,hed->bsd", out, p["wo"]), {"k": ck, "v": cv}
@@ -484,13 +563,18 @@ def _sharded_decode_self_attention(cfg, p, x, cache, pos: int, *,
 
 def _attend_cache(cfg, q, ck, cv, mask, wo):
     """One query's attention over a placed cache, q laid out as the cache
-    is: `_sdpa` per position, or `_sdpa_over_head_dim` where the cache
-    splits the head dim; the result laid out as `wo` contracts it (its
-    heads, or the fallback's head dim, over "model"). `mask(device)`
-    gives the keys' mask (None: all)."""
-    if ck.spec[3] is None:
+    is (`_one_token`): `_sdpa` per position, `_sdpa_over_head_dim` where
+    the cache splits the head dim, `_split_key_sdpa` where it splits the
+    sequence (and perhaps the head dim); the result laid out as `wo`
+    contracts it (its heads, or the fallback's head dim, over "model").
+    `mask(device, start, size)` gives the mask of the keys at positions
+    start .. start + size - 1 (None: all)."""
+    L = ck.shape[1]
+    if ck.spec[1] is not None:
+        out = _split_key_sdpa(cfg, q, ck, cv, mask)
+    elif ck.spec[3] is None:
         out = pl.local_map(lambda q_, k_, v_: _sdpa(cfg, q_, k_, v_,
-                                                    mask(q_.device)),
+                                                    mask(q_.device, 0, L)),
                            q, ck, cv)
     else:
         out = _sdpa_over_head_dim(cfg, q, ck, cv, mask, ck.spec[3])

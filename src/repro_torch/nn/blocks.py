@@ -146,6 +146,12 @@ def _token(x, i: int):
     return x[:, i]
 
 
+def _like(t, c):
+    """A new cache entry `t` laid out as the entry `c` it replaces (a
+    placed shift state split over its d is sliced back)."""
+    return pl.relayout(t, c.spec) if pl.is_sharded(t) else t
+
+
 def _ffn(cfg, kind, p, xn, aux, decode=False):
     """The layer's FFN on its normed input: the MoE for `attn_moe` (its
     aux loss added to `aux`), else the dense MLP."""
@@ -234,8 +240,8 @@ def _decode_layer(cfg, kind, p, x, cache, pos, aux):
         x = x + h
         xc = apply_norm(cfg, p["norm2"], x)
         x = x + rk.rwkv_cmix_decode(cfg, p["cmix"], xc, cache["x_c"])
-        return x, {"state": state, "x_t": _token(xn, 0),
-                   "x_c": _token(xc, 0)}, aux
+        return x, {"state": state, "x_t": _like(_token(xn, 0), cache["x_t"]),
+                   "x_c": _like(_token(xc, 0), cache["x_c"])}, aux
 
     if kind == "rglru":
         h, new_cache = rg.rglru_decode(cfg, p["rglru"],

@@ -20,7 +20,9 @@ buffer that nothing reads (the reference adds them x 0 into slot C-1,
 which would turn a NaN of a dropped token into a NaN of a kept one). No
 host synchronisation: the kept count is never read on the host.
 
-On a mesh (x a `placement.ShardedTensor`, the batch over "data") the
+On a mesh (x a `placement.ShardedTensor`, the batch over "data", or
+over ("pod", "data") on a multi-pod mesh, whose collectives then run
+over the tuple, or replicated where the data axes do not divide it) the
 experts are replicated over "model" (`DEFAULT_RULES` maps "expert" to no
 axis: no expert parallelism), their d over "data" (FSDP) and their f
 over "model" (`w_gate` / `w_up` column-, `w_down` row-parallel), the
@@ -36,7 +38,9 @@ combined there and the token-sized y all-gathered (the reference's
 `embed_tp`); below it the tokens move instead of the weights: every
 position takes its d slice of all the tokens (an all-to-all), contracts
 it with its d slice of the weights, and the partials are summed over
-"data", then over "model"; an all-to-all brings y back to its tokens.
+"data", then over "model"; an all-to-all brings y back to its tokens. The tokens move
+over the experts' d axis alone ("data"): with the batch over ("pod",
+"data") each position takes the d slice of its "pod" group's tokens.
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ import torch.nn.functional as F
 from repro_torch.nn.basic import gelu
 from repro_torch.nn.params import ParamDef
 from repro_torch.sharding import placement as pl
+from repro_torch.sharding.logical import entry_axes
 
 # the reference's `big`: at this many tokens (B * S) or more the FSDP
 # product gathers the expert weights over "data"; below it, the tokens
@@ -165,7 +170,8 @@ def apply_moe_decode(cfg, p, x):
 
 # ------------------------------------------------------------------ sharded
 def sharded_route(cfg, p, x, decode: bool):
-    """The routing of x (B, S, d) placed with the batch over "data", each
+    """The routing of x (B, S, d) placed with the batch over "data" (or
+    ("pod", "data"), or replicated), each
     position on its own tokens: (probs (B, S, E), gate_w (B, S, k), the
     first choices (B, S), and the assignments eid, keep, slot, each
     placed along its routing rows. In prefill the rows are the sequences
@@ -274,29 +280,34 @@ def _moe_gather_weights(cfg, p, xr, gate_w, eid, keep, slot, C, fsdp, mdl):
 
 
 def _moe_move_tokens(cfg, p, xr, gate_w, eid, keep, slot, C, fsdp, mdl):
-    """FSDP by moving the tokens: every position takes its d slice of all
-    the tokens, routes them into the global buffer's d slice, contracts
-    it with its d slice of the weights (partials summed over "data"), the
-    down-projection's partials are summed over "model", and y's d slices
-    go back to their tokens."""
+    """FSDP by moving the tokens over the experts' d axis ("data"): every
+    position takes its d slice of the tokens of its group along that axis
+    (the batch's other axes, "pod" of ("pod", "data"), keep their split),
+    routes them into the buffer's d slice, contracts it with its d slice
+    of the weights (partials summed over "data"), the down-projection's
+    partials are summed over "model", and y's d slices go back to their
+    tokens."""
     E, dtype = cfg.num_experts, xr.dtype
-    tok_ax = xr.spec[0] or xr.spec[1]
-    xs = pl.relayout(xr, (None, None, fsdp))
-    eid, keep, slot, gate_w = (pl.all_gather(t, tok_ax) if tok_ax else t
-                               for t in (eid, keep, slot, gate_w))
-    buf, rows = pl.local_map_n(lambda x_, e, k_, s_: _dispatch(
+    tok_dim = 0 if xr.spec[0] is not None else 1
+    rest = tuple(a for a in entry_axes(xr.spec[tok_dim]) if a != fsdp)
+    rows = [None, None]
+    rows[tok_dim] = pl.entry_of(rest)
+    xs = pl.relayout(xr, (*rows, fsdp))
+    eid, keep, slot = (pl.relayout(t, rows) for t in (eid, keep, slot))
+    gate_w = pl.relayout(gate_w, (*rows, None))
+    buf, rows_ = pl.local_map_n(lambda x_, e, k_, s_: _dispatch(
         x_, e, k_, s_, E, C), xs, eid, keep, slot,
-        specs=[(None, None, fsdp), (None, None)])
+        specs=[(None, pl.entry_of(rest), fsdp), (pl.entry_of(rest), None)])
 
     def product(h, name, axis):
         part = pl.local_map(lambda h_, w: torch.bmm(h_, w), h, p[name],
-                            spec=(None, None, p[name].spec[2]))
-        return pl.all_reduce_sum(part, axis) if axis else part
+                            spec=(None, pl.entry_of(rest), p[name].spec[2]))
+        return pl.all_reduce_sum(part, axis)
 
     h = pl.local_map(lambda g, u: (_act(cfg)(g) * u).to(dtype),
                      product(buf, "w_gate", fsdp),
                      product(buf, "w_up", fsdp))
     out = product(h, "w_down", mdl)
     y = pl.local_map(lambda o, r, k_, g: _combine(o, r, k_, g, dtype), out,
-                     rows, keep, gate_w, spec=(None, None, fsdp))
+                     rows_, keep, gate_w, spec=xs.spec)
     return pl.relayout(y, xr.spec)

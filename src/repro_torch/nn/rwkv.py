@@ -28,7 +28,13 @@ and the group norm on them, and the normed output goes back to the
 columns for the gate and `w_o`. The state then lies over its key dim
 (`decoder_lm.fit_cache`): a decode step all-gathers the token's r, k, v
 and decay, updates each position's key rows and adds the partial
-outputs with an f32 all-reduce.
+outputs with an f32 all-reduce. At a batch that the data axes do not
+divide, `fit_spec` puts them on the state too (its key dim over "data"
+and its value dim over "model", its heads over "pod" on a multi-pod
+mesh): each position updates its block of heads, keys and values, and
+the partial outputs are summed over the keys' axis and gathered over
+the others; the shift states `x_t` / `x_c`, then split over d, are
+all-gathered before the token shift and sliced back after it.
 """
 from __future__ import annotations
 
@@ -336,39 +342,47 @@ def _decode_heads(cfg, p, x, state, x_prev):
 
 
 def _decode_over_keys(cfg, p, x, state, x_prev):
-    """`_decode_heads` on a mesh where the state lies over its key dim
-    (`_paired_heads`' layout): r, k, v and the decay all-gathered (one
-    token), each position updates its key rows of every head's state and
-    forms its partial output r_c (S_cd + u_c k_c v_d) over its keys c,
-    the f32 all-reduce adds the partials, and each position norms the
-    heads and gates its own columns for `w_o`."""
+    """`_decode_heads` on a mesh where the state does not lie over whole
+    heads as `w_r`'s columns do: over its key dim (`_paired_heads`'
+    layout), and at a batch that the data axes do not divide, its heads,
+    key and value dims each over an axis of their own (`fit_spec`'s
+    fallback). r, k, v and the decay are all-gathered over the columns'
+    axis (one token), each position updates its block (heads, key rows,
+    value columns) of the state and forms its partial output
+    r_c (S_cd + u_c k_c v_d) over its keys c; the f32 all-reduce over the
+    key dim's axis adds the partials, the heads and value columns are
+    all-gathered, and each position norms the heads and gates its own
+    columns for `w_o`."""
     hd = cfg.rwkv_head_dim
-    axis = state.spec[2]
-    cols = (x.spec[0], None, axis)
+    cax = p["w_r"].spec[1]
+    cols = (x.spec[0], None, cax)
 
     def project(x_, p_, xp):
         r, k, v, g, logw = _tmix_project(cfg, p_, x_, xp[:, None, :])
         return torch.stack([r.float(), k.float(), v.float(), logw]), g
     rkvw, g = pl.local_map_n(project, x, p, x_prev,
                              specs=((None, *cols), cols))
-    rkvw = pl.all_gather(rkvw, axis)
-    u, ln_scale = (pl.all_gather(p[n], axis) for n in ("u", "ln_scale"))
+    rkvw = pl.all_gather(rkvw, cax)
+    u, ln_scale = (pl.all_gather(p[n], cax) for n in ("u", "ln_scale"))
     H = u.shape[0] // hd
 
     def step(i):
         B = x.locals[i].shape[0]
         rf, kf, vf, lw = (t.reshape(B, H, hd) for t in rkvw.locals[i])
-        c0, n_c = state.block(i, 2)
-        keys = slice(c0, c0 + n_c)
-        uc = u.locals[i].float().reshape(H, hd)[:, keys]
-        kv = kf[..., keys, None] * vf[..., None, :]
+        (h0, nh), (c0, nc), (d0, nd) = (state.block(i, j) for j in (1, 2, 3))
+        hs, ks, ds = (slice(h0, h0 + nh), slice(c0, c0 + nc),
+                      slice(d0, d0 + nd))
+        uc = u.locals[i].float().reshape(H, hd)[hs, ks]
+        kv = kf[:, hs, ks, None] * vf[:, hs, None, ds]
         s_ = state.locals[i]
-        part = torch.einsum("bhc,bhcd->bhd", rf[..., keys],
+        part = torch.einsum("bhc,bhcd->bhd", rf[:, hs, ks],
                             s_ + uc[..., None] * kv)
-        return part, s_ * torch.exp(lw[..., keys])[..., None] + kv
+        return part, s_ * torch.exp(lw[:, hs, ks])[..., None] + kv
     parts, states = zip(*(step(i) for i in range(len(x.locals))))
-    out = pl.all_reduce_sum(pl.wrap(parts, (x.spec[0], None, None), x.mesh),
-                            axis)
+    out = pl.all_reduce_sum(pl.wrap(parts, (x.spec[0], state.spec[1],
+                                            state.spec[3]), x.mesh),
+                            state.spec[2])
+    out = pl.relayout(out, (x.spec[0], None, None))
 
     def gate(o, ls, g_, i):
         normed = _group_norm({"ln_scale": ls}, o.reshape(
@@ -380,16 +394,24 @@ def _decode_over_keys(cfg, p, x, state, x_prev):
     return y, pl.wrap(states, state.spec, x.mesh)
 
 
+def _whole(t):
+    """A shift state (B, d) split over its d (at a batch that the data
+    axes do not divide) all-gathered: the token shift reads all of d."""
+    return pl.relayout(t, (t.spec[0], None))
+
+
 def rwkv_tmix_decode(cfg, p, x, state, x_prev):
     """One token time-mix. x (B,1,d); state (B,H,hd,hd) f32; x_prev (B,d).
     Returns (y (B,1,d), new_state)."""
     if pl.is_sharded(x):
-        if state.spec[2] is not None:
-            out, state = _decode_over_keys(cfg, p, x, state, x_prev)
-        else:
+        x_prev = _whole(x_prev)
+        if tuple(state.spec[1:]) == (p["w_r"].spec[1], None, None) \
+                and _whole_heads(cfg, p):
             out, state = pl.local_map_n(
                 lambda x_, p_, s_, xp: _decode_heads(cfg, p_, x_, s_, xp),
                 x, p, state, x_prev, specs=_head_specs(x, p))
+        else:
+            out, state = _decode_over_keys(cfg, p, x, state, x_prev)
         return pl.einsum("bte,ed->btd", out, p["w_o"]), state
     out, state = _decode_heads(cfg, p, x, state, x_prev)
     return out @ p["w_o"], state
@@ -399,5 +421,5 @@ def rwkv_cmix_decode(cfg, p, x, x_prev):
     """One token channel-mix. x (B,1,d); x_prev (B,d)."""
     if pl.is_sharded(x):
         return _channel_mix(p, x, pl.local_map(
-            lambda t: t[:, None], x_prev, spec=x.spec))
+            lambda t: t[:, None], _whole(x_prev), spec=x.spec))
     return _channel_mix(p, x, x_prev[:, None, :])

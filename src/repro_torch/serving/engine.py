@@ -21,11 +21,22 @@ Two serving modes:
     page-locked (pinned) once, when the set is allocated; packing then
     writes straight into pinned memory.
   - **device stage** (`_device_stage`): asynchronous host-to-device copies
-    of the operands from the pinned buffers, the kernels of the masked NAP
-    loop plus per-order classification (`make_compiled_infer`), and an
-    asynchronous copy of the (nb,) predictions and exit orders back into
-    pinned host memory, followed by a CUDA event. Nothing in it waits for
-    the card.
+    of the operands from the pinned buffers on a copy stream of each
+    device (one `torch.cuda.Stream` a distinct device), which the compute
+    stream waits on through an event recorded after them, so that batch
+    N+1's copies run beside batch N's kernels (the reference's
+    `jax.device_put` returns at once and the runtime moves the bytes
+    beside the running program); each device tensor made there is
+    recorded on the compute stream (`record_stream`), so that the
+    caching allocator does not hand its block out again under a running
+    kernel. Then the kernels of the masked NAP loop plus per-order
+    classification (`make_compiled_infer`), and an asynchronous copy of
+    the (nb,) predictions and exit orders back into pinned host memory on
+    the compute stream, followed by a CUDA event. Nothing in it waits
+    for the card. The one operand that packing does not write into the
+    pool (`step_active`, the tile backends' per-step row-block
+    predicate) is staged through a pinned buffer of the slot, so no copy
+    reads pageable memory.
 
   With ``pipeline_depth=1`` the stages run back to back per batch. With
   ``pipeline_depth=2`` one batch stays in flight: batch N+1's sampling and
@@ -38,6 +49,13 @@ Two serving modes:
 
 Compiled-mode `spmm_impl` names a registered `PropagationBackend`
 (`repro_torch.gnn.backends`): ``segment``, ``block_ell`` or ``fused``.
+
+`jit_stats` (``{"compiles", "hits"}``) and `jit_cache_size()` keep the
+reference's names: they count the distinct operand-shape keys
+(`PackedSupport.shape_key`) that the runner was dispatched with, the
+programs that a compiler or a CUDA-graph capture would key on (the eager
+port compiles nothing: a "compile" is a key seen for the first time).
+With the bucket high-water marks the steady state adds none.
 
 ``cache_nodes > 0`` turns on the propagated-feature cache
 (`repro_torch.gnn.propcache`): the sampler probes it, the packer drops
@@ -80,6 +98,7 @@ mesh serves the plain path.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -103,6 +122,18 @@ from repro_torch.gnn.sampler import sample_support
 from repro_torch.gnn.store import as_store
 from repro_torch.serving.faults import (InjectedFault, NaNGuardError,
                                         WatchdogTimeout, poison_results)
+
+
+def _tensors(tree):
+    """The tensors of nested dicts, lists and tuples."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -324,6 +355,10 @@ class NAIServingEngine:
         self.row_stats: Dict[str, int] = {"rows_support": 0,
                                           "rows_packed": 0}
         self.pack_stats: Dict[str, int] = {"allocs": 0, "reuses": 0}
+        # distinct operand-shape keys dispatched (the reference's jit
+        # cache): a new key counts as a compile, a seen one as a hit
+        self.jit_stats: Dict[str, int] = {"compiles": 0, "hits": 0}
+        self._seen_keys: set = set()
         # per-batch stage breakdown (host/dispatch/sync seconds), bounded
         self.batch_timings: Deque[Dict[str, float]] = deque(maxlen=1024)
         # bucket high-water marks keyed by padded batch size
@@ -338,6 +373,12 @@ class NAIServingEngine:
         self._pool_idx: Dict[int, int] = {}
         self._pinned: Dict[Tuple[int, int], Dict[str, torch.Tensor]] = {}
         self._copied: Dict[Tuple[int, int], List[torch.cuda.Event]] = {}
+        # pinned staging of the operands packing does not pool, per slot
+        self._staged: Dict[Tuple[Tuple[int, int], str], torch.Tensor] = {}
+        # the host-to-device copies' stream, one per distinct device
+        self._copy_streams = ({d: torch.cuda.Stream(d)
+                               for d in dict.fromkeys(self.devices)}
+                              if self.device.type == "cuda" else {})
         self._backend = None
         self._runner = None
         if ec.mode == "compiled":
@@ -346,6 +387,11 @@ class NAIServingEngine:
                 cfg, nai, spmm_impl=ec.spmm_impl, device=self.device,
                 mesh=self.mesh, gather_mode=self.gather_mode,
                 return_series=self.cache is not None)
+
+    def jit_cache_size(self) -> int:
+        """Distinct operand-shape keys the compiled runner was dispatched
+        with (0 in host mode)."""
+        return len(self._seen_keys)
 
     @property
     def fault_stats(self) -> Optional[Dict]:
@@ -365,7 +411,7 @@ class NAIServingEngine:
     def reset_stats(self) -> None:
         """Zero the request counters, timings, row accounting and the
         cache's counters; serving state (cache contents, pools, high-water
-        marks, pack counters) survives."""
+        marks, pack and shape-key counters) survives."""
         self.stats = EngineStats(
             latencies=LatencyRing(self.config.latency_window))
         self.batch_timings.clear()
@@ -454,6 +500,12 @@ class NAIServingEngine:
             max(hwm[5], packed.seed_pad))
         if self.mesh is not None:
             self._record_halo(packed)
+        key = packed.shape_key(self.spmm_impl)
+        if key in self._seen_keys:
+            self.jit_stats["hits"] += 1
+        else:
+            self._seen_keys.add(key)
+            self.jit_stats["compiles"] += 1
         step_active = (step_active_blocks(packed.hop_rb, nai.t_max)
                        if be.uses_tiles else None)
         fill = None
@@ -495,24 +547,33 @@ class NAIServingEngine:
         arrays.update(x0=packed.x0, x_inf=packed.x_inf)
         pinned = self._pinned.get(slot, {})
         host = {name: pinned[name] if name in pinned
-                else torch.from_numpy(arr) for name, arr in arrays.items()}
-        if self.mesh is None:
-            on_dev = {name: t.to(dev, non_blocking=True)
-                      for name, t in host.items()}
-            x0, x_inf = on_dev.pop("x0"), on_dev.pop("x_inf")
-        else:
-            on_dev = shard_operands(host, self.devices, non_blocking=True)
-            x0 = [o.pop("x0") for o in on_dev]
-            x_inf = [o.pop("x_inf") for o in on_dev]
+                else self._stage(slot, name, arr)
+                for name, arr in arrays.items()}
+        with contextlib.ExitStack() as copying:
+            for s in self._copy_streams.values():
+                copying.enter_context(torch.cuda.stream(s))
+            if self.mesh is None:
+                on_dev = {name: t.to(dev, non_blocking=True)
+                          for name, t in host.items()}
+                x0, x_inf = on_dev.pop("x0"), on_dev.pop("x_inf")
+            else:
+                on_dev = shard_operands(host, self.devices,
+                                        non_blocking=True)
+                x0 = [o.pop("x0") for o in on_dev]
+                x_inf = [o.pop("x_inf") for o in on_dev]
         if dev.type == "cuda":
-            # one event per device: the next pack into this slot waits for
-            # every copy out of its pinned buffers
+            # one event per device, recorded on its copy stream after the
+            # copies: the compute stream waits on it, and the next pack
+            # into this slot waits for every copy out of its buffers
             copied = []
-            for d in dict.fromkeys(self.devices):
+            for d, s in self._copy_streams.items():
                 ev = torch.cuda.Event()
-                ev.record(torch.cuda.current_stream(d))
+                ev.record(s)
+                torch.cuda.current_stream(d).wait_event(ev)
                 copied.append(ev)
             self._copied[slot] = copied
+            for t in _tensors((on_dev, x0, x_inf)):
+                t.record_stream(torch.cuda.current_stream(t.device))
         out = self._runner(self.classifiers, on_dev, x0, x_inf)
         if self.cache is not None:
             out = (*out[:2], out[2][1:])
@@ -530,6 +591,22 @@ class NAIServingEngine:
         done = torch.cuda.Event()
         done.record()
         return (*host, done)
+
+    def _stage(self, slot, name: str, arr: np.ndarray) -> torch.Tensor:
+        """An operand that packing does not write into the pool, as a
+        tensor: on the card copied into the slot's pinned staging buffer
+        for `name` (made once per slot and shape; the slot's copies have
+        finished before it is refilled), so that its copy to the device
+        does not read pageable memory; on the CPU `arr` itself."""
+        t = torch.from_numpy(arr)
+        if self.device.type != "cuda" or t.numel() == 0:
+            return t
+        buf = self._staged.get((slot, name))
+        if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._staged[(slot, name)] = buf
+        buf.copy_(t)
+        return buf
 
     def _watchdog_sync(self, fl: _Inflight) -> None:
         """Bound the device sync: poll the batch's CUDA event with

@@ -426,6 +426,7 @@ class ServingFrontend:
             es = eng.stats.summary()
             s.update(p50_ms=es["p50_ms"], p95_ms=es["p95_ms"],
                      p99_ms=es["p99_ms"], batches=es["batches"],
+                     jit_compiles=eng.jit_stats["compiles"],
                      pack_allocs=eng.pack_stats["allocs"])
             br = self.breakers.get(name)
             if br is not None:

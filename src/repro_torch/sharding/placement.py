@@ -12,7 +12,10 @@ correctness and the exchanges' cost, not the capacity of D cards.
 
 The collectives move blocks between positions by copies (`Tensor.to`, a
 peer copy between cards), in a fixed order of the positions along the
-axis, so that two runs give the same bits:
+axis, so that two runs give the same bits. An axis may be a tuple of
+axes, the minor axes of a dim's entry (the batch's ("pod", "data") on a
+multi-pod mesh): its positions go in the order the dim's blocks are laid
+out, row-major over the tuple, the first axis major:
 
 * `all_reduce_sum`: every position receives every other's partial sum
   and adds them all in f32, in axis order, rounding once to the partials'
@@ -48,8 +51,13 @@ projections and of the head, or the embedding table's columns, where
 `einsum` slices the activations' d and sums the partial products, and
 the lookup all-gathers the columns; onto the head dim of `wo`, which the
 attention's output is re-laid out to; onto the key dim of rwkv's state,
-which its decode step updates in that layout. Any other fallback raises
-`NotImplementedError`.
+which its decode step updates in that layout. At a batch that the data
+axes do not divide (one sequence) the inputs stay replicated over them
+(`shard_inputs` never moves an axis), and the cache takes the batch's
+axes elsewhere: a KV cache's sequence (split-key decode, each position
+its slice of the keys) and, where the KV heads take "model", "data" on
+its head dim; rwkv's state over its heads, key and value dims, its
+shift states over d. Any other fallback raises `NotImplementedError`.
 
 Training. `shard_params(..., trainable=True)` makes every position's
 block a leaf that takes a gradient. The collectives are copies, slices,
@@ -67,7 +75,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -211,28 +218,43 @@ def per_position(fn, *args, spec: Optional[Sequence] = None):
 
 
 # ------------------------------------------------------------ place, gather
-# the tensors (by their logical axes) whose fallback layout the layers run,
-# and the dim the moved axis takes there: d, the input dim of the q, k and
-# v projections and of the head, and the embedding table's columns; the
-# head dim of `wo`; the key dim of rwkv's state (fit_spec places leftmost
-# first, so these are the dims it picks)
-FALLBACK_DIMS = {("embed", "kv_heads", "head_dim"): 0,
-                 ("embed", "heads", "head_dim"): 0,
-                 ("heads", "head_dim", "embed"): 1,
-                 ("embed", "vocab"): 0, ("vocab", "embed"): 1,
-                 ("batch", "heads", None, None): 2}
+# the tensors (by their logical axes) whose fallback layout the layers run:
+# {dim: the axes that `fit_spec` may move there}. "model" onto d, the input
+# dim of the q, k and v projections and of the head, and the embedding
+# table's columns; onto the head dim of `wo`; onto the key dim of rwkv's
+# state. At a batch that the data axes do not divide (a decode of one
+# sequence) the batch's axes onto the sequence of the KV caches (split-key
+# decode) and "data" onto the head dim of a cache whose KV heads take
+# "model"; onto rwkv's state (its heads, key and value dims) and the d of
+# its shift states. fit_spec places leftmost first, so these are the dims
+# it picks.
+_BATCH = ("pod", "data")
+FALLBACK_DIMS = {("embed", "kv_heads", "head_dim"): {0: ("model",)},
+                 ("embed", "heads", "head_dim"): {0: ("model",)},
+                 ("heads", "head_dim", "embed"): {1: ("model",)},
+                 ("embed", "vocab"): {0: ("model",)},
+                 ("vocab", "embed"): {1: ("model",)},
+                 ("batch", "heads", None, None): {
+                     1: ("pod",), 2: ("model", *_BATCH),
+                     3: ("model", *_BATCH)},
+                 ("batch", "cache_seq", "kv_heads", None): {
+                     1: _BATCH, 3: ("data",)},
+                 ("batch", "cache_seq", None, "cache_hd"): {1: _BATCH},
+                 ("batch", "cache_seq", None, None): {1: _BATCH},
+                 ("batch", "embed"): {1: _BATCH}}
 
 
 def fitted(s: P, shape: Sequence[int], mesh,
            logical: Optional[Sequence] = None) -> P:
     """`fit_spec` of `s` for `shape`. Where the fit had to move an axis to
     a fallback dim it raises, unless `logical` (the tensor's logical axes)
-    is one of `FALLBACK_DIMS` and the axis went to the dim named there."""
+    is one of `FALLBACK_DIMS` and every moved axis went to a dim that
+    names it there."""
     out = fit_spec(s, shape, mesh)
     plain = fit_spec(s, shape, mesh, fallback=False)
-    moved = {i for i, (a, b) in enumerate(zip(out, plain)) if a != b}
-    if moved and not (logical is not None
-                      and moved == {FALLBACK_DIMS.get(tuple(logical))}):
+    allowed = FALLBACK_DIMS.get(tuple(logical or ()), {})
+    if any(a != b and out[i] not in allowed.get(i, ())
+           for i, (a, b) in enumerate(zip(out, plain))):
         raise NotImplementedError(
             f"placing shape {tuple(shape)} by {s} on mesh "
             f"{axis_sizes(mesh)} needs fit_spec's fallback ({out}); no layer "
@@ -342,41 +364,63 @@ def _exchange(op: str):
 
 def _groups(mesh, axes) -> List[List[int]]:
     """The positions along `axes` (one axis name or several) for each
-    value of the other axes, each group in position order (row-major, so
-    axis order)."""
-    axes = (axes,) if isinstance(axes, str) else tuple(axes)
-    groups: Dict[tuple, List[int]] = {}
+    value of the other axes, each group in the order of the blocks that
+    the axes split a dim into: row-major over `axes`, the first major (as
+    `logical.NamedSharding` lays them out; position order where `axes`
+    are in the mesh's axis order)."""
+    axes = entry_axes(axes)
+    sizes = axis_sizes(mesh)
+    groups: Dict[tuple, List[Tuple[int, int]]] = {}
     for i, c in enumerate(_coords(mesh)):
         key = tuple(v for a, v in c.items() if a not in axes)
-        groups.setdefault(key, []).append(i)
-    return list(groups.values())
+        groups.setdefault(key, []).append((_index(c, axes, sizes), i))
+    return [[i for _, i in sorted(g)] for g in groups.values()]
 
 
-def _dim_of(st: ShardedTensor, axis: str) -> Optional[int]:
+def _index(coords, axes, sizes) -> int:
+    """A position's index along `axes`, row-major, the first axis major."""
+    idx = 0
+    for a in axes:
+        idx = idx * sizes[a] + coords[a]
+    return idx
+
+
+def entry_of(axes: Sequence[str]):
+    """A spec entry of `axes`: None, one axis name or a tuple."""
+    axes = tuple(axes)
+    return None if not axes else axes[0] if len(axes) == 1 else axes
+
+
+def _dim_of(st: ShardedTensor, axes) -> Optional[int]:
+    """The dim whose entry ends with `axes` (one axis or a tuple, the
+    minor axes of its entry), or None where the spec uses none of them."""
+    axes = entry_axes(axes)
     for dim, e in enumerate(st.spec):
-        if axis in entry_axes(e):
-            if e != axis:
+        ea = entry_axes(e)
+        if set(axes) & set(ea):
+            if ea[len(ea) - len(axes):] != axes:
                 raise NotImplementedError(
-                    f"{axis} shares dim {dim} with other axes ({e}); the "
-                    f"collectives move single-axis dims only")
+                    f"{axes} are not the minor axes of dim {dim} ({e}); the "
+                    f"collectives split and join a dim's minor axes only")
             return dim
     return None
 
 
-def all_reduce_sum(st: ShardedTensor, axis: str) -> ShardedTensor:
-    """Sum the positions' blocks (partial sums) along `axis`: every
-    position adds all of them in f32, in axis order, and rounds once to
-    their dtype. The spec (which must not use `axis`) is the result's."""
-    if _dim_of(st, axis) is not None:
+def all_reduce_sum(st: ShardedTensor, axis) -> ShardedTensor:
+    """Sum the positions' blocks (partial sums) along `axis` (one axis, a
+    tuple of axes, or None for none): every position adds all of them in
+    f32, in axis order, and rounds once to their dtype. The spec (which
+    must not use `axis`) is the result's."""
+    if set(entry_axes(axis)) & {a for e in st.spec for a in entry_axes(e)}:
         raise ValueError(f"partial sums sharded over {axis} ({st.spec})")
-    return _sum_over(st, (axis,), "all_reduce_sum")
+    return _sum_over(st, entry_axes(axis), "all_reduce_sum")
 
 
 def _sum_over(st: ShardedTensor, axes: Sequence[str], op: str
               ) -> ShardedTensor:
     """Every position adds the blocks of its group along `axes` in f32,
     in position order, and rounds once to their dtype; counted as `op`."""
-    n = math.prod(axis_sizes(st.mesh)[a] for a in axes)
+    n = axis_product(st.mesh, axes)
     if n == 1:
         return st
     devs = st.mesh.devices
@@ -421,23 +465,23 @@ def sync_grads(params) -> Any:
                      free_axes(params), "grad_sync")
 
 
-def reduce_scatter(st: ShardedTensor, axis: str, dim: int
-                   ) -> ShardedTensor:
-    """Sum the positions' blocks (partial sums) along `axis` and leave
-    each position its slice of the sum along the replicated `dim`, which
-    `axis` then shards: the position at index r adds the r-th slices of
-    all the blocks in f32, in axis order, and rounds once to their dtype,
-    so that its block equals that slice of `all_reduce_sum`'s result bit
-    for bit, for 1/n of its bytes."""
+def reduce_scatter(st: ShardedTensor, axis, dim: int) -> ShardedTensor:
+    """Sum the positions' blocks (partial sums) along `axis` (one axis or
+    a tuple) and leave each position its slice of the sum along the
+    replicated `dim`, which `axis` then shards: the position at index r
+    along the axis adds the r-th slices of all the blocks in f32, in axis
+    order, and rounds once to their dtype, so that its block equals that
+    slice of `all_reduce_sum`'s result bit for bit, for 1/n of its
+    bytes."""
     if _dim_of(st, axis) is not None or st.spec[dim] is not None:
         raise ValueError(f"reduce_scatter over {axis} to dim {dim} of "
                          f"{st.spec}")
-    n = axis_sizes(st.mesh)[axis]
+    n = axis_product(st.mesh, axis)
     if st.shape[dim] % n:
         raise ValueError(f"dim {dim} ({st.shape[dim]}) does not divide "
                          f"over {axis} ({n})")
     entries = list(st.spec)
-    entries[dim] = axis
+    entries[dim] = entry_of(entry_axes(axis))
     if n == 1:
         return wrap(st.locals, entries, st.mesh)
     out = [None] * len(st.locals)
@@ -455,20 +499,24 @@ def reduce_scatter(st: ShardedTensor, axis: str, dim: int
     return wrap(out, entries, st.mesh)
 
 
-def all_gather(st: ShardedTensor, axis: str) -> ShardedTensor:
-    """Undo the split of the dim that `axis` shards: every position
-    concatenates the blocks along `axis`, in axis order."""
+def all_gather(st: ShardedTensor, axis) -> ShardedTensor:
+    """Undo the split that `axis` (one axis, or a tuple of the minor axes
+    of a dim's entry, such as the batch's ("pod", "data")) makes of its
+    dim: every position concatenates the blocks along the axes, in axis
+    order (row-major over a tuple, the order the dim was split in). The
+    dim keeps the rest of its entry."""
     dim = _dim_of(st, axis)
-    n = axis_sizes(st.mesh)[axis]
     if dim is None:
         return st
+    axes = entry_axes(axis)
+    n = axis_product(st.mesh, axes)
     entries = list(st.spec)
-    entries[dim] = None
+    entries[dim] = entry_of(entry_axes(st.spec[dim])[:-len(axes)])
     if n == 1:
         return wrap(st.locals, entries, st.mesh)
     out = [None] * len(st.locals)
     with _exchange("all_gather"):
-        for group in _groups(st.mesh, axis):
+        for group in _groups(st.mesh, axes):
             for i in group:
                 dev = st.mesh.devices[i]
                 out[i] = torch.cat([st.locals[j].to(dev) for j in group],
@@ -479,20 +527,21 @@ def all_gather(st: ShardedTensor, axis: str) -> ShardedTensor:
 
 
 def all_to_all(st: ShardedTensor, axis: str, to_dim: int) -> ShardedTensor:
-    """Move `axis` from the dim it shards to the unsharded `to_dim`: the
-    position at index r along the axis receives the r-th slice (along
-    `to_dim`) of every position's block, concatenated in axis order along
-    the old dim."""
+    """Move `axis` from the dim it shards (as that dim's minor axis) to
+    `to_dim`, where it becomes the minor axis: the position at index r
+    along the axis receives the r-th slice (along `to_dim`) of every
+    position's block, concatenated in axis order along the old dim."""
     dim = _dim_of(st, axis)
     n = axis_sizes(st.mesh)[axis]
-    if dim is None or st.spec[to_dim] is not None:
+    if dim is None or dim == to_dim:
         raise ValueError(f"all_to_all of {axis} to dim {to_dim} from "
                          f"{st.spec}")
-    if st.shape[to_dim] % n:
+    if st.locals[0].shape[to_dim] % n:
         raise ValueError(f"dim {to_dim} ({st.shape[to_dim]}) does not "
                          f"divide over {axis} ({n})")
     entries = list(st.spec)
-    entries[dim], entries[to_dim] = None, axis
+    entries[dim] = entry_of(entry_axes(st.spec[dim])[:-1])
+    entries[to_dim] = entry_of(entry_axes(st.spec[to_dim]) + (axis,))
     if n == 1:
         return wrap(st.locals, entries, st.mesh)
     out = [None] * len(st.locals)
@@ -591,53 +640,72 @@ def pairs_to_columns(pt: ShardedTensor, like: ShardedTensor) -> ShardedTensor:
     return wrap(out, like.spec, like.mesh)
 
 
-def _split(st: ShardedTensor, axis: str, dim: int) -> ShardedTensor:
-    """Shard the replicated `dim` over `axis`: each position keeps (a
-    copy of) its slice; nothing crosses between positions."""
-    n = axis_sizes(st.mesh)[axis]
-    if st.shape[dim] % n:
+def _split(st: ShardedTensor, axes, dim: int) -> ShardedTensor:
+    """Split `dim` further over `axes` (one axis or a tuple), which join
+    its entry as its minor axes: each position keeps (a copy of) its slice
+    of its block; nothing crosses between positions."""
+    axes = entry_axes(axes)
+    sizes = axis_sizes(st.mesh)
+    n = axis_product(st.mesh, axes)
+    if st.locals[0].shape[dim] % n:
         raise ValueError(f"dim {dim} ({st.shape[dim]}) does not divide "
-                         f"over {axis} ({n})")
+                         f"over {axes} ({n})")
     entries = list(st.spec)
-    entries[dim] = axis
+    entries[dim] = entry_of(entry_axes(st.spec[dim]) + axes)
     if n == 1:
         return wrap(st.locals, entries, st.mesh)
-    size = st.shape[dim] // n
-    coords = _coords(st.mesh)
-    out = [b.narrow(dim, coords[i][axis] * size, size).clone()
-           for i, b in enumerate(st.locals)]
+    size = st.locals[0].shape[dim] // n
+    out = [b.narrow(dim, _index(c, axes, sizes) * size, size).clone()
+           for b, c in zip(st.locals, _coords(st.mesh))]
     return wrap(out, entries, st.mesh)
 
 
 def relayout(st: ShardedTensor, target: Sequence) -> ShardedTensor:
-    """Re-lay `st` out by `target`, one mesh axis at a time: an axis
-    leaving a dim is all-gathered, one moving between dims goes
-    all-to-all, and one arriving on a replicated dim is sliced in place.
-    A dim of several axes (the batch over ("pod", "data")) must keep its
-    entry; only single axes move."""
+    """Re-lay `st` out by `target`, axis by axis. Each dim keeps the
+    longest prefix of its entry that its target entry shares; its other
+    axes leave from the minor end: those that no target dim takes are
+    all-gathered (a run of them at once, the batch's ("pod", "data") in
+    one gather), one that the next free place of another dim's target
+    takes goes there all-to-all; last, the axes that a dim's target adds
+    to what it holds are sliced in place."""
     target = _padded(target, st.ndim)
     if list(st.spec) == target:
         return st
-    for a, b in zip(st.spec, target):
-        if a != b and (isinstance(a, tuple) or isinstance(b, tuple)):
-            raise NotImplementedError(f"relayout of multi-axis dims "
-                                      f"({st.spec} -> {target})")
-    src = {e: d for d, e in enumerate(st.spec)
-           if e is not None and not isinstance(e, tuple)}
-    dst = {e: d for d, e in enumerate(target)
-           if e is not None and not isinstance(e, tuple)}
-    for a, d in src.items():                      # leave
-        if a not in dst:
-            st = all_gather(st, a)
-    for a, d in dst.items():                      # move
-        if a in src and src[a] != d:
-            if st.spec[d] is not None:
-                raise NotImplementedError(f"relayout {st.spec} -> {target}: "
-                                          f"dim {d} is taken")
-            st = all_to_all(st, a, d)
-    for a, d in dst.items():                      # arrive
-        if a not in src:
-            st = _split(st, a, d)
+    dst = [entry_axes(e) for e in target]
+    where = {a: d for d, t in enumerate(dst) for a in t}
+
+    def extra(d):
+        s, t = entry_axes(st.spec[d]), dst[d]
+        k = 0
+        while k < min(len(s), len(t)) and s[k] == t[k]:
+            k += 1
+        return s[k:]
+    for d in range(st.ndim):                      # leave
+        run = ()
+        for a in reversed(extra(d)):
+            if a in where:
+                break
+            run = (a,) + run
+        if run:
+            st = all_gather(st, run)
+    moved = True
+    while moved:                                  # move
+        moved = False
+        for d in range(st.ndim):
+            if not extra(d):
+                continue
+            a = extra(d)[-1]
+            to = where.get(a)
+            if to is not None and to != d and entry_axes(st.spec[to]) == \
+                    dst[to][:dst[to].index(a)]:
+                st = all_to_all(st, a, to)
+            else:
+                st = all_gather(st, a)
+            moved = True
+    for d in range(st.ndim):                      # arrive
+        add = dst[d][len(entry_axes(st.spec[d])):]
+        if add:
+            st = _split(st, add, d)
     return st
 
 
@@ -742,11 +810,14 @@ def shard_cache(cfg, cache: Sequence[dict], mesh) -> List[dict]:
 def shard_inputs(cfg, batch: Dict[str, torch.Tensor], mesh
                  ) -> Dict[str, ShardedTensor]:
     """Model inputs ({"tokens", "frontend"?}) placed by
-    `configs.input_shardings`: the batch split over ``data``."""
+    `configs.input_shardings`: the batch split over the data axes that
+    divide it and replicated over the others (a batch of one sequence
+    replicated over all), never moved to another dim."""
     from repro_torch.configs import input_shardings
     specs = input_shardings(cfg)
     return {k: (v if is_sharded(v) else shard(v, NamedSharding(
-        mesh, fitted(specs[k], v.shape, mesh)))) for k, v in batch.items()}
+        mesh, fit_spec(specs[k], v.shape, mesh, fallback=False))))
+        for k, v in batch.items()}
 
 
 def placed_mesh(params):

@@ -1733,3 +1733,119 @@ def _unplaced_leaves(state):
     return [(f"{k}.{p}", t) for k, tree in (
         ("params", state["params"]), ("mu", state["opt"]["mu"]),
         ("nu", state["opt"]["nu"])) for p, t in pl.named_leaves(tree)]
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_copy_stream_engine_on_card(cuda, depth):
+    """The engine's host-to-device copies run on its copy stream (one for
+    the card), the compute stream waits on the event recorded after them,
+    and the pageable `step_active` goes through a pinned staging buffer:
+    fused == block_ell bit for bit and every backend equals the host path
+    outside the threshold margin, at pipeline depth 1 and 2; a third pass
+    adds no shape key and no pack allocation."""
+    g = load_dataset("pubmed-like", scale=0.1, seed=0)
+    cfg = GNNConfig("sgc", g.features.shape[1], g.num_classes, k=4,
+                    hidden=64, mlp_layers=2)
+    nai = NAIConfig(t_s=20.0, t_min=1, t_max=3, batch_size=100)
+    heads = init_classifiers(cfg, torch.Generator().manual_seed(0),
+                             device=cuda)
+    nodes = np.random.default_rng(0).choice(g.test_idx, size=300,
+                                            replace=False)
+    host = _serve_all(NAIServingEngine(cfg, nai, heads, g, device=cuda,
+                                       max_wait_s=10.0, mode="host"), nodes)
+    res = {}
+    for impl in ("segment", "block_ell", "fused"):
+        eng = NAIServingEngine(cfg, nai, heads, g, device=cuda,
+                               max_wait_s=10.0, mode="compiled",
+                               spmm_impl=impl, pipeline_depth=depth)
+        assert len(eng._copy_streams) == 1
+        copy = next(iter(eng._copy_streams.values()))
+        assert copy != torch.cuda.current_stream(cuda)
+        for _ in range(2):
+            res[impl] = _serve_all(eng, nodes)
+        c0, a0 = eng.jit_stats["compiles"], eng.pack_stats["allocs"]
+        assert _serve_all(eng, nodes)[0].tolist() == res[impl][0].tolist()
+        assert (eng.jit_stats["compiles"], eng.pack_stats["allocs"]) == \
+            (c0, a0)
+        assert eng.jit_cache_size() == c0
+        if impl != "segment":
+            assert eng._staged and all(t.is_pinned()
+                                       for t in eng._staged.values())
+    for a, b in zip(res["fused"], res["block_ell"]):
+        np.testing.assert_array_equal(a, b)
+    near = near_threshold(decision_distances, cfg, nai, g, nodes, 100)
+    for impl, (p, o) in res.items():
+        assert_orders_match(p, o, *host, near)
+
+
+def test_copy_stream_on_a_mesh_of_the_card(cuda):
+    """D = 2 shards on the card repeated: one copy stream for the one
+    device, and fused serving bitwise equal to one device."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    g = load_dataset("pubmed-like", scale=0.1, seed=0)
+    cfg = GNNConfig("sgc", g.features.shape[1], g.num_classes, k=4,
+                    hidden=64, mlp_layers=2)
+    nai = NAIConfig(t_s=20.0, t_min=1, t_max=3, batch_size=100)
+    heads = init_classifiers(cfg, torch.Generator().manual_seed(0),
+                             device=cuda)
+    nodes = np.random.default_rng(0).choice(g.test_idx, size=300,
+                                            replace=False)
+    one = _serve_all(NAIServingEngine(cfg, nai, heads, g, device=cuda,
+                                      max_wait_s=10.0, mode="compiled",
+                                      spmm_impl="fused", pipeline_depth=2),
+                     nodes)
+    eng = NAIServingEngine(cfg, nai, heads, g, max_wait_s=10.0,
+                           mode="compiled", spmm_impl="fused",
+                           pipeline_depth=2, gather_mode="halo",
+                           mesh=make_serving_mesh(2, devices=(cuda,) * 2))
+    assert len(eng._copy_streams) == 1
+    for a, b in zip(_serve_all(eng, nodes), one):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("arch,axes", [
+    ("mistral-large-123b", {"data": 2, "model": 2}),
+    ("gemma-7b", {"pod": 2, "data": 2, "model": 2}),
+    ("rwkv6-3b", {"data": 2, "model": 2}),
+    ("dbrx-132b", {"pod": 2, "data": 2, "model": 1})])
+def test_batch_one_and_multi_pod_on_card(cuda, arch, axes):
+    """f32 smoke models on meshes of the card repeated: a batch of one
+    (the split-key decode over "data" or "pod", gemma's head dim over
+    "data", rwkv's state over its key and value dims) and dbrx's MoE with
+    a batch of 4 over ("pod", "data"), prefill and 3 decode steps against
+    the unplaced model on the card within 1e-4 relative L2, two placed
+    runs bitwise equal."""
+    import dataclasses
+    from repro_torch.configs import ARCHS, smoke
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import decoder_lm as M
+    from repro_torch.sharding import placement as pl
+    from repro_torch.sharding import use_mesh
+    kw = {"gemma-7b": dict(num_heads=16, num_kv_heads=16),
+          "rwkv6-3b": dict(d_model=192),
+          "dbrx-132b": {}}.get(arch, dict(num_kv_heads=1))
+    cfg = dataclasses.replace(smoke(ARCHS[arch]), **kw)
+    base = M.init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    B = 4 if arch == "dbrx-132b" else 1
+    toks = torch.randint(0, cfg.vocab_size, (B, 200),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+
+    def run(params):
+        last, cache = M.prefill_step(cfg, params, toks, length=256)
+        out = [last]
+        for pos in range(200, 203):
+            lg, cache = M.decode_step(cfg, params, cache, toks[:, :1], pos)
+            out.append(lg[:, 0])
+        return out
+
+    want = run(base)
+    n = int(np.prod(list(axes.values())))
+    mesh = make_mesh((cuda,) * n, axes)
+    params = pl.shard_params(base, mesh)
+    with use_mesh(mesh):
+        got = run(params)
+        again = run(params)
+    for a, b in zip(got, want):
+        assert float((a - b).norm() / b.norm()) < 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(got, again))

@@ -8,7 +8,8 @@ HLO analyzer's; the linear extrapolation over repeats against direct
 counts; the peak of live bytes; the abstract bytes a position against a
 real placement's; B4's and B5's `cost()` against `PERF.md`'s bounds and
 their `meta` outputs against the plain versions'; `lower_combo` on a
-16 x 16 mesh of `meta` devices; and `main`'s files, skips and exit code.
+16 x 16 mesh of `meta` devices; long_500k's cache layouts on both
+production meshes; and `main`'s files, skips and exit code.
 Nothing here allocates a full-size tensor: full configs run on `meta`."""
 import dataclasses
 import json
@@ -41,6 +42,7 @@ from repro_torch.launch.roofline import (active_params, model_flops,
 from repro_torch.models import decoder_lm as M
 from repro_torch.nn.params import tree_bytes
 from repro_torch.sharding import placement as pl
+from repro_torch.sharding.logical import P
 
 
 def _meta(*shape, dtype=torch.float32):
@@ -350,18 +352,47 @@ def test_main_writes_skips_and_fails(tmp_path, capsys):
     assert "no-such-arch_decode_32k_1pod" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("arch", ["mistral-large-123b", "rwkv6-3b"])
-def test_batch_one_decode_raises_where_no_layer_runs_its_cache(arch):
+def _long_500k_layout(arch, name, multi_pod):
+    """ROADMAP C.9's table: each cache leaf's layout at long_500k (batch 1)
+    on 16 x 16 and 2 x 16 x 16, the batch's axes moved by `fit_spec`."""
+    seq = "pod" if multi_pod else "data"
+    if arch == "rwkv6-3b":
+        if name == "state":
+            return P(None, "pod" if multi_pod else None, "data", "model")
+        return P(None, seq)
+    if name in ("h", "conv"):
+        return P(None, "model") if name == "h" else P(None, None, "model")
+    if arch == "gemma-7b":
+        return P(None, seq, "model", "data" if multi_pod else None)
+    if arch == "whisper-small" and name in ("xk", "xv") and not multi_pod:
+        return P(None, None, None, "model")      # 1500 frames: no move
+    return P(None, seq, None, "model")
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["1pod", "2pod"])
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_long_500k_lowers_with_the_fitted_cache_layouts(arch, multi_pod):
     """long_500k decodes one sequence: its cache's batch dim cannot take
-    ("pod", "data"), `fit_spec` moves the axis onto another dim of the
-    cache (its sequence, or rwkv's state's key dim), which no layer runs,
-    so the lowering raises as placing the cache would, also without the
-    count."""
-    with pytest.raises(NotImplementedError, match="no layer runs"):
-        dryrun.lower_combo(arch, "long_500k", compile_=False, verbose=False)
-    rec = dryrun.lower_combo(arch, "decode_32k", compile_=False,
-                             verbose=False)
+    ("pod", "data"), so `fit_spec` moves the axes onto another dim (the
+    KV caches' sequence, gemma's head dim, rwkv's state and shift
+    states), which the layers run (split-key decode, rwkv's state over
+    its key and value dims). The lowering places every leaf so, and the
+    placed `init_cache` on `meta` devices takes the same layouts."""
+    from repro_torch.sharding import use_mesh
+    rec = dryrun.lower_combo(arch, "long_500k", multi_pod=multi_pod,
+                             compile_=False, verbose=False)
     assert rec["memory"]["argument_bytes"] > 0 and "roofline" not in rec
+    cfg = ARCHS[arch]
+    L = M._decode_len(cfg, 524_288)
+    mesh = make_production_mesh(multi_pod=multi_pod,
+                                devices=("meta",) * (512 if multi_pod
+                                                     else 256))
+    with use_mesh(mesh):
+        cache = M.init_cache(cfg, 1, L, device="meta")
+    for layer in cache:
+        for name, t in layer.items():
+            assert t.spec == _long_500k_layout(arch, name, multi_pod), (
+                name, t.spec)
 
 
 @pytest.mark.parametrize("arch", ["granite-34b", "deepseek-coder-33b"])
