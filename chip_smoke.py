@@ -7,11 +7,14 @@ Drives the port's main paths through the entry points a user calls and
 fails (non-zero exit, no result line) on any failed check:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the CUDA kernels of `src/repro_torch/csrc/` into `build/`;
+2. build: the CUDA kernels of `src/repro_torch/csrc/` into `build/`,
+   while the scale phase's store is made in a process of its own
+   (`ScaleStore`);
 3. NAI serving at the full size of the repo's PubMed-shaped
    configuration (`gnn_phases`): one real packed batch; each kernel (B1
    spmm_block_ell, B2 nap_step_fused, B3 nap_exit) against its plain
-   PyTorch version on the card, B2's `out` bitwise against B1's and B2
+   PyTorch version on the card, B1 also against the dense Â of a smaller
+   pack's edge list (`ref_spmm_dense`), B2's `out` bitwise against B1's and B2
    against the two-launch composition B1 + B3; B1 and B2 again with NaN,
    +Inf and -Inf planted in x rows that only zero coefficients name, and
    in rows that non-zero ones name (`nonfinite_phase`); then 2,000 requests
@@ -50,7 +53,7 @@ fails (non-zero exit, no result line) on any failed check:
      on block_ell;
    - scale: a 1e6-node power-law store made by `make_graph` (256
      features, 1.02 GB) in a process of its own, 32 batches of 64
-     uniform ids served from it on fused (after a warm pass) and on
+     uniform ids served from it once on fused and once on
      block_ell, which must agree exactly; generation seconds, req/s, host
      ms per batch, B2's launches and the peak RSS beside the feature
      bytes;
@@ -76,19 +79,22 @@ fails (non-zero exit, no result line) on any failed check:
      2x the serve phase's fused req/s (per-class goodput, shed, p50, p99,
      conservation), and a breaker trip (a `device` fault plan on gold
      demotes it to best_effort; the breaker closes after its cooldown);
-4. LM serving (`lm_phases`) at full width and depth in bf16 with random
+4. LM serving (`lm_phases`) at full width in bf16, the depth cut to 4
+   and 5 layers, with random
    weights from `torch.Generator("cuda").manual_seed(0)`, with the
    rwkv mixes mu_* drawn from U(0, 1) and the attention projections
    scaled to a fan-in of d (`condition_weights`): rwkv6-3b (prefill 4 x
-   2048 tokens, kernel B5 wkv6 in each of its 32 layers), then
+   2048 tokens, kernel B5 wkv6 in each of its 4 layers), then
    recurrentgemma-9b (prefill 2 x 4096 tokens, kernel B4 flash_attention
-   in each of its 12 `local` layers, band 2048 active). For each: the
+   in its `local` layer, band 2048 active). For each: the
    kernel against its plain version on the first such layer's real
-   operands, then the prefill, 32 greedy decode steps from its cache
-   (with a profile of one decode step), 8 requests through
-   `LMServingEngine` (4 slots, 32-token prompts, 16 new tokens each), and
-   the end-to-end gates on prompts of 2048 (rwkv6-3b) and 2200
-   (recurrentgemma-9b: above the window, not a multiple of it) tokens:
+   operands (B5 also against the f64 per-step recurrence,
+   `ref_wkv6_sequential`, on 2 x 2 heads x 64 of its steps), then the
+   prefill, 32 greedy decode steps from its cache (with a profile of one
+   decode step), 8 requests through `LMServingEngine` (4 slots, 32-token
+   prompts, 16 new tokens each), and the end-to-end gates on prompts of
+   2048 (rwkv6-3b) and 2200 (recurrentgemma-9b: above the window, not a
+   multiple of it) tokens:
    the prefill's last logits, and one more token decoded from the
    prefill's cache, against decoding the same prompts token by token in
    f32 (a path with no kernel), for the f32 and for the bf16 prefill;
@@ -181,15 +187,16 @@ fails (non-zero exit, no result line) on any failed check:
    shard shapes of `abstract_params`; then mistral-large-123b (d 12288,
    96 / 8 heads of 128, d_ff 28672, vocab 32768) at full width with its
    depth cut to 4 of 88 layers on the meshes (1, 1), (1, 2), (1, 4) and
-   (2, 2), gemma-7b whole (28 layers, 16 heads of 256, tied embedding,
+   (2, 2), gemma-7b (14 of 28 layers, 16 heads of 256, tied embedding,
    GeGLU) on (1, 1) and (1, 2), and on (1, 1), (1, 2) and (2, 2)
    dbrx-132b (3 of 40 layers) and grok-1-314b (4 of 64) with their
-   experts FSDP over "data", rwkv6-3b (6 of 32 layers; also on (1,
+   experts FSDP over "data", rwkv6-3b (3 of 32 layers; also on (1,
    16), where 2.5 of its 40 heads lie on a position: the time mix on
    (batch row, head) pairs, the state over its key dim) and
    recurrentgemma-9b (8 of 38), and
    the frontend models llama-3.2-vision-11b (5 of 40 layers, 4 x 1600
-   image rows) and whisper-small whole (16 x 224 tokens, 16 x 1500
+   image rows) and whisper-small (6 of 12 decoder layers, its encoder
+   whole; 16 x 224 tokens, 16 x 1500
    frames; its odd vocab puts "model" on d of the embedding and the
    head; also on (1, 8), which its 12 heads do not divide: "model" on d
    of wq and the head dim of wo, the query rows split), and
@@ -211,15 +218,17 @@ fails (non-zero exit, no result line) on any failed check:
    per causal layer whose rows split and position but the first along
    "model"), 16 decode steps fed the (1, 1)
    mesh's greedy tokens, `seed_frontend_cache` into a cache placed by
-   `init_cache` equal to the prefill's xk / xv bit for bit, one traced
-   prefill and decode step (the device time of each collective), and 4
+   `init_cache` equal to the prefill's xk / xv bit for bit, on the
+   TRACED meshes one traced prefill and decode step (the device time of
+   each collective), and 4
    requests through `LMServingEngine` (its cache seeded from the
    frontend); prefill tokens/s, decode ms a step, the exchange's bytes
    (the collectives' counter), for MoE the prefill's drops per layer
    (within MOE_DROP_GAP of the assignments of (1, 1)'s), and the
    relative L2 of the logits and the argmax agreement against the (1, 1)
    mesh, which must stay under the model's SHARDED_REL. Then rwkv6-3b
-   and whisper-small whole in f32 on their meshes, (1, 16) and (1, 8)
+   (8 of 32 layers) and whisper-small whole in f32 on their meshes,
+   (1, 16) and (1, 8)
    included (`sharded_f32_check`),
    whose logits must stay within F32_REL of (1, 1)'s. Last, adaptive
    decoding on a placed model (`sharded_adaptive_phase`): granite-34b at
@@ -287,8 +296,8 @@ fails (non-zero exit, no result line) on any failed check:
    B1-B3's launches (counters zeroed before each backend's pass); (d) T_s
    at 0, the 25th and 75th percentiles of the order-1 distances and above
    all of them (T_max 3): accuracy, exit histogram, the host path's
-   propagation MACs per node, fused req/s in three rounds over all T_s
-   (median and spread), fused == host outside the margin; (e) `python -m
+   propagation MACs per node, fused req/s of one pass after the pass
+   that sizes its pool, that pass == host outside the margin; (e) `python -m
    repro_torch.launch.serve --gnn pubmed-like` and `... launch.train
    --gnn pubmed-like` at their defaults as subprocesses (exit 0 and their
    lines), then the four Table 3 baselines (GLNN, TinyGNN, INT8, vanilla)
@@ -297,7 +306,8 @@ fails (non-zero exit, no result line) on any failed check:
 The launch counters of the kernels are zeroed just before each main path
 (the measured serving passes; each prefill and its decode) and read just
 after it. Kernel timings: warm CUDA events around 10 back-to-back calls,
-per call, median of 25, beside the least time the card could take for
+per call, median of 25 (of MIN_REPS or more once they hold TIMED_MS of
+device time), beside the least time the card could take for
 the same work at the operands' type (B4's bf16 products on the tensor
 cores), the plain version (which synchronises with the host: one call a
 timing, and of B4/B5 the median of 5) and, where one PyTorch call
@@ -315,15 +325,17 @@ composition, and the fused backend against block_ell, exactly. With
 non-finite x: NaN and +-Inf in exactly the places of the plain version's
 output, the finite values as above. B5 at
 rtol = 1e-4, atol = 1e-5 of its largest value (the same f32 chunked
-factorization summed in another order); B4 at rtol = atol = 1e-2 (the
+factorization summed in another order; against the f64 recurrence too);
+B4 at rtol = atol = 1e-2 (the
 kernel rounds the softmax weights to bf16 for the tensor cores, 2^-9
-relative each, and both round the output to bf16). End to end, relative L2 error against f32
-token-by-token decoding: 1e-3 for the f32 paths (f32 sums in other
-orders through every layer); for the bf16 paths 1.0 (rwkv6-3b) and 0.03
-(recurrentgemma-9b), about twice the errors an H100 gave (bf16 keeps 8
-significant bits, and random weights amplify its rounding with depth, as
-the by-depth line shows: rwkv6-3b's error doubles with each doubling of
-the depth, to 0.52 at 32 layers, where unrelated logits would give
+relative each, and both round the output to bf16). End to end,
+relative L2 error against f32 token-by-token decoding, about twice the
+errors an H100 gave at the phases' depths (4 and 5 layers): for the f32
+paths 4e-5 (rwkv6-3b) and 4e-6 (recurrentgemma-9b) (f32 sums in other
+orders through every layer); for the bf16 paths 0.1 and 0.02 (bf16 keeps
+8 significant bits, and random weights amplify its rounding with depth,
+as the by-depth line shows: rwkv6-3b's error doubles with each doubling
+of the depth, to 0.52 at 32 layers, where unrelated logits would give
 1.41). The MoE gates: 1e-3 for the f32 kernel path against the f32 plain
 path; for bf16, MOE_BF16_REL, about twice what an H100 gave (bf16 and
 f32 chose the same experts there; a bf16 rounding that flips a near-tied
@@ -343,11 +355,17 @@ split-key combine and the row-parallel sums round otherwise), f32 within
 F32_REL, argmax agreement at least BATCH_ONE_AGREE (bf16 rwkv6-3b only
 reports it), MoE drops within MOE_DROP_GAP.
 
-The second-to-last line is a JSON object {"kernels": [...]}, the last
-{"ok": true, "device": {...}}.
+The third-to-last line is a JSON object {"phase_seconds": {...},
+"phase_checks": {...}, "checks_passed": N, "total_s": t}: each phase's
+wall seconds (a phase runs from its "== name" line to the next; "start"
+is the time before the first), the checks that passed in it (a check is
+one `check()` call site in one phase, however often it ran there), their
+sum, and the seconds since the script started. The second-to-last line is a JSON object {"kernels":
+[...]}, the last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -373,14 +391,53 @@ D2_MARGIN = 1e-4
 F32_REL = 1e-3
 MAX_NEAR_SHARE = 0.05
 REPS = 25
+# a ruler stops after MIN_REPS timings once they hold more than TIMED_MS of
+# device time (a 7.5 ms kernel: 5 windows of 10 calls, not 25)
+MIN_REPS, TIMED_MS = 5, 250.0
+
+
+class Budget:
+    """Wall seconds and passed checks per phase, from the script's start:
+    a phase runs from its `phase()` call to the next one. A check is one
+    `check()` call site in one phase, counted once however often it
+    passes there (a loop over meshes or passes repeats it)."""
+
+    def __init__(self):
+        self.start = self.t = time.perf_counter()
+        self.name = "start"
+        self.seconds = {}
+        self.sites = {}
+
+    def enter(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[self.name] = self.seconds.get(self.name, 0.0) + now - self.t
+        self.name, self.t = name, now
+
+    def passed(self, site: str) -> None:
+        self.sites.setdefault(self.name, set()).add(site)
+
+    def line(self) -> dict:
+        self.enter(self.name)
+        checks = {k: len(v) for k, v in self.sites.items()}
+        return {"phase_seconds": {k: round(v, 1)
+                                  for k, v in self.seconds.items()},
+                "phase_checks": checks,
+                "checks_passed": sum(checks.values()),
+                "total_s": round(time.perf_counter() - self.start, 1)}
+
+
+BUDGET = Budget()
 
 
 def check(cond, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+    caller = sys._getframe(1)
+    BUDGET.passed(f"{caller.f_code.co_name}:{caller.f_lineno}")
 
 
 def phase(name: str) -> None:
+    BUDGET.enter(name)
     print(f"\n== {name}", flush=True)
 
 
@@ -388,7 +445,8 @@ def time_ms(torch, fn, reps: int = REPS, warm: int = 3,
             calls: int = 10) -> float:
     """Device time of one fn() call: median over `reps` CUDA-event
     timings of `calls` back-to-back calls (so the host's launch gap
-    between calls stays off the card's timeline), after `warm` calls."""
+    between calls stays off the card's timeline), after `warm` calls;
+    fewer timings, MIN_REPS at least, once they hold TIMED_MS."""
     for _ in range(warm):
         fn()
     times = []
@@ -401,6 +459,8 @@ def time_ms(torch, fn, reps: int = REPS, warm: int = 3,
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
+        if len(times) >= MIN_REPS and sum(times) * calls > TIMED_MS:
+            break
     return float(np.median(times))
 
 
@@ -629,11 +689,12 @@ def zero_counts(kernels) -> None:
             k.offset_launches = 0
 
 
-def gnn_phases(torch, dev, kernels):
-    """The NAI serving path (kernels B1-B3) at the full pubmed-like size:
-    returns the kernel rows, each with its launches in the measured
-    serving passes, and the train phase on the same graph and requests,
-    for the caller to run later."""
+def gnn_phases(torch, dev, kernels, tmp, scale):
+    """The NAI serving path (kernels B1-B3) at the full pubmed-like size,
+    its stores and checkpoints in the directory `tmp`, the scale phase's
+    store made by `scale`: returns the kernel rows, each with its launches
+    in the measured serving passes, and the train phase on the same graph
+    and requests, for the caller to run later."""
     from repro_torch.gnn import (GNNConfig, NAIConfig, init_classifiers,
                                  load_dataset, pack_support, sample_support,
                                  step_active_blocks)
@@ -644,8 +705,8 @@ def gnn_phases(torch, dev, kernels):
     from repro_torch.kernels.nap_step import (fused_step, nap_step_fused,
                                               ref_nap_step, two_launch_step)
     from repro_torch.kernels.spmm import (CB, RB, nonfinite_blocks,
-                                          ref_spmm_block_ell, spmm_block_ell,
-                                          zero_flags)
+                                          ref_spmm_block_ell, ref_spmm_dense,
+                                          spmm_block_ell, zero_flags)
     from repro_torch.serving import NAIServingEngine
 
     # ---------------------------------------------------- configuration
@@ -754,6 +815,33 @@ def gnn_phases(torch, dev, kernels):
           f"{b1['bound'][0] / b1['ms']:.1%} of its bound, "
           f"{b1['ms'] / b1['library_ms']:.2f}x torch.sparse.mm")
     del csr, lib_out
+    # B1 against the dense Â of the edge list (`ref_spmm_dense`, in f64:
+    # not the packed tiles that B1 and its plain version read, so a fault
+    # of the converter shows), on the pack of the first 16 requests'
+    # support at its step-1 active row blocks (n_pad 6,144)
+    sup_d = sample_support(store, np.unique(requests[:16]), nai.t_max, cfg.r)
+    x_d = store.gather_features(sup_d.nodes).astype(np.float32)
+    c_d, s_d = (a.astype(np.float32) for a in support_stationary_factors(
+        store, sup_d, x_d, cfg.r))
+    p_d = pack_support(sup_d, x_d, c_d[:, None] * s_d[None, :],
+                       nb_bucket=batch_bucket(sup_d.n_batch))
+    act_d = on_dev(step_active_blocks(p_d.hop_rb, nai.t_max)[0])
+    e_d = len(sup_d.src)
+    xp_d = on_dev(p_d.x0)
+    got = spmm_block_ell(on_dev(p_d.tiles), on_dev(p_d.tile_col),
+                         on_dev(p_d.valid), act_d, xp_d)
+    want = ref_spmm_dense(p_d.src[:e_d], p_d.dst[:e_d], p_d.coef[:e_d],
+                          p_d.n_pad, xp_d, act_d)
+    torch.cuda.synchronize()
+    err_d = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+          f"spmm_block_ell vs ref_spmm_dense (f64 dense product of the edge "
+          f"list; rtol = atol = 1e-5), max abs err {err_d}")
+    print(f"B1 against the dense Â of the edge list: support rows "
+          f"{len(sup_d)}, edges {e_d}, n_pad {p_d.n_pad}, active row blocks "
+          f"{int(act_d.sum())} of {p_d.tile_col.shape[0]}; max abs err "
+          f"{err_d:.3g} of values up to {float(want.abs().max()):.3g}")
+    del sup_d, p_d, x_d, xp_d, got, want
 
     # B3: exit decision on the propagated batch rows
     xb = out[:nb]
@@ -953,12 +1041,11 @@ def gnn_phases(torch, dev, kernels):
         r["note"] = (f"({r['launches']} in the serve phase {r['note']}, "
                      f"+ {sharded[r['name']]} in the sharded phase)")
         r["launches"] += sharded[r["name"]]
-    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
-        store_path = store_phase(torch, dev, kernels, g, cfg, nai, heads,
-                                 requests, results, tmp)
-        faults_phase(torch, dev, kernels, g, cfg, nai, heads, store_path)
-        scale_path = scale_phase(torch, dev, kernels, tmp)
-        offline_phase(torch, dev, kernels, g, cfg, heads, scale_path, tmp)
+    store_path = store_phase(torch, dev, kernels, g, cfg, nai, heads,
+                             requests, results, tmp)
+    faults_phase(torch, dev, kernels, g, cfg, nai, heads, store_path)
+    scale_path = scale_phase(torch, dev, kernels, scale)
+    offline_phase(torch, dev, kernels, g, cfg, heads, scale_path, tmp)
     cache_phase(torch, dev, kernels, g, cfg, heads)
     frontend_phase(torch, dev, kernels, g, cfg, nai, heads,
                    len(requests) / results["fused"][2])
@@ -1049,26 +1136,54 @@ def _watch_rss(stop, peak, period_s: float = 0.02) -> None:
         stop.wait(period_s)
 
 
-def scale_phase(torch, dev, kernels, tmp, n: int = 1_000_000):
-    """The JAX serving bench's 1e6-node row: a power-law store generated
-    by `make_graph` in a process of its own, then 32 batches of 64
-    uniform ids served from the `MmapStore` on `fused` at depth 2 (after
-    one warm pass), and once on `block_ell`, which must give the same
-    predictions and exit orders."""
+class ScaleStore:
+    """The scale phase's store: `make_graph`'s power-law graph of `n`
+    nodes with 256 features (1.02 GB), written into `tmp` by a process of
+    its own that starts at once, beside the kernels' build, and prints the
+    seconds it took. `main` waits for it after the build, so it runs
+    beside no timed phase."""
+
+    def __init__(self, tmp, n: int = 1_000_000):
+        self.path = str(Path(tmp) / f"powerlaw-{n}")
+        self.gen_s = None
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c",
+             "import time; t = time.perf_counter(); "
+             "from repro_torch.gnn.store import _main; _main(); "
+             "print(time.perf_counter() - t)",
+             "--n", str(n), "--avg-deg", "16", "--alpha", "2.2", "--seed",
+             "7", "--feat-dim", "256", "--out", self.path],
+            stdout=subprocess.PIPE, text=True,
+            env=dict(os.environ, PYTHONPATH=str(REPO / "src")))
+
+    def wait(self):
+        """(the store's path, the seconds its process took)."""
+        if self.gen_s is None:
+            out, _ = self.proc.communicate(timeout=300)
+            if self.proc.returncode:
+                raise subprocess.CalledProcessError(self.proc.returncode,
+                                                    self.proc.args, out)
+            self.gen_s = float(out.split()[-1])
+        return self.path, self.gen_s
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.communicate()
+
+
+def scale_phase(torch, dev, kernels, scale: ScaleStore):
+    """The JAX serving bench's 1e6-node row: the power-law store `scale`
+    made (by `make_graph`, in a process of its own), then 32 batches of 64
+    uniform ids served from the `MmapStore` once on `fused` at depth 2
+    and once on `block_ell`, which must give the same predictions and exit
+    orders (the passes' req/s include allocating the pools)."""
     from repro_torch.gnn import (GNNConfig, MmapStore, NAIConfig,
                                  init_classifiers)
     from repro_torch.serving import NAIServingEngine
     phase("scale")
     t_phase = time.perf_counter()
-    path = str(Path(tmp) / f"powerlaw-{n}")
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
-    t = time.perf_counter()
-    subprocess.run([sys.executable, "-c",
-                    "from repro_torch.gnn.store import _main; _main()",
-                    "--n", str(n), "--avg-deg", "16", "--alpha", "2.2", "--seed",
-                    "7", "--feat-dim", "256", "--out", path], check=True,
-                   env=env, timeout=300)
-    gen_s = time.perf_counter() - t
+    path, gen_s = scale.wait()
     store = MmapStore(path)
     feat_bytes = store.n * store.feat_dim * 4
     cfg = GNNConfig("sgc", store.feat_dim, store.num_classes, k=2,
@@ -1080,7 +1195,8 @@ def scale_phase(torch, dev, kernels, tmp, n: int = 1_000_000):
     batches = [np.unique(rng.integers(0, store.n, size=nai.batch_size))
                for _ in range(32)]
     nodes = np.concatenate(batches)
-    print(f"{store!r}: generated in {gen_s:.1f} s (a process of its own); "
+    print(f"{store!r}: generated in {gen_s:.1f} s (a process of its own, "
+          f"beside the build); "
           f"features {feat_bytes} bytes; {len(batches)} batches, "
           f"{len(nodes)} requests")
     rss0 = _rss_bytes()
@@ -1093,8 +1209,6 @@ def scale_phase(torch, dev, kernels, tmp, n: int = 1_000_000):
                                       pipeline_depth=2, max_wait_s=10.0)
                for impl in ("fused", "block_ell")}
     fused = engines["fused"]
-    serve_requests(torch, fused, nodes, batches)        # warm pass
-    fused.reset_stats()
     zero_counts(kernels)
     res = {"fused": serve_requests(torch, fused, nodes, batches)}
     launches = launch_counts(kernels)
@@ -1111,7 +1225,8 @@ def scale_phase(torch, dev, kernels, tmp, n: int = 1_000_000):
           "scale: fused and block_ell give identical predictions and exit "
           "orders")
     check(launches["nap_step_fused"] > 0, "scale: fused launched B2")
-    print(f"fused (steady pass): {len(nodes) / res['fused'][2]:.1f} req/s, "
+    print(f"fused (first pass, pools allocated): "
+          f"{len(nodes) / res['fused'][2]:.1f} req/s, "
           f"per batch host {np.mean([b['host_s'] for b in tm]) * 1e3:.1f} "
           f"ms dispatch {np.mean([b['dispatch_s'] for b in tm]) * 1e3:.1f} "
           f"ms sync {np.mean([b['sync_s'] for b in tm]) * 1e3:.1f} ms, B2 "
@@ -1137,7 +1252,7 @@ def cache_phase(torch, dev, kernels, g, cfg, heads):
     """The propagated-feature cache at the full pubmed-like size: 1,024
     Zipf(1.0) requests over the test split, batches of 64, served with
     the cache on (4,096 nodes) and off on every backend (and, on `fused`,
-    with fills off: a no-hit control): three warm passes, a steady pass
+    with fills off: a no-hit control): two warm passes, a steady pass
     with no pack allocation, and a pass after a mutation round."""
     from repro_torch.gnn import InMemoryStore, NAIConfig
     from repro_torch.serving import NAIServingEngine
@@ -1161,9 +1276,13 @@ def cache_phase(torch, dev, kernels, g, cfg, heads):
           f"of {len(g.test_idx)} test nodes, batches of {nai.batch_size}; "
           f"{nai}")
 
-    def run_pass(name, near):
-        out, allocs = {}, {}
+    def run_pass(name, near, reuse=None):
+        """Serve the requests through every engine but those whose
+        results `reuse` gives, and check the pass."""
+        out, allocs = dict(reuse or {}), {}
         for key, eng in engines.items():
+            if key in out:
+                continue
             a0 = eng.pack_stats["allocs"]
             eng.reset_stats()
             out[key] = serve_requests(torch, eng, requests)
@@ -1185,13 +1304,13 @@ def cache_phase(torch, dev, kernels, g, cfg, heads):
         check(stats["fused", "no fills"]["hits"] == 0,
               f"cache {name}: the no-hit control hits nothing")
         cs = stats["fused", "on"]
-        rate = {k: len(requests) / o[2] for k, o in out.items()}
+        rate = {k: len(requests) / out[k][2] for k in allocs}
         print(f"{name}: requests within the margin {int(near.sum())}; "
               f"fused hit rate {cs['hit_rate']:.4f} ({cs['hits']} hits, "
               f"{cs['stale']} stale, {cs['size']} cached), rows saved "
               f"{1 - cs['rows_packed'] / cs['rows_support']:.4f} "
               f"({cs['rows_packed']} of {cs['rows_support']} packed); req/s "
-              + ", ".join(f"{i} {s} {rate[i, s]:.1f}" for i, s in engines)
+              + ", ".join(f"{i} {s} {r:.1f}" for (i, s), r in rate.items())
               + f"; pack allocations {allocs}")
         return out, allocs, stats
 
@@ -1200,13 +1319,17 @@ def cache_phase(torch, dev, kernels, g, cfg, heads):
     check(near.mean() <= MAX_NEAR_SHARE, f"cache: {near.sum()} requests "
           f"within the threshold margin")
     zero_counts(kernels)
-    # three warm passes: the first fills the cache; over all three the
-    # bucket marks settle and every pooled slot of a batch bucket (three
-    # per bucket, taken in turn, so a bucket with one batch a pass reaches
-    # its third slot in the third pass) is allocated at its final shapes
-    for i in (1, 2, 3):
-        run_pass(f"pass {i} (warm)", near)
-    _, allocs, _ = run_pass("pass 4 (steady)", near)
+    # two warm passes: the first fills the cache; after the second the
+    # bucket marks have settled and every pooled slot a pass takes is
+    # allocated at its final shapes (an H100 run's third pass allocated
+    # nothing on any engine, the pass that a fourth then repeated). The
+    # cold engines and the no-hit control, whose results nothing in the
+    # cache changes, sit the second out: their second pass allocated
+    # nothing, and pass 1's results stand in for it
+    first, _, _ = run_pass("pass 1 (warm)", near)
+    run_pass("pass 2 (warm)", near,
+             reuse={k: v for k, v in first.items() if k[1] != "on"})
+    _, allocs, _ = run_pass("pass 3 (steady)", near)
     check(all(a == 0 for a in allocs.values()),
           f"cache: zero pack allocations in the steady pass ({allocs})")
     rng = np.random.default_rng(7)
@@ -1222,7 +1345,7 @@ def cache_phase(torch, dev, kernels, g, cfg, heads):
     near = near_margin(cfg, nai, store, requests, nai.batch_size)
     check(near.mean() <= MAX_NEAR_SHARE, f"cache: {near.sum()} requests "
           f"within the threshold margin after the mutation")
-    _, _, stats = run_pass("pass 5 (after the mutation)", near)
+    _, _, stats = run_pass("pass 4 (after the mutation)", near)
     check(stats["fused", "on"]["stale"] > 0,
           "cache: the mutation staled cached entries")
     launches = launch_counts(kernels)
@@ -1866,7 +1989,9 @@ def frontend_phase(torch, dev, kernels, g, cfg, nai, heads, closed_rps):
     serial.close()
     fe = frontend(2)
     allocs = []
-    for i in range(5):        # four warm passes, then the steady one
+    # three warm passes, then the steady one (an H100 run's fourth pass
+    # allocated nothing, the pass that a fifth then repeated)
+    for i in range(4):
         fe.reset_stats()      # batch ids count from 0 again
         a0 = {n: e.pack_stats["allocs"] for n, e in fe.engines.items()}
         t0 = time.perf_counter()
@@ -2132,37 +2257,31 @@ def train_phase(torch, dev, kernels, g, cfg, nai, requests, dist):
     print(f"(d) T_s sweep {[round(t, 4) for t in sweep]} (T_min "
           f"{nai.t_min}, T_max {nai.t_max}; order-1 distances "
           f"{d1.min():.4f} .. {d1.max():.4f})")
-    # fused req/s of every T_s in each of three rounds, so that the host's
-    # drift during the sweep shows as spread, not as a trend over T_s
-    engs, rates = {}, {t_s: [] for t_s in sweep}
+    # fused req/s of every T_s in one timed pass after the pass that sizes
+    # its pool (three rounds of it spread by up to 50% on H100 hosts: the
+    # req/s is the host's, and gates nothing); that pass's predictions are
+    # held to the host path's
     for t_s in sweep:
-        engs[t_s] = NAIServingEngine(
+        eng = NAIServingEngine(
             cfg, dataclasses.replace(nai, t_s=t_s), model, g, device=dev,
             mode="compiled", spmm_impl="fused", pipeline_depth=2,
             max_wait_s=10.0)
-        serve_requests(torch, engs[t_s], requests)    # sizes the pool
-    for _ in range(3):
-        for t_s in sweep:
-            fp, fo, wall = serve_requests(torch, engs[t_s], requests)
-            rates[t_s].append(len(requests) / wall)
-    for t_s in sweep:
+        serve_requests(torch, eng, requests)          # sizes the pool
+        fp, fo, wall = serve_requests(torch, eng, requests)
+        del eng
         r = infer_all(cfg, dataclasses.replace(nai, t_s=t_s), model, g,
                       nodes=requests)
         near_t = within_margin(dist, t_s)
-        q = rates[t_s]
         print(f"(d) T_s {t_s:.4f}: accuracy "
               f"{(r.predictions == labels).mean():.4f}, exit histogram "
               f"{order_distribution(r, nai.t_max).tolist()}, host "
               f"propagation MACs/node {r.macs['propagation']:.1f} (feature "
-              f"processing {r.fp_macs:.1f}), fused req/s in three rounds "
-              f"{[round(v, 1) for v in q]} (median {np.median(q):.1f}, "
-              f"spread {(max(q) - min(q)) / np.median(q):.1%}), within the "
-              f"margin {int(near_t.sum())}")
-        fp, fo, _ = serve_requests(torch, engs[t_s], requests)
+              f"processing {r.fp_macs:.1f}), fused "
+              f"{len(requests) / wall:.1f} req/s, within the margin "
+              f"{int(near_t.sum())}")
         check(near_t.mean() <= MAX_NEAR_SHARE
               and same_outside((fp, fo), (r.predictions, r.orders), near_t),
               f"fused matches the host path at T_s {t_s}")
-    del engs
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2204,10 +2323,10 @@ def train_phase(torch, dev, kernels, g, cfg, nai, requests, dist):
     print(f"train phase {time.perf_counter() - t_phase:.1f} s")
 
 
-def step_profile(torch, step, label, n=3, per_call=1):
+def step_profile(torch, step, label, n=1, per_call=1):
     """Where one step's time goes: the profiler over `n` calls of `step`,
-    each of `per_call` steps, host time per step against device busy
-    time, and the ops that cost the host most."""
+    each of `per_call` steps, after an untraced call, host time per step
+    against device busy time, and the ops that cost the host most."""
     from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
@@ -2223,7 +2342,8 @@ def step_profile(torch, step, label, n=3, per_call=1):
     n_launch = sum(e.count for e in ev if e.self_device_time_total > 0)
     top = sorted(ev, key=lambda e: -e.self_cpu_time_total)[:6]
     n *= per_call
-    print(f"{label} profile (traced, {n} steps): {wall / n * 1e3:.1f} "
+    print(f"{label} profile (traced, {n} step{'s' * (n > 1)}): "
+          f"{wall / n * 1e3:.1f} "
           f"ms wall per step, device busy {dev_us / n / 1e3:.2f} ms per step,"
           f" ~{n_launch // n} device ops per step; most host time: "
           + ", ".join(f"{e.key} {e.self_cpu_time_total / n / 1e3:.2f} ms"
@@ -2291,6 +2411,31 @@ def depth_logits(torch, cfg, model, toks, depths):
     return out
 
 
+def wkv_sequential_check(torch, rf, kf, vf, lw, u, B=2, H=2, T=64):
+    """B5 on the first T steps of B batch rows and H heads of real (B, T,
+    H, hd) operands against `ref_wkv6_sequential`, the per-step recurrence
+    in f64 (not the chunked factorization that B5 and its plain version
+    share), within rtol 1e-4 and atol 1e-5 of the largest |value| (f32
+    chunked sums against the exact recurrence)."""
+    from repro_torch.kernels.wkv6 import ref_wkv6_sequential, wkv6_heads
+    ops = [a[:B, :T, :H].contiguous() for a in (rf, kf, vf, lw)]
+    hd = ops[0].shape[-1]
+    out, _ = wkv6_heads(*ops, u[:H].contiguous())
+    want = ref_wkv6_sequential(
+        *(a.transpose(1, 2).reshape(B * H, T, hd) for a in ops),
+        u[:H].repeat(B, 1)).reshape(B, H, T, hd).transpose(1, 2)
+    torch.cuda.synchronize()
+    err = float((out - want).abs().max())
+    scale = float(want.abs().max())
+    check(torch.allclose(out, want, rtol=1e-4, atol=1e-5 * scale),
+          f"wkv6 vs ref_wkv6_sequential (f64 per-step recurrence; rtol "
+          f"1e-4, atol 1e-5 of the largest |value| {scale}), max abs err "
+          f"{err}")
+    print(f"wkv6 against the f64 per-step recurrence: {B} x {H} heads x {T} "
+          f"steps, hd {hd}; max abs err {err:.3g} of values up to "
+          f"{scale:.3g}")
+
+
 def wkv_check(torch, rf, kf, vf, lw, u, label):
     """B5 on real (B, T, H, hd) operands against its plain version, timed
     beside it. Returns the kernel's row (name, source, error, timings,
@@ -2336,14 +2481,14 @@ def wkv_check(torch, rf, kf, vf, lw, u, label):
     return row
 
 
-def lm_phases(torch, dev, kernels, arch, batch, seq, gate_seq, bf16_rel,
-              smi_line):
-    """The LM serving path of `arch` at full width and depth, bf16, random
-    weights from a CUDA generator seeded 0 (conditioned as
-    `condition_weights` says): kernel check and timing on the first such
-    layer's real operands, prefill (the counted main path) + greedy decode,
-    the engine, then the end-to-end gates on prompts of `gate_seq` tokens.
-    Returns the row of the path's kernel."""
+def lm_phases(torch, dev, kernels, arch, layers, batch, seq, gate_seq,
+              f32_rel, bf16_rel, smi_line):
+    """The LM serving path of `arch` at full width, its depth cut to
+    `layers`, bf16, random weights from a CUDA generator seeded 0
+    (conditioned as `condition_weights` says): kernel check and timing on
+    the first such layer's real operands, prefill (the counted main path)
+    + greedy decode, the engine, then the end-to-end gates on prompts of
+    `gate_seq` tokens. Returns the row of the path's kernel."""
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import synthetic_lm_batch
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -2356,7 +2501,8 @@ def lm_phases(torch, dev, kernels, arch, batch, seq, gate_seq, bf16_rel,
     from repro_torch.serving import LMServingEngine
 
     phase(f"lm {arch}")
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers)
     t0 = time.perf_counter()
     gen = torch.Generator(dev).manual_seed(0)
     model = M.init_params(cfg, gen, device=dev)
@@ -2364,7 +2510,8 @@ def lm_phases(torch, dev, kernels, arch, batch, seq, gate_seq, bf16_rel,
     torch.cuda.synchronize()
     n_par = count_params(model)
     n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    print(f"{arch}: {cfg.num_layers} layers {cfg.layer_kinds[:3]}..., "
+    print(f"{arch}: {cfg.num_layers} of {full.num_layers} layers "
+          f"(reduced depth) {cfg.layer_kinds[:3]}..., "
           f"d_model {cfg.d_model}, {n_par} parameters, {n_bytes} bytes "
           f"({cfg.param_dtype}), made in {time.perf_counter() - t0:.1f}s")
     prompts = torch.from_numpy(synthetic_lm_batch(
@@ -2382,6 +2529,7 @@ def lm_phases(torch, dev, kernels, arch, batch, seq, gate_seq, bf16_rel,
             rf, kf, vf, lw, u, _ = rwkv.wkv_inputs(
                 cfg, p["tmix"], apply_norm(cfg, p["norm1"], x))
             row = wkv_check(torch, rf, kf, vf, lw, u, "wkv6")
+            wkv_sequential_check(torch, rf, kf, vf, lw, u)
             del rf, kf, vf, lw
         else:
             kname = "flash_attention"
@@ -2557,7 +2705,7 @@ def lm_phases(torch, dev, kernels, arch, batch, seq, gate_seq, bf16_rel,
           f"the last logits after L layers): " + ", ".join(
               f"L={L} {rel_l2(d16[L], d32[L]):.4g}" for L in depths))
     for what, err in errs.items():
-        tol = F32_REL if what.startswith("f32") else bf16_rel
+        tol = f32_rel if what.startswith("f32") else bf16_rel
         check(err < tol, f"{arch} {what} vs token-by-token, relative L2 "
               f"error {err} (limit {tol})")
     del cache, step_logits, model, d16, d32
@@ -2686,8 +2834,9 @@ def attention_check(torch, dev, cfg, q, k, v, label, cap_acts=False,
                 lambda: ref_attention(q, k, v, window=W, softcap=cap,
                                       q_offset=o),
                 library, plain_reps=5)
-    t["uncapped_ms"] = time_ms(torch, lambda: kernel(q, k, v, window=W,
-                                                     q_offset=q_offset))
+    # without a cap the kernel and "the kernel without the cap" are one call
+    t["uncapped_ms"] = (time_ms(torch, lambda: kernel(
+        q, k, v, window=W, q_offset=q_offset)) if cap else t["ms"])
     ms, by = bound(nbytes, flops, PEAK_BF16_FLOP_S
                    if q.dtype == torch.bfloat16 else PEAK_F32_FLOP_S)
     print(f"{label} timings: kernel {t['ms']:.4f} ms "
@@ -3820,11 +3969,18 @@ SHARDED_LAYERS = {"mistral-large-123b": 4,    # of 88: 11.1 GB of bf16
                   # (1, 2) decode logits were 0.0133 from (1, 1)'s, over
                   # the limit set at 4, where an H100 gave 0.00607)
                   "dbrx-132b": 3, "grok-1-314b": 4,
-                  # 6 of 32; 8 of 38 (two repeats of its (rglru, rglru,
-                  # local) pattern and two rglru)
-                  "rwkv6-3b": 6, "recurrentgemma-9b": 8,
+                  # 14 of 28 (whole, its two meshes took 20.3-23.5 s of
+                  # an H100 run's phase)
+                  "gemma-7b": 14,
+                  # 3 of 32 (6 until its (1, 16) mesh, 10.5 s of the
+                  # phase, was halved); 8 of 38 (two repeats of its
+                  # (rglru, rglru, local) pattern and two rglru)
+                  "rwkv6-3b": 3, "recurrentgemma-9b": 8,
                   # 5 of 40: one repeat of its (attn x 4, xattn) pattern
                   "llama-3.2-vision-11b": 5,
+                  # 6 of 12 decoder layers, the encoder's 12 whole (whole,
+                  # its four meshes took 37.1 s of an H100 run's phase)
+                  "whisper-small": 6,
                   # 2 of 62 at full width (d 7168, 56 / 8 heads of 128):
                   # 1.06 GB a layer and 0.92 GB of embedding and head in
                   # bf16, so that its meshes stay within the run's time
@@ -3849,12 +4005,18 @@ SHARDED_MESHES = {"mistral-large-123b": ((1, 1), (1, 2), (1, 4), (2, 2)),
 # 2048 keys (bf16 hd 128, timed for the summary), and whisper-small's
 # decoder at (1, 8), 16 x 28 rows at offset 196 of 224 keys (bf16 hd 64)
 OFFSET_CHECKS = {("deepseek-coder-33b", (1, 16)), ("whisper-small", (1, 8))}
-# meshes whose traced decode step and prefill are left out, to keep the
-# run inside its time limit: their traces took 8.8 s, 32.9 s and 34.8 s
-# of a development run's phase ("NVIDIA H100 80GB HBM3, 700.00 W"), the
-# profiler's parse of 8 or 16 positions' events
-UNTRACED = {("deepseek-coder-33b", (1, 16)), ("whisper-small", (1, 8)),
-            ("rwkv6-3b", (1, 16))}
+# the meshes whose decode step and prefill run once more under the
+# profiler (the device ms of each collective): mistral's four, which the
+# dry run's lines and PERF.md's exchange columns read, and one a model
+# elsewhere, by default (1, 2), where its exchange is (deepseek: (1, 1);
+# the sharded adaptive phase's granite-34b takes the default); every
+# mesh's exchange is counted in bytes. The profiler's parse of a placed
+# step's events takes seconds: the traces of the meshes left out took
+# 29.6 s of an H100 run's phase ("NVIDIA H100 80GB HBM3, 700.00 W"),
+# those of (1, 8) and (1, 16) 8.8-34.8 s each
+TRACED = collections.defaultdict(lambda: ((1, 2),), {
+    "mistral-large-123b": ((1, 1), (1, 2), (1, 4), (2, 2)),
+    "deepseek-coder-33b": ((1, 1),)})
 SHARDED_SHAPE = dict(batch=4, seq=2048, n_dec=16)
 # the prompt where it is not SHARDED_SHAPE's: whisper-small's 16 clips of
 # 224 tokens (the cross-attention phase's), each with its 1500 frames;
@@ -3867,28 +4029,29 @@ SHARDED_SHAPES = {"whisper-small": dict(batch=16, seq=224, n_dec=16)}
 # 700.00 W")
 SHARDED_BF16_REL = 0.02
 # per model: about twice the largest an H100 gave for the MoE and recurrent
-# models (dbrx 0.00617, grok 0.00607, recurrentgemma 0.0123, rwkv 0.4723:
-# rwkv's bf16 rounding grows with depth, as against f32 (0.52 at 32
-# layers), so its limit only reports)
+# models (dbrx 0.00617, grok 0.00607, recurrentgemma 0.0123, rwkv 0.0242
+# at the 3 layers of SHARDED_LAYERS: rwkv's bf16 rounding grows with
+# depth, as against f32, to 0.4723 whole)
 SHARDED_REL = {"mistral-large-123b": SHARDED_BF16_REL,
                "gemma-7b": SHARDED_BF16_REL,
                "dbrx-132b": 0.0125, "grok-1-314b": 0.0125,
-               "rwkv6-3b": 0.95, "recurrentgemma-9b": 0.025,
+               "rwkv6-3b": 0.05, "recurrentgemma-9b": 0.025,
                # twice the 0.01033 (llama whole) and 0.01029 an H100 gave
                "llama-3.2-vision-11b": 0.021, "whisper-small": 0.021,
                # about twice the 0.006247 an H100 gave at (1, 16) (2 of
                # 62 layers; whisper-small's (1, 8) gave 0.009976)
                "deepseek-coder-33b": 0.0125}
 # the bf16 limit cannot see a wrong split of rwkv6-3b, so it runs again in
-# f32 (whole, prefill batch x seq and n_dec decode steps) on its meshes,
-# held against (1, 1) under F32_REL (an H100 gave 4.311e-4 and 3.768e-4
-# at (1, 2) and (2, 2), as large as the f32 prefill's distance to f32
-# token-by-token decoding at 32 layers, 4.227e-4; on a CPU smoke model a
-# channel mix that drops its all-reduce is 0.49 away)
-# whisper-small whole in f32 (2 x 224 tokens, 2 x 1500 frames, 4 decode
-# steps) holds the d-sharded embedding and head (its odd vocab), the
-# encoder and the cross-attention to the same limit
-SHARDED_F32 = (dict(arch="rwkv6-3b", batch=2, seq=1024, n_dec=4),
+# f32 (8 of its 32 layers, prefill batch x seq and n_dec decode steps) on
+# its meshes, held against (1, 1) under about twice the largest an H100
+# gave at 8 layers, 3.569e-5 ("NVIDIA H100 80GB HBM3, 700.00 W"; whole,
+# 4.311e-4 at (1, 2), under F32_REL; on a CPU smoke model a channel mix
+# that drops its all-reduce is 0.49 away; whole it took 15.0 s of an H100
+# run). whisper-small whole in f32 (2 x 224 tokens, 2 x 1500 frames, 4
+# decode steps) holds the d-sharded embedding and head (its odd vocab),
+# the encoder and the cross-attention to F32_REL
+SHARDED_F32 = (dict(arch="rwkv6-3b", batch=2, seq=1024, n_dec=4, layers=8,
+                    rel=8e-5),
                dict(arch="whisper-small", batch=2, seq=224, n_dec=4))
 # limit of the MoE prefill's drops against (1, 1)'s, as a share of the
 # assignments: the sum over layers of each layer's difference (the
@@ -4094,12 +4257,14 @@ def position_operands(torch, cfg, params, toks, mesh, i=0):
         return tuple(a.contiguous() for a in ops), kind, offset
 
 
-def sharded_f32_check(torch, dev, smi_line, arch, batch, seq, n_dec):
-    """`arch` whole in f32 (TF32 off), weights drawn as in
+def sharded_f32_check(torch, dev, smi_line, arch, batch, seq, n_dec,
+                      layers=None, rel=F32_REL):
+    """`arch` in f32 (TF32 off), whole or its first `layers` layers,
+    weights drawn as in
     `sharded_lm_phase` (its frontend too), on each of its meshes of
     SHARDED_MESHES inside `use_mesh`: a prefill of batch x seq tokens and
     n_dec decode steps fed (1, 1)'s greedy tokens, the logits held
-    against (1, 1)'s under F32_REL relative L2 (in bf16 rwkv6-3b's
+    against (1, 1)'s under `rel` relative L2 (in bf16 rwkv6-3b's
     rounding at full depth is as large as what a wrong column split,
     head slice or all-reduce would change; whisper-small's row-parallel
     head, encoder and cross-attention are held as closely). Returns the
@@ -4111,8 +4276,9 @@ def sharded_f32_check(torch, dev, smi_line, arch, batch, seq, n_dec):
     from repro_torch.sharding import placement as pl
     from repro_torch.sharding import use_mesh
 
-    cfg = dataclasses.replace(get_config(arch), dtype="float32",
-                              param_dtype="float32")
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, dtype="float32", param_dtype="float32",
+                              num_layers=layers or full.num_layers)
     toks = torch.from_numpy(synthetic_lm_batch(
         np.random.default_rng(2), batch, seq, cfg.vocab_size)[
         "tokens"]).long().to(dev)
@@ -4158,7 +4324,9 @@ def sharded_f32_check(torch, dev, smi_line, arch, batch, seq, n_dec):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     rows = frontend_rows(cfg)
-    line = (f"{arch} whole in f32 on its meshes, prefill {batch} x {seq} "
+    depth = ("whole" if layers is None
+             else f"{layers} of {full.num_layers} layers")
+    line = (f"{arch} {depth} in f32 on its meshes, prefill {batch} x {seq} "
             + (f"with {batch} x {rows} frontend rows " if rows else "")
             + f"and {n_dec} decode steps ({time.perf_counter() - t0:.1f} s), "
             f"against (1, 1): " + "; ".join(
@@ -4166,12 +4334,12 @@ def sharded_f32_check(torch, dev, smi_line, arch, batch, seq, n_dec):
                 f"logits {pre:.4g}, of the decode steps' {dec:.4g}, argmax "
                 f"agreement {agree:.4f}"
                 for (d, m), (pre, dec, agree) in errs.items())
-            + f" (limit {F32_REL}); {smi_line}")
+            + f" (limit {rel}); {smi_line}")
     print(line)
     for (d, m), (pre, dec, _) in errs.items():
-        check(pre < F32_REL and dec < F32_REL,
+        check(pre < rel and dec < rel,
               f"{arch} f32 mesh (data {d}, model {m}) logits within "
-              f"{F32_REL} of (1, 1) ({pre}, {dec})")
+              f"{rel} of (1, 1) ({pre}, {dec})")
     return line
 
 
@@ -4195,9 +4363,9 @@ def sharded_lm_phase(torch, dev, kernels, smi_line, measured=None):
     of the first layer that runs it, at the per-position shape, against
     its plain version (`attention_check`, `wkv_check`); the main path
     inside `use_mesh`: prefill 4 x 2048 (the kernel once per layer and
-    position), a traced prefill, 16 decode steps fed the (1, 1) mesh's
-    greedy tokens, a traced decode step, and 4 requests through
-    `LMServingEngine`. Prints prefill tokens/s, decode ms a step, the
+    position), 16 decode steps fed the (1, 1) mesh's greedy tokens, on
+    the TRACED meshes a traced prefill and decode step, and 4 requests
+    through `LMServingEngine`. Prints prefill tokens/s, decode ms a step, the
     exchange's bytes (counted) and device ms (traced) for a prefill and
     a step, the bytes placed per position, for MoE the share of
     assignments dropped (held within MOE_DROP_GAP of (1, 1)'s), the
@@ -4397,10 +4565,9 @@ def sharded_lm_phase(torch, dev, kernels, smi_line, measured=None):
                               f"xv bit for bit ({n_x} entries)")
                     del fresh
                 lap("prefill and decode")
-                # one traced step each, warm from the steps above (the
-                # profiler's parse of a sharded step's events takes
-                # seconds; not on the UNTRACED meshes)
-                untraced = (arch, (data, model_ax)) in UNTRACED
+                # one traced step each, warm from the steps above, on
+                # the TRACED meshes
+                untraced = (data, model_ax) not in TRACED[arch]
                 if not untraced:
                     wall, busy, ex_ms = exchange_profile(
                         torch, lambda: M.decode_step(cfg, params, cache,
@@ -4541,8 +4708,8 @@ def sharded_adaptive_phase(torch, dev, kernels, smi_line):
     against its plain version; the prefill (B4 once per layer and
     position); n_dec decode steps at full depth, then with
     `adaptive_decode_step` at t_s 0, the middle t_s and 1e9, each on the
-    prompts' next tokens; a traced prefill and adaptive step (the
-    exchange's device ms); the adaptive engine (4 requests). Held against
+    prompts' next tokens; on (1, 2) a traced prefill and adaptive step
+    (the exchange's device ms); the adaptive engine (4 requests). Held against
     (1, 1): the exit blocks equal except tokens whose saturation lies
     within D2_MARGIN (relative) of t_s, at most MAX_NEAR_SHARE of them,
     the FLOPs share equal where no exit differs, the logits within
@@ -4673,12 +4840,15 @@ def sharded_adaptive_phase(torch, dev, kernels, smi_line):
                                for g in got])
                 acfg = dataclasses.replace(cfg, adaptive=dataclasses.replace(
                     cfg.adaptive, t_s=mid))
-                wall, busy, ex_ms = exchange_profile(
-                    torch, lambda: adaptive_decode_step(
-                        acfg, params, cache, inputs[-1], seq + n_dec - 1))
-                pre_wall, pre_busy, pre_ms = exchange_profile(
-                    torch, lambda: M.prefill_step(cfg, params, toks,
-                                                  length=seq + n_dec))
+                untraced = (data, model_ax) not in TRACED["granite-34b"]
+                if not untraced:
+                    wall, busy, ex_ms = exchange_profile(
+                        torch, lambda: adaptive_decode_step(
+                            acfg, params, cache, inputs[-1],
+                            seq + n_dec - 1))
+                    pre_wall, pre_busy, pre_ms = exchange_profile(
+                        torch, lambda: M.prefill_step(cfg, params, toks,
+                                                      length=seq + n_dec))
                 eng = LMServingEngine(acfg, params, slots=4, max_len=64,
                                       adaptive=True, device=dev)
                 for r in reqs:
@@ -4744,14 +4914,18 @@ def sharded_adaptive_phase(torch, dev, kernels, smi_line):
                     f"{t_prefill:.3f} s, {batch * seq / t_prefill:.1f} "
                     f"tokens/s, flash_attention launches "
                     f"{launches['flash_attention']}, exchange {pre_ex} bytes"
-                    f", traced {pre_wall:.2f} ms wall, device busy "
-                    f"{pre_busy:.2f} ms, exchange device ms {traced(pre_ms)}"
-                    f"; decode at full depth {1e3 * t_full / n_dec:.2f} ms a "
-                    f"step, exchange {step_ex // n_dec} bytes a step, "
-                    f"logits vs (1, 1) {err_full:.4g}; traced adaptive step "
-                    f"(t_s {mid:.6g}) {wall:.2f} ms wall, device busy "
-                    f"{busy:.2f} ms, exchange device ms {traced(ex_ms)}; "
-                    + "; ".join(parts) + f"; engine (t_s {mid:.6g}) 4 "
+                    + (", not traced" if untraced else
+                       f", traced {pre_wall:.2f} ms wall, device busy "
+                       f"{pre_busy:.2f} ms, exchange device ms "
+                       f"{traced(pre_ms)}")
+                    + f"; decode at full depth {1e3 * t_full / n_dec:.2f} ms "
+                    f"a step, exchange {step_ex // n_dec} bytes a step, "
+                    f"logits vs (1, 1) {err_full:.4g}; "
+                    + ("adaptive step not traced" if untraced else
+                       f"traced adaptive step (t_s {mid:.6g}) {wall:.2f} ms "
+                       f"wall, device busy {busy:.2f} ms, exchange device "
+                       f"ms {traced(ex_ms)}")
+                    + "; " + "; ".join(parts) + f"; engine (t_s {mid:.6g}) 4 "
                     f"requests in {stats['ticks']} ticks, {32 / t_eng:.1f} "
                     f"generated tokens/s, mean depth-FLOPs saved "
                     f"{stats['mean_depth_flops_saved']:.4f} ((1, 1) "
@@ -5297,7 +5471,9 @@ def dryrun_lines(measured, smi_line):
 # depth cut (mistral 4 of 88 layers: 11.1 GB of bf16 weights and 8.6 GB
 # of cache at (1, 1), twice the weights at (2, 1) and (2, 2), where
 # every data position holds its copy; rwkv 12 of 32 and dbrx 2 of 40),
-# to keep the run within its time
+# to keep the run within its time. bf16 logits within SHARDED_REL of (1,
+# 1)'s; rwkv's within about twice the 0.1517 an H100 gave at 12 layers
+# ("NVIDIA H100 80GB HBM3, 700.00 W")
 BATCH_ONE = (
     dict(arch="mistral-large-123b", layers=4, batch=1, seq=8192,
          length=524_288, n_dec=16,
@@ -5305,7 +5481,7 @@ BATCH_ONE = (
                  {"data": 2, "model": 2})),
     dict(arch="rwkv6-3b", layers=12, batch=1, seq=2048, length=None,
          n_dec=16, meshes=({"data": 1, "model": 1}, {"data": 2, "model": 2}),
-         f32=True),
+         f32=True, bf16_rel=0.3),
     dict(arch="dbrx-132b", layers=2, batch=4, seq=2048, length=None,
          n_dec=16, meshes=({"data": 1, "model": 1},
                            {"pod": 2, "data": 2, "model": 1})))
@@ -5566,7 +5742,8 @@ def batch_one_phase(torch, dev, kernels, smi_line):
                     lines.append(line)
                     if "kernel_line" in r:
                         lines.append(r["kernel_line"])
-                    lim = F32_REL if dtype == "float32" else SHARDED_REL[arch]
+                    lim = (F32_REL if dtype == "float32" else
+                           job.get("bf16_rel", SHARDED_REL[arch]))
                     check(err_pre < lim and err_dec < lim,
                           f"{label} logits within {lim} of (1, 1) "
                           f"({err_pre}, {err_dec})")
@@ -5612,23 +5789,40 @@ def main() -> int:
 
     # ------------------------------------------------------------- build
     phase("build")
-    t0 = time.perf_counter()
-    lib_path = build.build_library()
-    build.library()
-    print(f"built {lib_path.name} in "
-          f"{time.perf_counter() - t0:.1f}s")
-    for line in Path(str(lib_path) + ".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print("  " + line.strip())
-
-    rows, train = gnn_phases(torch, dev, kernels)
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        scale = ScaleStore(tmp)       # made while the kernels build
+        try:
+            t0 = time.perf_counter()
+            lib_path = build.build_library()
+            build.library()
+            print(f"built {lib_path.name} in "
+                  f"{time.perf_counter() - t0:.1f}s")
+            for line in Path(str(lib_path) + ".log").read_text(
+                    ).splitlines():
+                if ("registers" in line or "spill" in line
+                        or line.startswith("==")):
+                    print("  " + line.strip())
+            t0 = time.perf_counter()
+            scale.wait()
+            print(f"the scale store's process ended "
+                  f"{time.perf_counter() - t0:.1f} s after the build")
+            rows, train = gnn_phases(torch, dev, kernels, tmp, scale)
+        finally:
+            scale.stop()
     torch.cuda.empty_cache()
-    # bf16 limits: about twice the error measured on an H100 (0.523 and
-    # 0.0114), rwkv6-3b's kept below the 1.41 of unrelated logits
-    rows.append(lm_phases(torch, dev, kernels, "rwkv6-3b", 4, 2048, 2048,
-                          1.0, smi_line))
-    rows.append(lm_phases(torch, dev, kernels, "recurrentgemma-9b", 2, 4096,
-                          2200, 0.03, smi_line))
+    # depth 4 of 32 and 5 of 38 layers: the end-to-end gates' f32
+    # token-by-token reference is a decode step per token and layer (76.1
+    # and 116.4 s whole on an H100 host, "NVIDIA H100 80GB HBM3, 700.00 W",
+    # where the rest of each phase took 10.8 and 18.0 s); recurrentgemma-
+    # 9b's 5 are one (rglru, rglru, local) repeat and its two rglru, whose
+    # band the 2200-token prompts pass. Limits, f32 and bf16: about twice
+    # the largest error an H100 gave at these depths (rwkv6-3b 1.653e-05
+    # and 0.0484, recurrentgemma-9b 1.796e-06 and 0.009207)
+    rows.append(lm_phases(torch, dev, kernels, "rwkv6-3b", 4, 4, 2048, 2048,
+                          4e-5, 0.1, smi_line))
+    rows.append(lm_phases(torch, dev, kernels, "recurrentgemma-9b", 5, 2,
+                          4096, 2200, 4e-6, 0.02, smi_line))
     # MoE (ROADMAP A10.1), after the dense models are freed; B4's row adds
     # their prefills' launches
     b4 = rows[-1]
@@ -5726,6 +5920,7 @@ def main() -> int:
     for text in bounded:
         print(text)
     print(smi_line)
+    print(json.dumps(BUDGET.line()))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -77,12 +77,16 @@ class NAIResult:
 def _subgraph_spmm(sup: Support, x: np.ndarray, active_nodes: np.ndarray
                    ) -> Tuple[np.ndarray, int]:
     """One propagation step restricted to edges whose destination is in
-    `active_nodes` (bool mask over support). Returns (new_x, edges_used)."""
+    `active_nodes` (bool mask over support). Returns (new_x, edges_used).
+    The edges' rows are summed on torch's CPU `index_add_`, in the edge
+    list's order as `np.add.at` sums them: the same bits, several times
+    faster."""
     emask = active_nodes[sup.dst]
     src, dst, coef = sup.src[emask], sup.dst[emask], sup.coef[emask]
     out = x.copy()
-    acc = np.zeros_like(x)
-    np.add.at(acc, dst, coef[:, None] * x[src])
+    rows = torch.from_numpy(coef[:, None] * x[src])
+    acc = torch.zeros(x.shape, dtype=rows.dtype).index_add_(
+        0, torch.from_numpy(dst).long(), rows).numpy()
     out[active_nodes] = acc[active_nodes]
     return out, int(emask.sum())
 

@@ -11,9 +11,11 @@ from repro_torch.kernels.spmm.kernel import (  # noqa: E402
     nonfinite_blocks, spmm_block_ell, zero_flags)
 from repro_torch.kernels.spmm.ops import (  # noqa: E402
     BlockEll, active_blocks_from_nodes, build_block_ell, pad_features, spmm)
-from repro_torch.kernels.spmm.ref import ref_spmm_block_ell  # noqa: E402
+from repro_torch.kernels.spmm.ref import (  # noqa: E402
+    ref_spmm_block_ell, ref_spmm_dense)
 
 __all__ = ["RB", "CB", "FB", "SLAB", "nonfinite_blocks", "zero_flags",
-           "spmm_block_ell", "ref_spmm_block_ell", "BlockEll",
+           "spmm_block_ell", "ref_spmm_block_ell", "ref_spmm_dense",
+           "BlockEll",
            "active_blocks_from_nodes", "build_block_ell", "pad_features",
            "spmm"]

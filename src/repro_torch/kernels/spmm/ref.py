@@ -1,4 +1,6 @@
-"""Plain PyTorch version of the block-ELL SpMM kernel."""
+"""Plain PyTorch versions of the block-ELL SpMM kernel: one on the packed
+tiles (`ref_spmm_block_ell`) and one on the edge list (`ref_spmm_dense`),
+which catches converter bugs apart from kernel bugs."""
 from __future__ import annotations
 
 import torch
@@ -24,3 +26,20 @@ def ref_spmm_block_ell(tiles: torch.Tensor, tile_col: torch.Tensor,
             out[rows] += torch.bmm(tiles[rows, t].float(),
                                    xb[tile_col[rows, t].long()].float())
     return out.reshape(n_rb * RB, F).to(x.dtype)
+
+
+def ref_spmm_dense(src, dst, coef, n_pad: int, x: torch.Tensor,
+                   active) -> torch.Tensor:
+    """Dense-materialised Â @ x with inactive row blocks zeroed, in f64.
+    src/dst/coef: the edge list (deduplicated: a repeated edge keeps one
+    of its coefficients), numpy or tensors; x (n_pad, F); active (n_rb,).
+    Builds an (n_pad, n_pad) matrix on x's device: for small graphs."""
+    dev = x.device
+    A = torch.zeros((n_pad, n_pad), dtype=torch.float64, device=dev)
+    A[torch.as_tensor(dst, device=dev).long(),
+      torch.as_tensor(src, device=dev).long()] = torch.as_tensor(
+          coef, device=dev).double()
+    out = A @ x.double()
+    rows = torch.repeat_interleave(torch.as_tensor(active, device=dev) != 0,
+                                   RB)[:n_pad]
+    return torch.where(rows[:, None], out, 0.0).to(x.dtype)

@@ -1,6 +1,7 @@
-"""Plain PyTorch version of the WKV6 kernel: the chunked factorization of
+"""Plain PyTorch versions of the WKV6 kernel: the chunked factorization of
 `repro.nn.rwkv._wkv_chunked` / `repro.kernels.wkv6.kernel._kernel`, with
-a zero initial state."""
+a zero initial state (`ref_wkv6`), and the per-step recurrence in f64, the
+mathematical definition of RWKV6 time mixing (`ref_wkv6_sequential`)."""
 from __future__ import annotations
 
 import torch
@@ -31,3 +32,21 @@ def ref_wkv6(r, k, v, logw, u):
         S = S * torch.exp(last).transpose(1, 2) \
             + torch.einsum("bsc,bsd->bcd", kscale, vv)
     return out, S
+
+
+def ref_wkv6_sequential(r, k, v, logw, u):
+    """The direct recurrence, one step at a time, in f64: out_t = r_t (S +
+    diag(u) k_t v_t^T), S <- diag(exp(logw_t)) S + k_t v_t^T from S = 0.
+    r/k/v/logw (BH, T, hd), u (BH, hd), numpy or tensors (on their
+    device). Returns out (BH, T, hd) f32."""
+    r, k, v, logw, u = (torch.as_tensor(a).double()
+                        for a in (r, k, v, logw, u))
+    BH, T, hd = r.shape
+    S = torch.zeros((BH, hd, hd), dtype=torch.float64, device=r.device)
+    out = torch.empty((BH, T, hd), dtype=torch.float64, device=r.device)
+    for t in range(T):
+        kv = k[:, t, :, None] * v[:, t, None, :]
+        out[:, t] = torch.einsum("bc,bcd->bd", r[:, t],
+                                 S + u[:, :, None] * kv)
+        S = torch.exp(logw[:, t])[:, :, None] * S + kv
+    return out.float()

@@ -164,3 +164,26 @@ def test_buckets_equal():
         for m in (1, 8, 128):
             assert t_next_bucket(x, m) == j_next_bucket(x, m)
         assert t_batch_bucket(max(x, 1)) == j_batch_bucket(max(x, 1))
+
+
+
+@pytest.mark.parametrize("active", ["all", "half", "none"])
+def test_subgraph_spmm_array_equal(active):
+    """The host path's propagation step sums the edges' rows on torch's
+    `index_add_`; the JAX package's uses numpy's `add.at`. Same bits, for
+    every support node active, half of them, and none."""
+    from repro.gnn.nai import _subgraph_spmm as j_spmm
+    from repro_torch.gnn.nai import _subgraph_spmm as t_spmm
+    jg, tg = _graphs(scale=0.05)
+    batch = np.unique(np.random.default_rng(3).choice(tg.test_idx, 48))
+    j_sup = j_sample(j_as_store(jg), batch, 3, 0.5)
+    t_sup = t_sample(t_as_store(tg), batch, 3, 0.5)
+    n = len(t_sup)
+    mask = {"all": np.ones(n, bool), "none": np.zeros(n, bool),
+            "half": np.random.default_rng(5).random(n) < 0.5}[active]
+    x = t_as_store(tg).gather_features(t_sup.nodes).astype(np.float32)
+    for _ in range(2):
+        (jx, je), (tx, te) = j_spmm(j_sup, x, mask), t_spmm(t_sup, x, mask)
+        np.testing.assert_array_equal(jx, tx)
+        assert je == te
+        x = tx
