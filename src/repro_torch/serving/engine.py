@@ -47,6 +47,14 @@ Two serving modes:
   a set is refilled the host waits on the event recorded after its last
   copies, so packing never overwrites bytes still being copied.
 
+Spans: a compiled-mode batch's host stage is ``serve.host`` and its
+device stage ``serve.dispatch``, `torch.profiler` ranges while a profiler
+records (`profiled`), so they share its clock with the device events.
+The host stage's parts ``serve.host.sample``, ``.gather``, ``.factors``
+and ``.pack`` (`_span`) also put their seconds into the batch's
+`batch_timings` entry (``sample_s``, ``gather_s``, ``factors_s``,
+``pack_s``) beside ``host_s``, ``dispatch_s`` and ``sync_s``.
+
 Compiled-mode `spmm_impl` names a registered `PropagationBackend`
 (`repro_torch.gnn.backends`): ``segment``, ``block_ell`` or ``fused``.
 
@@ -107,6 +115,7 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import profiled
 from repro_torch.gnn.backends import (BACKENDS, GATHER_MODES,
                                       exchange_bytes_per_step, get_backend,
                                       mesh_devices, normalize_mesh,
@@ -122,6 +131,17 @@ from repro_torch.gnn.sampler import sample_support
 from repro_torch.gnn.store import as_store
 from repro_torch.serving.faults import (InjectedFault, NaNGuardError,
                                         WatchdogTimeout, poison_results)
+
+
+@contextlib.contextmanager
+def _span(name: str, rec: Dict, key: str):
+    """One named part of the host stage of the batch being served: a
+    profiler range (`profiled`) and its seconds in the batch's record
+    `rec` under `key`."""
+    t0 = time.perf_counter()
+    with profiled(name):
+        yield
+    rec[key] = time.perf_counter() - t0
 
 
 def _tensors(tree):
@@ -286,6 +306,7 @@ class _Inflight:
     t_submit: float = 0.0    # wall clock at dispatch (watchdog anchor)
     series: Optional[torch.Tensor] = None   # (T_max, nb, f) steps 1..T_max
     fill: object = None      # cache fill record (nodes, deps, gv) or None
+    stages: Dict = dataclasses.field(default_factory=dict)  # _span seconds
 
 
 # PackedSupport fields that travel to the device
@@ -359,7 +380,8 @@ class NAIServingEngine:
         # cache): a new key counts as a compile, a seen one as a hit
         self.jit_stats: Dict[str, int] = {"compiles": 0, "hits": 0}
         self._seen_keys: set = set()
-        # per-batch stage breakdown (host/dispatch/sync seconds), bounded
+        # per-batch stage breakdown (host/dispatch/sync seconds and the
+        # host stage's parts, `_span`), bounded
         self.batch_timings: Deque[Dict[str, float]] = deque(maxlen=1024)
         # bucket high-water marks keyed by padded batch size
         # -> (s_bucket, tb_bucket, e_bucket, h_bucket, hb_bucket, k_bucket)
@@ -440,31 +462,35 @@ class NAIServingEngine:
             pinned[name] = t
         return pinned
 
-    def _host_stage(self, nodes: np.ndarray):
+    def _host_stage(self, nodes: np.ndarray, rec: Dict):
         """Sample the support and pack it into a pooled buffer set, plus
         the static per-step row-block predicate for the tile backends.
-        `nodes` must be duplicate-free. Returns (packed, step_active, slot,
+        `nodes` must be duplicate-free; `rec` takes the seconds of the
+        stage's parts (`_span`). Returns (packed, step_active, slot,
         fill): `fill` is the cache's fill record (batch nodes, support
         nodes, mutation clock at sample time), or None."""
         store, cfg, nai = self.store, self.cfg, self.nai
         be = self._backend
-        sup = sample_support(store, nodes, nai.t_max, cfg.r,
-                             cache=self.cache)
+        with _span("serve.host.sample", rec, "sample_s"):
+            sup = sample_support(store, nodes, nai.t_max, cfg.r,
+                                 cache=self.cache)
         nb = sup.n_batch
         n_hit = int(sup.hit.sum()) if sup.hit is not None else 0
         self.row_stats["rows_support"] += len(sup)
         self.row_stats["rows_packed"] += len(sup) - n_hit
-        x0 = store.gather_features(sup.nodes).astype(np.float32)
+        with _span("serve.host.gather", rec, "gather_s"):
+            x0 = store.gather_features(sup.nodes).astype(np.float32)
         # the dense x_inf is built from the f32 factors, so the fused
         # kernel (which multiplies the factors in f32) sees the same
         # stationary state bit for bit; the fused path never builds it
-        c_inf, s_inf = support_stationary_factors(store, sup, x0, cfg.r)
-        c_inf = c_inf.astype(np.float32)
-        s_inf = s_inf.astype(np.float32)
-        if be.uses_dense_x_inf:
-            x_inf = c_inf[:, None] * s_inf[None, :]
-        else:
-            x_inf = np.zeros((nb, 0), np.float32)
+        with _span("serve.host.factors", rec, "factors_s"):
+            c_inf, s_inf = support_stationary_factors(store, sup, x0, cfg.r)
+            c_inf = c_inf.astype(np.float32)
+            s_inf = s_inf.astype(np.float32)
+            if be.uses_dense_x_inf:
+                x_inf = c_inf[:, None] * s_inf[None, :]
+            else:
+                x_inf = np.zeros((nb, 0), np.float32)
 
         nb_bucket = batch_bucket(nb, self.n_shards)
         hwm = self._bucket_hwm.get(nb_bucket, (0,) * 6)
@@ -474,40 +500,42 @@ class NAIServingEngine:
         slot = (nb_bucket, idx)
         for ev in self._copied.pop(slot, ()):
             ev.synchronize()   # the slot's last copies have finished
-        packed = pack_support(sup, x0, x_inf, nb_bucket=nb_bucket,
-                              s_bucket=hwm[0], tb_bucket=hwm[1],
-                              e_bucket=hwm[2],
-                              build_tiles=be.uses_tiles,
-                              build_edges=be.uses_edges,
-                              x_inf_factors=(c_inf, s_inf)
-                              if be.uses_factors else None,
-                              out=slots[idx], n_shards=self.n_shards,
-                              halo=self.gather_mode != "dense",
-                              h_bucket=hwm[3], hb_bucket=hwm[4],
-                              seeds=(sup.hit, sup.seed_vals)
-                              if self.cache is not None else None,
-                              k_bucket=hwm[5])
-        slots[idx] = packed
-        self._pool_idx[nb_bucket] = (idx + 1) % len(slots)
-        self.pack_stats["reuses" if packed.reused else "allocs"] += 1
-        if self.device.type == "cuda" and not packed.reused:
-            self._pinned[slot] = self._pin(packed)
-        self._bucket_hwm[nb_bucket] = (
-            max(hwm[0], packed.n_pad), max(hwm[1], packed.tiles.shape[1]),
-            max(hwm[2], packed.src.shape[-1]),
-            max(hwm[3], packed.n_halo_pad),
-            max(hwm[4], packed.halo_send_pad),
-            max(hwm[5], packed.seed_pad))
-        if self.mesh is not None:
-            self._record_halo(packed)
-        key = packed.shape_key(self.spmm_impl)
-        if key in self._seen_keys:
-            self.jit_stats["hits"] += 1
-        else:
-            self._seen_keys.add(key)
-            self.jit_stats["compiles"] += 1
-        step_active = (step_active_blocks(packed.hop_rb, nai.t_max)
-                       if be.uses_tiles else None)
+        with _span("serve.host.pack", rec, "pack_s"):
+            packed = pack_support(sup, x0, x_inf, nb_bucket=nb_bucket,
+                                  s_bucket=hwm[0], tb_bucket=hwm[1],
+                                  e_bucket=hwm[2],
+                                  build_tiles=be.uses_tiles,
+                                  build_edges=be.uses_edges,
+                                  x_inf_factors=(c_inf, s_inf)
+                                  if be.uses_factors else None,
+                                  out=slots[idx], n_shards=self.n_shards,
+                                  halo=self.gather_mode != "dense",
+                                  h_bucket=hwm[3], hb_bucket=hwm[4],
+                                  seeds=(sup.hit, sup.seed_vals)
+                                  if self.cache is not None else None,
+                                  k_bucket=hwm[5])
+            slots[idx] = packed
+            self._pool_idx[nb_bucket] = (idx + 1) % len(slots)
+            self.pack_stats["reuses" if packed.reused else "allocs"] += 1
+            if self.device.type == "cuda" and not packed.reused:
+                self._pinned[slot] = self._pin(packed)
+            self._bucket_hwm[nb_bucket] = (
+                max(hwm[0], packed.n_pad),
+                max(hwm[1], packed.tiles.shape[1]),
+                max(hwm[2], packed.src.shape[-1]),
+                max(hwm[3], packed.n_halo_pad),
+                max(hwm[4], packed.halo_send_pad),
+                max(hwm[5], packed.seed_pad))
+            if self.mesh is not None:
+                self._record_halo(packed)
+            key = packed.shape_key(self.spmm_impl)
+            if key in self._seen_keys:
+                self.jit_stats["hits"] += 1
+            else:
+                self._seen_keys.add(key)
+                self.jit_stats["compiles"] += 1
+            step_active = (step_active_blocks(packed.hop_rb, nai.t_max)
+                           if be.uses_tiles else None)
         fill = None
         if self.cache is not None and self.cache_fill:
             # the whole support is the conservative dependency cone of
@@ -711,7 +739,7 @@ class NAIServingEngine:
         done = time.perf_counter()
         self.batch_timings.append({
             "host_s": fl.host_s, "dispatch_s": fl.dispatch_s,
-            "sync_s": done - t0, "n": len(fl.requests)})
+            "sync_s": done - t0, "n": len(fl.requests), **fl.stages})
         self._complete(fl.requests, preds, orders, done)
         return fl.requests
 
@@ -822,18 +850,21 @@ class NAIServingEngine:
                 return self._fail_batch(batch, e)
             self._complete(batch, p_u[inv], o_u[inv], time.perf_counter())
             return batch
+        rec: Dict = {}
         t0 = time.perf_counter()
         try:
-            self._inject_host_faults()
-            packed, step_active, slot, fill = self._host_stage(uniq)
+            with profiled("serve.host"):
+                self._inject_host_faults()
+                packed, step_active, slot, fill = self._host_stage(uniq, rec)
             t1 = time.perf_counter()
-            if (self._faults is not None
-                    and self._faults.fire("device") is not None):
-                raise InjectedFault("injected device-stage failure")
-            preds, orders, series, ev = self._device_stage(
-                packed, step_active, slot)
-            preds, orders, ev = poison_results(self._faults, preds, orders,
-                                               ev)
+            with profiled("serve.dispatch"):
+                if (self._faults is not None
+                        and self._faults.fire("device") is not None):
+                    raise InjectedFault("injected device-stage failure")
+                preds, orders, series, ev = self._device_stage(
+                    packed, step_active, slot)
+                preds, orders, ev = poison_results(self._faults, preds,
+                                                   orders, ev)
         except Exception as e:   # noqa: BLE001 — batch-level isolation:
             # a stage failure takes down THIS batch only; in-flight batches
             # and the queue are untouched, and _advance keeps the pipeline
@@ -843,7 +874,7 @@ class NAIServingEngine:
         self._inflight.append(
             _Inflight(batch, inv, packed.nb_real, preds, orders, ev,
                       host_s=t1 - t0, dispatch_s=t2 - t1, t_submit=t2,
-                      series=series, fill=fill))
+                      series=series, fill=fill, stages=rec))
         done: List[Request] = []
         while len(self._inflight) >= self.pipeline_depth:
             done += self._finalize_oldest()

@@ -79,6 +79,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.device import profiled
 from repro_torch.launch import cost_analysis
 from repro_torch.sharding.logical import (P, NamedSharding, axis_product,
                                           axis_sizes, current_mesh,
@@ -355,10 +356,9 @@ def _record(op: str, copies: int, nbytes: int,
 
 @contextlib.contextmanager
 def _exchange(op: str):
-    """The context of a collective's copies: a profiler range, and one op
-    for `cost_analysis`."""
-    with torch.profiler.record_function(f"exchange.{op}"), \
-            cost_analysis.one_op():
+    """The context of a collective's copies: a profiler range while a
+    profiler records (`profiled`), and one op for `cost_analysis`."""
+    with profiled(f"exchange.{op}"), cost_analysis.one_op():
         yield
 
 
