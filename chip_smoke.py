@@ -20,8 +20,13 @@ fails (non-zero exit, no result line) on any failed check:
    in rows that non-zero ones name (`nonfinite_phase`); then 2,000 requests
    through `NAIServingEngine(mode="compiled")` for each backend (fused,
    block_ell, segment) at pipeline depth 2, after one warm pass, held
-   against the port's host-mode engine; then seven more NAI phases, each
-   with the launch counters zeroed before it and read after it:
+   against the port's host-mode engine; then the device sampler
+   (`device_sampler_phase`): on the benchmark cell's ogbn-arxiv-sized
+   graph (arxiv-like at scale 1.0), three batches of 500 test-split ids
+   sampled 2 hops deep by `DeviceSampler` on the card, array-equal to the
+   numpy `sample_support`, with both samplers' ms per batch; then seven
+   more NAI phases, each with the launch counters zeroed before it and
+   read after it:
    - sharded (`sharded_phase`, ROADMAP A7): D shards on the one card
      (`make_serving_mesh(D, devices=(cuda:0,) * D)`, printed as the mesh
      it is beside `torch.cuda.device_count()`): the first 1,000 of the
@@ -1031,10 +1036,15 @@ def gnn_phases(torch, dev, kernels, tmp, scale):
         r["launches"] = launches[r["name"]]
         r["note"] = (f"over {n_batches} batches of the backend that runs it "
                      f"({r['launches'] / n_batches:g} per batch)")
+    check(all(eng.sample_stats["host"] == 0
+              and eng.sample_stats["device"] > 0
+              for eng in engines.values()),
+          "the serving engines sampled every batch on the card")
     # the serving engines' pinned pools go before the next phases'
     del engines, host, prof
     gc.collect()
     torch.cuda.empty_cache()
+    device_sampler_phase(torch, dev)
     sharded = sharded_phase(torch, dev, kernels, g, cfg, nai, heads,
                             requests, near)
     for r in rows:
@@ -1052,6 +1062,41 @@ def gnn_phases(torch, dev, kernels, tmp, scale):
     return rows, lambda: train_phase(
         torch, dev, kernels, g, dataclasses.replace(cfg, dropout=0.1), nai,
         requests, dist)
+
+
+def device_sampler_phase(torch, dev, batches: int = 3):
+    """The device sampler against the numpy sampler on the benchmark
+    cell's graph size (arxiv-like at scale 1.0, 169,343 nodes), `batches`
+    batches of 500 test-split ids, 2 hops: every array equal, and each
+    sampler's ms per batch (the first device call uploads the CSR)."""
+    from repro_torch.gnn import load_dataset
+    from repro_torch.gnn.device_sampler import DeviceSampler
+    from repro_torch.gnn.sampler import sample_support
+    from repro_torch.gnn.store import InMemoryStore
+    phase("device sampler")
+    g = load_dataset("arxiv-like", scale=1.0, seed=0)
+    store = InMemoryStore(g)
+    sampler = DeviceSampler(store, 0.5, dev)
+    rng = np.random.default_rng(0)
+    dev_ms, host_ms = [], []
+    for _ in range(batches):
+        batch = rng.choice(g.test_idx, size=500, replace=False)
+        t = time.perf_counter()
+        got = sampler.sample(batch, 2)
+        dev_ms.append(1e3 * (time.perf_counter() - t))
+        t = time.perf_counter()
+        want = sample_support(store, batch, 2, 0.5)
+        host_ms.append(1e3 * (time.perf_counter() - t))
+        check(all(np.array_equal(getattr(got, k), getattr(want, k))
+                  and getattr(got, k).dtype == getattr(want, k).dtype
+                  for k in ("nodes", "hop", "src", "dst", "coef"))
+              and (got.n_batch, got.sub_edges)
+              == (want.n_batch, want.sub_edges),
+              "device sampler == numpy sampler on arxiv-like, batch 500")
+    print(f"device sampler on {g.name} (n={g.n}): support {len(want)} "
+          f"nodes, {len(want.src)} edges; ms per batch, device "
+          f"{[round(v, 2) for v in dev_ms]}, numpy "
+          f"{[round(v, 2) for v in host_ms]}")
 
 
 def raises(fn, exc) -> bool:
@@ -1544,13 +1589,21 @@ def offline_times(st) -> str:
             f"{st['nodes_per_s']:.1f} nodes/s")
 
 
+def device_events(prof):
+    """The kernels, copies and memsets a profiler saw on the card: its
+    CUDA events less the device-side shadows of host ranges (`serve.*`,
+    `exchange.*`), which cover the gaps between the kernels they launched
+    on every stream they launched on."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def device_spans(prof, wall_s):
     """(busy ms, idle share, {kernel name: device ms}) of a profiled
-    window: busy = the union of the CUDA events' intervals."""
-    from torch.autograd import DeviceType
+    window: busy = the union of the device events' intervals."""
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+                   for e in device_events(prof))
     busy_us, reach, by_name = 0.0, -np.inf, {}
     for lo, hi, kname in spans:
         busy_us += max(0.0, hi - max(lo, reach))
@@ -1564,8 +1617,7 @@ def copy_overlap(prof):
     the streams they ran on, the ms of them on a stream that runs no
     kernel (the engine's copy stream), the streams the kernels ran on,
     and the ms of the copies during which a kernel ran."""
-    from torch.autograd import DeviceType
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ev = device_events(prof)
     copies = [e for e in ev if "HtoD" in e.name]
     kern = [e for e in ev if "Memcpy" not in e.name
             and "Memset" not in e.name]

@@ -19,7 +19,12 @@ Two serving modes:
     (`pack_support(out=...)`), so the steady state allocates no fresh
     bucket-sized arrays (`pack_stats`). On CUDA every pooled buffer is
     page-locked (pinned) once, when the set is allocated; packing then
-    writes straight into pinned memory.
+    writes straight into pinned memory. A CUDA engine without the cache
+    and without a mesh samples on the card (`DeviceSampler`, on its own
+    stream, array-equal to the numpy sampler); with the cache (which
+    probes each hop on the host), on a mesh, or on the CPU it samples with
+    the numpy `sample_support`. `sample_stats` counts the batches each
+    path sampled (``device`` / ``host``).
   - **device stage** (`_device_stage`): asynchronous host-to-device copies
     of the operands from the pinned buffers on a copy stream of each
     device (one `torch.cuda.Stream` a distinct device), which the compute
@@ -120,6 +125,7 @@ from repro_torch.gnn.backends import (BACKENDS, GATHER_MODES,
                                       exchange_bytes_per_step, get_backend,
                                       mesh_devices, normalize_mesh,
                                       pack_operands, shard_operands)
+from repro_torch.gnn.device_sampler import DeviceSampler
 from repro_torch.gnn.models import Classifiers, GNNConfig
 from repro_torch.gnn.nai import (NAIConfig, infer_batch_host,
                                  make_compiled_infer,
@@ -375,6 +381,8 @@ class NAIServingEngine:
         # support rows sampled vs rows propagated (the cache's saving)
         self.row_stats: Dict[str, int] = {"rows_support": 0,
                                           "rows_packed": 0}
+        # batches sampled on the card (DeviceSampler) and on the host
+        self.sample_stats: Dict[str, int] = {"device": 0, "host": 0}
         self.pack_stats: Dict[str, int] = {"allocs": 0, "reuses": 0}
         # distinct operand-shape keys dispatched (the reference's jit
         # cache): a new key counts as a compile, a seen one as a hit
@@ -403,6 +411,12 @@ class NAIServingEngine:
                               if self.device.type == "cuda" else {})
         self._backend = None
         self._runner = None
+        # the cache probes each hop on the host and a mesh packs shard by
+        # shard: both keep the numpy sampler
+        self._device_sampler = (
+            DeviceSampler(self.store, cfg.r, self.device)
+            if (ec.mode == "compiled" and self.device.type == "cuda"
+                and self.cache is None and self.mesh is None) else None)
         if ec.mode == "compiled":
             self._backend = get_backend(ec.spmm_impl)
             self._runner = make_compiled_infer(
@@ -431,13 +445,14 @@ class NAIServingEngine:
         return d
 
     def reset_stats(self) -> None:
-        """Zero the request counters, timings, row accounting and the
-        cache's counters; serving state (cache contents, pools, high-water
-        marks, pack and shape-key counters) survives."""
+        """Zero the request counters, timings, row and sampler accounting
+        and the cache's counters; serving state (cache contents, pools,
+        high-water marks, pack and shape-key counters) survives."""
         self.stats = EngineStats(
             latencies=LatencyRing(self.config.latency_window))
         self.batch_timings.clear()
         self.row_stats = {"rows_support": 0, "rows_packed": 0}
+        self.sample_stats = {"device": 0, "host": 0}
         if self.cache is not None:
             self.cache.reset_stats()
 
@@ -472,8 +487,13 @@ class NAIServingEngine:
         store, cfg, nai = self.store, self.cfg, self.nai
         be = self._backend
         with _span("serve.host.sample", rec, "sample_s"):
-            sup = sample_support(store, nodes, nai.t_max, cfg.r,
-                                 cache=self.cache)
+            if self._device_sampler is not None:
+                sup = self._device_sampler.sample(nodes, nai.t_max)
+                self.sample_stats["device"] += 1
+            else:
+                sup = sample_support(store, nodes, nai.t_max, cfg.r,
+                                     cache=self.cache)
+                self.sample_stats["host"] += 1
         nb = sup.n_batch
         n_hit = int(sup.hit.sum()) if sup.hit is not None else 0
         self.row_stats["rows_support"] += len(sup)

@@ -21,7 +21,9 @@ blocks equal) and B4 at their per-position shapes; B4's query offset
 (QOFF) against its plain version and, at offsets on its row blocks,
 bit for bit the rows of the whole causal call, and the fallback
 placements (query rows over "model", rwkv's (batch row, head) pairs) of
-smoke models on the card against the unsharded model (f32 1e-4). Run on
+smoke models on the card against the unsharded model (f32 1e-4); the
+device sampler on the card array-equal to the numpy sampler, and the
+engine's choice between the two (`sample_stats`). Run on
 a GPU
 machine with
 
@@ -1849,3 +1851,72 @@ def test_batch_one_and_multi_pod_on_card(cuda, arch, axes):
     for a, b in zip(got, want):
         assert float((a - b).norm() / b.norm()) < 1e-4
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# ------------------------------------------------ the device sampler
+def _arxiv_engines(cuda, **kw):
+    """arxiv-like at scale 0.05 with SGC heads: the plain engine and the
+    given variant, each over its own store."""
+    from repro_torch.gnn.store import InMemoryStore
+    g = load_dataset("arxiv-like", scale=0.05, seed=0)
+    cfg = GNNConfig("sgc", g.features.shape[1], g.num_classes, k=3,
+                    mlp_layers=1)
+    # about the median first-step distance: both orders exit
+    nai = NAIConfig(t_s=10.0, t_min=1, t_max=2, batch_size=500)
+    heads = init_classifiers(cfg, torch.Generator().manual_seed(0),
+                             device=cuda)
+    return g, cfg, nai, [
+        NAIServingEngine(cfg, nai, heads, InMemoryStore(g), device=cuda,
+                         max_wait_s=10.0, mode="compiled",
+                         spmm_impl="segment", pipeline_depth=2, **extra)
+        for extra in ({}, kw)]
+
+
+@pytest.mark.parametrize("hops,r", [(2, 0.5), (3, 0.5), (2, 0.3)])
+def test_device_sampler_on_card(cuda, hops, r):
+    """The device sampler on the card: array-equal to the numpy sampler
+    for batches of 500, also after a mutation of the store."""
+    from repro_torch.gnn.device_sampler import DeviceSampler
+    from repro_torch.gnn.sampler import sample_support
+    from repro_torch.gnn.store import InMemoryStore
+    g = load_dataset("arxiv-like", scale=0.05, seed=0)
+    store = InMemoryStore(g)
+    sampler = DeviceSampler(store, r, cuda)
+    rng = np.random.default_rng(hops)
+    for rnd in range(3):
+        if rnd == 2:
+            src = rng.choice(g.test_idx, size=16, replace=False)
+            store.add_edges(src, (src + 1) % g.n)
+            store.add_nodes(np.ones((4, g.features.shape[1]), np.float32))
+        batch = rng.choice(g.test_idx, size=500, replace=False)
+        got = sampler.sample(batch, hops)
+        want = sample_support(store, batch, hops, r)
+        for k in ("nodes", "hop", "src", "dst", "coef"):
+            a, b = getattr(got, k), getattr(want, k)
+            assert a.dtype == b.dtype, k
+            np.testing.assert_array_equal(a, b, err_msg=k)
+        assert (got.n_batch, got.sub_edges, got.graph_version) == \
+            (want.n_batch, want.sub_edges, want.graph_version)
+    assert sampler._version == (store.mutation_clock, store.n)
+
+
+def test_engine_sampler_choice_on_card(cuda):
+    """A plain CUDA engine samples every batch on the card, a cached one
+    every batch on the host; their predictions and exit orders agree
+    outside the threshold margin (the cache never fills here, so both
+    propagate the same support)."""
+    g, cfg, nai, (plain, cached) = _arxiv_engines(
+        cuda, cache_nodes=4096, cache_fill=False)
+    rng = np.random.default_rng(5)
+    batches = [rng.choice(g.test_idx, size=500, replace=False)
+               for _ in range(3)]
+    for nodes in batches:
+        pp, op = _serve_all(plain, nodes)
+        pc, oc = _serve_all(cached, nodes)
+        near = near_threshold(decision_distances, cfg, nai, g, nodes, 500)
+        assert_orders_match(pp, op, pc, oc, near)
+        assert set(op) == {1, 2}
+    assert plain.sample_stats == {"device": 3, "host": 0}
+    assert cached.sample_stats == {"device": 0, "host": 3}
+    plain.reset_stats()
+    assert plain.sample_stats == {"device": 0, "host": 0}
