@@ -4,10 +4,12 @@
 
 A cell of `BENCHMARK.json` names a configuration (`bench/configs/`, the
 graph, the heads and the NAI rule) and a traffic mix (`bench/traffic/`,
-the loop, the batch, the engine's serving options). Per-layer metrics are
-readers in `bench/metrics/<metric>.py`, and the limits of the comparison
-that decides `correct` are in `bench/limits/<cell>.json`; all are found by
-name, so a new cell, mix or metric is a new file.
+the loop, the batch, the engine's serving options). A configuration's
+head architecture (its weights' draw, the reference's logits, the counted
+work) is `bench/heads/<base_model>.py`, per-layer metrics are readers in
+`bench/metrics/<metric>.py`, and the limits of the comparison that
+decides `correct` are in `bench/limits/<cell>.json`; all are found by
+name, so a new cell, mix, head architecture or metric is a new file.
 
 Set-up (`setup_s`, from process start to the first timed request): the
 graph from the seed by the frozen generator, wrapped as the program's
@@ -25,7 +27,6 @@ import functools
 import gc
 import itertools
 import json
-import math
 import subprocess
 import sys
 import time
@@ -84,36 +85,32 @@ def forbidden_modules() -> List[str]:
 
 # ------------------------------------------------------------ set-up
 def make_heads(gcfg: dict, seed: int, device) -> Dict[int, Dict]:
-    """The per-order heads' weights from the seed, drawn on `device` in one
-    call (fan-in normal weights, zero biases, 0.02-scaled attention), as
-    the numpy tree that `repro_torch.gnn.convert.params_from_numpy` and
-    the reference both take."""
+    """The per-order heads' weights from the seed, as the head module's
+    `draws` lists them: the normal entries from one `torch.randn` on
+    `device`, the constants filled in. The numpy tree that
+    `repro_torch.gnn.convert.params_from_numpy` and the reference both
+    take."""
     import torch
-    from bench.metrics._counting import layer_dims
-    shapes = []
-    dims = layer_dims(gcfg["base_model"], gcfg["feat_dim"],
-                      gcfg["num_classes"], gcfg.get("hidden"),
-                      gcfg["mlp_layers"])
-    for l in range(1, gcfg["k"] + 1):
-        for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
-            shapes.append((l, f"w{i}", (a, b), 1.0 / math.sqrt(a)))
-            shapes.append((l, f"b{i}", (b,), 0.0))
-        if gcfg["base_model"] == "gamlp":
-            shapes.append((l, "att_w", (gcfg["feat_dim"], gcfg["att_dim"]),
-                           0.02))
-            shapes.append((l, "att_v", (gcfg["att_dim"],), 0.02))
-    total = sum(int(np.prod(s)) for _, _, s, _ in shapes)
+    from bench import heads
+    entries = heads.load(gcfg["base_model"]).draws(gcfg)
+    total = sum(int(np.prod(shape)) for _, _, shape, (kind, _) in entries
+                if kind == "normal")
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed) % (1 << 63))
     flat = torch.randn(total, generator=gen, device=device,
                        dtype=torch.float32).cpu().numpy()
     tree: Dict[int, Dict] = {}
     off = 0
-    for l, key, shape, scale in shapes:
-        n = int(np.prod(shape))
-        tree.setdefault(l, {})[key] = (flat[off:off + n].reshape(shape)
-                                       * np.float32(scale))
-        off += n
+    for l, key, shape, (kind, value) in entries:
+        if kind == "normal":
+            n = int(np.prod(shape))
+            w = flat[off:off + n].reshape(shape) * np.float32(value)
+            off += n
+        elif kind == "const":
+            w = np.full(shape, value, np.float32)
+        else:
+            raise ValueError(f"{key}: init {kind!r}, not normal or const")
+        tree.setdefault(l, {})[key] = w
     return tree
 
 
@@ -157,8 +154,8 @@ def build(cell: dict, seed: int, device: str, log=lambda s: None):
                            mode="compiled", **mix["engine"])
     if device != "cpu":
         torch.cuda.synchronize()
-    return dict(graph=ga, eg=eg, tree=tree, cfg=cfg, nai=nai, engine=eng,
-                t_s=t_s)
+    return dict(graph=ga, eg=eg, gcfg=gcfg, tree=tree, cfg=cfg, nai=nai,
+                engine=eng, t_s=t_s)
 
 
 def _taken(engine, k: int) -> list:
@@ -236,11 +233,13 @@ def answers(rs: list):
 
 
 def reference(built: dict, **kw):
+    from bench import heads
     from bench.reference import nai as ref
-    cfg, nai = built["cfg"], built["nai"]
+    gcfg, nai = built["gcfg"], built["nai"]
     return ref.Reference(built["eg"], built["graph"].features, built["tree"],
-                         model=cfg.base_model, r=cfg.r, t_min=nai.t_min,
-                         t_max=nai.t_max, t_s=built["t_s"], **kw)
+                         logits=heads.load(gcfg["base_model"]).logits,
+                         r=gcfg["r"], t_min=nai.t_min, t_max=nai.t_max,
+                         t_s=built["t_s"], **kw)
 
 
 def check(built: dict, batches: Dict[int, list], stand_ins=None) -> dict:
@@ -292,17 +291,16 @@ class Context:
 
 def count_needs(built: dict, batches: Dict[int, list]) -> dict:
     """Summed needs of every batch of the window (bench.metrics._counting),
-    at the program's exit orders."""
+    at the program's exit orders, from the configuration's own sizes."""
+    from bench import heads
     from bench.metrics import _counting as cnt
-    cfg, nai, peak = built["cfg"], built["nai"], built["peak"]
-    dims = cnt.layer_dims(cfg.base_model, cfg.feat_dim, cfg.num_classes,
-                          cfg.hidden, cfg.mlp_layers)
+    gcfg, nai, peak = built["gcfg"], built["nai"], built["peak"]
+    arch = heads.load(gcfg["base_model"])
     flops = bytes_ = step_time = head = 0.0
     for rs in batches.values():
         uniq, orders, _ = answers(rs)
-        head += cnt.head_flops(cfg.base_model, dims, cfg.feat_dim,
-                               cfg.att_dim, orders)
-        for s in cnt.step_needs(built["eg"], uniq, orders, cfg.feat_dim,
+        head += cnt.head_flops(arch, gcfg, orders)
+        for s in cnt.step_needs(built["eg"], uniq, orders, gcfg["feat_dim"],
                                 nai.t_min, nai.t_max):
             flops += s.flops
             bytes_ += s.bytes
@@ -426,6 +424,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, *,
         if prof is not None:
             from bench.trace import summarize
             summ = summarize(prof)
+            log(f"device s by launching span: {summ.span_device_s}")
             out["device_extra"] = dict(busy_s=summ.busy_s,
                                        window_s=summ.window_s)
             out["breakdown"] = dict(

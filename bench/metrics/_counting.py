@@ -14,7 +14,7 @@ stationary factors and writes one exit flag per active node; the rows it
 reads are the ones just written, counted there.
 
 Heads: each node is classified once, by the head of its exit order, at
-that head's real widths.
+that head's real widths, as its head module (`bench/heads/`) counts.
 """
 from __future__ import annotations
 
@@ -63,26 +63,12 @@ def step_needs(g: EdgeGraph, batch: np.ndarray, orders: np.ndarray, f: int,
     return out
 
 
-def layer_dims(model: str, f: int, classes: int, hidden: int,
-               mlp_layers: int) -> List[int]:
-    """Widths of each head's MLP (SGC and GAMLP read f features)."""
-    if model not in ("sgc", "gamlp"):
-        raise ValueError(model)
-    return [f] + [hidden] * (mlp_layers - 1) + [classes]
-
-
-def head_flops(model: str, dims: List[int], f: int, att_dim: int,
-               orders: np.ndarray) -> float:
+def head_flops(head, gcfg: dict, orders: np.ndarray) -> float:
     """2 x the multiply-adds of classifying each node by the head of its
-    exit order: the MLP's layers at their widths, and for GAMLP the
-    attention's l+1 scores and the weighted sum over the orders."""
+    exit order, as the head module `head` counts them (`macs`)."""
     total = 0.0
-    mlp = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
     for l, n in zip(*np.unique(np.asarray(orders), return_counts=True)):
-        macs = mlp
-        if model == "gamlp":
-            macs += (l + 1) * (f * att_dim + att_dim + f)
-        total += 2.0 * int(n) * macs
+        total += 2.0 * int(n) * head.macs(gcfg, int(l))
     return total
 
 

@@ -14,7 +14,8 @@ weights:
   x_inf[i] = (d_i+1)^r / (2m + S) * sum_{j in S} (d_j+1)^{1-r} x_j;
 * the Eq. 8 distance ||X^(l)_i - x_inf[i]|| at each decision order
   t_min <= l < t_max, the exit at the first order under T_s (else
-  t_max), and every head f^(l) on the node's own series.
+  t_max), and every head f^(l) on the node's own series, by the
+  configuration's head architecture (`bench/heads/`).
 
 By default all of it is float64. ``dtype=float32`` with ``tf32=True`` is
 the control: the same arithmetic one precision below the float32 with
@@ -30,7 +31,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import warnings
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -86,29 +87,9 @@ def _matmul_precision(device: torch.device, tf32: bool):
         torch.backends.cuda.matmul.allow_tf32 = old
 
 
-def head_logits(model: str, p: Dict[str, torch.Tensor], series: torch.Tensor,
-                l: int, emulate_tf32: bool = False) -> torch.Tensor:
-    """Logits of head f^(l) on the series X^(0..l) (>= l+1, N, f): SGC
-    takes X^(l), GAMLP node-wise attention over the orders; then the MLP
-    with ReLU between layers (one layer: SGC's linear form)."""
-    def mm(a, w):
-        return _tf32(a) @ _tf32(w) if emulate_tf32 else a @ w
-    sub = series[:l + 1]
-    if model == "sgc":
-        h = sub[l]
-    elif model == "gamlp":
-        L, N, f = sub.shape
-        scores = torch.tanh(mm(sub.reshape(L * N, f), p["att_w"]))
-        att = mm(scores, p["att_v"][:, None]).reshape(L, N)
-        h = (torch.softmax(att, dim=0)[..., None] * sub).sum(dim=0)
-    else:
-        raise ValueError(model)
-    n_layers = sum(1 for k in p if k.startswith("w"))
-    for i in range(n_layers):
-        h = mm(h, p[f"w{i}"]) + p[f"b{i}"]
-        if i < n_layers - 1:
-            h = torch.relu(h)
-    return h
+def matmul_tf32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The product as tensor cores compute it in TF32, on any device."""
+    return _tf32(a) @ _tf32(w)
 
 
 @dataclasses.dataclass
@@ -122,14 +103,16 @@ class BatchReference:
 
 
 class Reference:
-    """The whole-graph series and heads, then Algorithm 1 per batch."""
+    """The whole-graph series and heads, then Algorithm 1 per batch.
+    `logits` is a head module's (`bench.heads`): f^(l)'s logits from
+    order l's weights, the series and a matrix product."""
 
     def __init__(self, graph: EdgeGraph, features: np.ndarray,
-                 heads: Dict[int, Dict], *, model: str, r: float, t_min: int,
-                 t_max: int, t_s: float, dtype=torch.float64,
-                 tf32: bool = False):
+                 heads: Dict[int, Dict], *, logits: Optional[Callable],
+                 r: float, t_min: int, t_max: int, t_s: float,
+                 dtype=torch.float64, tf32: bool = False):
         g, dev = graph, graph.device
-        self.g, self.model, self.r = g, model, r
+        self.g, self.logits, self.r = g, logits, r
         self.t_min, self.t_max, self.t_s = t_min, t_max, t_s
         self.dtype, self.tf32 = dtype, tf32
         dt = (g.deg + 1).to(torch.float64)
@@ -182,10 +165,11 @@ class Reference:
         orders = np.full(len(nodes), self.t_max, np.int64)
         for j in range(dist_np.shape[1] - 1, -1, -1):
             orders[dist_np[:, j] < self.t_s] = self.t_min + j
-        emulate = self.tf32 and g.device.type != "cuda"
+        mm = (matmul_tf32 if self.tf32 and g.device.type != "cuda"
+              else torch.matmul)
         with torch.inference_mode(), _matmul_precision(g.device, self.tf32):
             logits = np.stack([
-                head_logits(self.model, self.heads[l], ser, l, emulate)
+                self.logits(self.heads[l], ser, l, mm)
                 .cpu().numpy().astype(np.float64)
                 for l in range(1, self.t_max + 1)])
         return BatchReference(
@@ -198,7 +182,7 @@ def first_step_distance_quantile(graph: EdgeGraph, features: np.ndarray,
     """The `q` quantile over every node of ||X^(1) - X^inf|| on the whole
     graph (Eq. 8 at the first order, Eq. 7 over every node), float64: the
     configurations' rule for T_s."""
-    ref = Reference(graph, features, {}, model="sgc", r=r, t_min=1,
+    ref = Reference(graph, features, {}, logits=None, r=r, t_min=1,
                     t_max=1, t_s=0.0)
     g = graph
     m = int((~g.loop).sum()) // 2

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from bench import correct, graphgen, harness
+from bench import correct, graphgen, harness, heads
 from bench.reference import nai as ref
 
 CELLS = [w["name"] for w in harness.load_json(
@@ -29,8 +29,8 @@ def _control_gaps(config_cell, scale, seed, device="cpu"):
     tree = harness.make_heads(gcfg, seed, device)
     eg = ref.EdgeGraph(ga.n, ga.src, ga.dst, device=device)
     t_s = ref.first_step_distance_quantile(eg, ga.features, gcfg["r"])
-    kw = dict(model=gcfg["base_model"], r=gcfg["r"], t_min=1, t_max=2,
-              t_s=t_s)
+    kw = dict(logits=heads.load(gcfg["base_model"]).logits, r=gcfg["r"],
+              t_min=1, t_max=2, t_s=t_s)
     exact = ref.Reference(eg, ga.features, tree, **kw)
     low = ref.Reference(eg, ga.features, tree, dtype=torch.float32,
                         tf32=True, **kw)

@@ -2,6 +2,7 @@
 import numpy as np
 import pytest
 
+from bench import heads
 from bench.metrics import _counting as cnt
 from bench.reference.nai import EdgeGraph
 
@@ -32,9 +33,11 @@ def test_step_needs_hand_count():
 @pytest.mark.parametrize("model,expected", [("sgc", 2 * (14 + 14)),
                                             ("gamlp", 2 * (42 + 56))])
 def test_head_flops_hand_count(model, expected):
-    dims = cnt.layer_dims(model, 4, 3, 2, 2)
-    assert dims == [4, 2, 3]
-    assert cnt.head_flops(model, dims, 4, 2, np.array([1, 2])) == expected
+    gcfg = dict(base_model=model, feat_dim=4, num_classes=3, hidden=2,
+                mlp_layers=2, att_dim=2, k=2)
+    assert heads.mlp_dims(gcfg, 4) == [4, 2, 3]
+    assert cnt.head_flops(heads.load(model), gcfg,
+                          np.array([1, 2])) == expected
 
 
 def test_roofline_takes_the_larger_bound():

@@ -5,6 +5,7 @@ import pytest
 import torch
 
 from bench import correct, graphgen, harness
+from bench.heads import load as load_head
 from bench.reference import nai as ref
 from repro_torch.gnn.convert import params_from_numpy
 from repro_torch.gnn.datasets import load_dataset
@@ -48,7 +49,8 @@ def test_reference_matches_host_mode(model, mlp_layers):
     cfg = GNNConfig(**gcfg)
     heads = params_from_numpy(cfg, tree, device="cpu")
     nai = NAIConfig(t_s=t_s, t_min=1, t_max=2, batch_size=64)
-    r = ref.Reference(eg, ga.features, tree, model=model, r=0.5, t_min=1,
+    r = ref.Reference(eg, ga.features, tree,
+                      logits=load_head(model).logits, r=0.5, t_min=1,
                       t_max=2, t_s=t_s)
     rng = np.random.default_rng(0)
     store = as_store(port)
@@ -76,7 +78,8 @@ def test_reference_matches_host_mode(model, mlp_layers):
 
 def test_comparison_rejects_perturbed_output():
     ga, port, gcfg, tree, eg, t_s = _setup("sgc")
-    r = ref.Reference(eg, ga.features, tree, model="sgc", r=0.5, t_min=1,
+    r = ref.Reference(eg, ga.features, tree,
+                      logits=load_head("sgc").logits, r=0.5, t_min=1,
                       t_max=2, t_s=t_s)
     batch = np.sort(np.random.default_rng(1).choice(ga.test_idx, 64,
                                                     replace=False))

@@ -13,14 +13,22 @@ check after the window are outside it.
   first matrix product on), then its results' ``Memcpy DtoH``; the loop's
   time is the kernels before the heads;
 * the device operations that took most time, and the longest idle gaps
-  named by the shortest host span that covers each.
+  named by the shortest host span that covers each;
+* device time by program span: each device event's seconds under the
+  innermost ``serve.*`` range (the program's own spans) that encloses,
+  on the same thread, the CUDA call that launched it (the host event of
+  the device event's own correlation id); the rest under
+  ``"no program span"``.
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 WINDOW_SPAN = "bench.window"
+PROGRAM_SPAN = "serve."
+NO_PROGRAM_SPAN = "no program span"
 MATMUL_OPS = ("aten::addmm", "aten::mm", "aten::bmm", "aten::matmul",
               "aten::linear", "aten::einsum", "aten::baddbmm")
 
@@ -33,6 +41,7 @@ class TraceSummary:
     loop_s: float
     device_ops: List[Tuple[str, float]]
     idle_gaps: List[Tuple[str, float]]
+    span_device_s: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
 def _is_device(e) -> bool:
@@ -49,6 +58,60 @@ def _is_head_start(e, op_of: Dict[int, str]) -> bool:
     if "gemm" in name or "gemv" in name:
         return True
     return op_of.get(getattr(e, "linked_correlation_id", 0), "") in MATMUL_OPS
+
+
+class _Ranges:
+    """The program's ``serve.*`` ranges of one host thread, sorted by start
+    (a parent before a child that starts with it), each with the index of
+    the range that encloses it."""
+
+    def __init__(self, ranges):
+        self.ranges = sorted(ranges, key=lambda e: (e.time_range.start,
+                                                    -e.time_range.end))
+        self.starts = [e.time_range.start for e in self.ranges]
+        self.parent: List[int] = []
+        open_: List[int] = []
+        for i, e in enumerate(self.ranges):
+            while open_ and (self.ranges[open_[-1]].time_range.end
+                             < e.time_range.end):
+                open_.pop()
+            self.parent.append(open_[-1] if open_ else -1)
+            open_.append(i)
+
+    def innermost(self, lo: float, hi: float) -> Optional[str]:
+        """The innermost range holding [lo, hi]: on the chain of ranges
+        enclosing the last one to start at or before lo, since the ranges
+        of one thread nest."""
+        i = bisect.bisect_right(self.starts, lo) - 1
+        while i >= 0 and self.ranges[i].time_range.end < hi:
+            i = self.parent[i]
+        return self.ranges[i].name if i >= 0 else None
+
+
+def span_device_s(host, dev, clip) -> Dict[str, float]:
+    """Seconds of each device event of `dev`, clipped to the window by
+    `clip`, by the innermost ``serve.*`` range over its launch: the CUDA
+    runtime or driver call (``cudaLaunchKernel``, ``cudaMemcpyAsync``,
+    ``cuLaunchKernel``, ...) that shares the event's correlation id. The
+    profiler gives that call the thread of the operator that made it."""
+    by_thread: Dict[int, list] = {}
+    for e in host:
+        if e.name.startswith(PROGRAM_SPAN):
+            by_thread.setdefault(e.thread, []).append(e)
+    ranges = {t: _Ranges(rs) for t, rs in by_thread.items()}
+    # operators' ids come from another counter than the calls': by name
+    calls = {e.id: e for e in host if e.name.startswith("cu")}
+    out: Dict[str, float] = {}
+    for e in dev:
+        call = calls.get(e.id)
+        name = None
+        if call is not None and call.thread in ranges:
+            name = ranges[call.thread].innermost(call.time_range.start,
+                                                 call.time_range.end)
+        lo, hi = clip(e)
+        key = name or NO_PROGRAM_SPAN
+        out[key] = out.get(key, 0.0) + (hi - lo) / 1e6
+    return out
 
 
 def summarize(prof, top: int = 10) -> Optional[TraceSummary]:
@@ -120,5 +183,6 @@ def summarize(prof, top: int = 10) -> Optional[TraceSummary]:
     ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return TraceSummary(window_s=(w1 - w0) / 1e6, busy_s=busy / 1e6,
                         htod_s=htod, loop_s=loop_us / 1e6,
-                        device_ops=ops, idle_gaps=named)
+                        device_ops=ops, idle_gaps=named,
+                        span_device_s=span_device_s(host, dev, clip))
 
