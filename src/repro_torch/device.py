@@ -26,7 +26,8 @@ def profiled(name: str):
     device events; otherwise nothing (an unobserved range still costs
     ~10 us to enter and leave). Used by the serving engine's stage spans
     (`repro_torch.serving.engine._span` and its ``serve.host`` /
-    ``serve.dispatch`` ranges) and the placed collectives' ``exchange.*``
+    ``serve.dispatch`` ranges, `repro_torch.gnn.backends.run_propagation`'s
+    ``serve.heads``) and the placed collectives' ``exchange.*``
     ranges (`repro_torch.sharding.placement._exchange`)."""
     if _autograd_profiler._is_profiler_enabled:
         return torch.profiler.record_function(name)

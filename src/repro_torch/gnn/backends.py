@@ -81,7 +81,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import profiled, resolve_device
 from repro_torch.kernels.nap_exit import nap_exit
 from repro_torch.kernels.nap_step import nap_step_fused
 from repro_torch.kernels.spmm import (CB, RB, nonfinite_blocks, spmm_block_ell,
@@ -764,7 +764,8 @@ def run_propagation(backend: PropagationBackend, nai, operands, x0,
             return _gather(eos, devs[0]), _gather(series, devs[0], 1)
         heads = (list(classifiers) if isinstance(classifiers, (list, tuple))
                  else [classifiers] * D)
-        preds = [classify(h, e, s) for h, e, s in zip(heads, eos, series)]
+        with profiled("serve.heads"):
+            preds = [classify(h, e, s) for h, e, s in zip(heads, eos, series)]
         out = (_gather(eos, devs[0]), _gather(preds, devs[0]))
         if return_series:
             return (*out, _gather(series, devs[0], 1))

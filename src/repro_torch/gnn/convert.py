@@ -1,5 +1,6 @@
 """Carry classifier parameters between the JAX package's trees and the
-port's heads, both ways."""
+port's heads, both ways. A ``jk_gamlp`` head has no JAX counterpart:
+its tree's keys are the ones `_jk_gamlp_leaves` names."""
 from __future__ import annotations
 
 from typing import Dict, Mapping
@@ -8,7 +9,40 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.gnn.models import Classifiers, GNNConfig
+from repro_torch.gnn.models import Classifiers, GNNConfig, JKGAMLPHead
+
+
+def _jk_gamlp_leaves(head: JKGAMLPHead) -> Dict[str, torch.Tensor]:
+    """A ``jk_gamlp`` head's tree keys and the tensors they fill: per hop j
+    ``hop{j}_w0 / _b0 / _prelu / _w1 / _b1``; ``jk_w{i}``, ``jk_prelu``;
+    ``att_u`` (2 hidden, 1), ``att_c``; ``res_w``, ``res_b``; ``prelu``
+    (the head's own); ``out_w{i}``, ``out_prelu``. A matrix is (in, out)
+    in the tree, the transpose of `nn.Linear`'s weight. ``alpha`` is the
+    configuration's (`GNNConfig.alpha`), not a leaf: a tree's other keys
+    are not read."""
+    out = {}
+    for j, (a, act, b) in enumerate(head.process):
+        out.update({f"hop{j}_w0": a.weight, f"hop{j}_b0": a.bias,
+                    f"hop{j}_prelu": act.weight, f"hop{j}_w1": b.weight,
+                    f"hop{j}_b1": b.bias})
+    for name, net in (("jk", head.jk), ("out", head.out)):
+        out.update({f"{name}_w{i}": lin.weight
+                    for i, lin in enumerate(net.layers)})
+        out[f"{name}_prelu"] = net.prelu.weight
+    out.update(att_u=head.att.weight, att_c=head.att.bias,
+               res_w=head.res.weight, res_b=head.res.bias,
+               prelu=head.prelu.weight)
+    return out
+
+
+def _load_jk_gamlp(l: int, p, head: JKGAMLPHead) -> None:
+    for key, t in _jk_gamlp_leaves(head).items():
+        v = np.asarray(p[key], np.float32)
+        v = v.T if t.dim() == 2 else v
+        if v.shape != tuple(t.shape):
+            raise ValueError(f"order {l} {key}: shape {np.shape(p[key])}, "
+                             f"expected {tuple(t.shape)[::-1]}")
+        t.copy_(torch.from_numpy(np.ascontiguousarray(v)))
 
 
 def params_from_numpy(cfg: GNNConfig, tree: Mapping[int, Dict[str, np.ndarray]],
@@ -22,6 +56,9 @@ def params_from_numpy(cfg: GNNConfig, tree: Mapping[int, Dict[str, np.ndarray]],
     with torch.no_grad():
         for l in range(1, cfg.k + 1):
             p, head = tree[l], cls.head(l)
+            if cfg.base_model == "jk_gamlp":
+                _load_jk_gamlp(l, p, head)
+                continue
             for i, lin in enumerate(head.layers):
                 w = np.asarray(p[f"w{i}"], np.float32)
                 if w.shape != (lin.in_features, lin.out_features):
@@ -48,6 +85,11 @@ def params_to_numpy(classifiers: Classifiers) -> Dict:
     cls = {}
     for l in range(1, cfg.k + 1):
         head = classifiers.head(l)
+        if cfg.base_model == "jk_gamlp":
+            cls[l] = {k: (t.detach().cpu().numpy().T if t.dim() == 2
+                          else t.detach().cpu().numpy()).copy()
+                      for k, t in _jk_gamlp_leaves(head).items()}
+            continue
         p = {}
         for i, lin in enumerate(head.layers):
             p[f"w{i}"] = lin.weight.detach().cpu().numpy().T.copy()

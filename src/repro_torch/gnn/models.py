@@ -5,11 +5,15 @@ model decides what f^(l) consumes:
     SGC   : X^(l)                      (linear/MLP head)
     S2GC  : mean(X^(0)..X^(l))
     SIGN  : concat(X^(0)..X^(l)) -> MLP
-    GAMLP : node-wise attention over X^(0)..X^(l) -> MLP  (JK-attention form)
+    GAMLP : node-wise attention over X^(0)..X^(l) -> MLP  (the repo's
+            reduced JK-attention form)
+    JK_GAMLP : GAMLP as published (Zhang et al., KDD 2022,
+            arXiv:2206.04355) in its JK-attention form: `JKGAMLPHead`
 
-The port of `repro.gnn.models`: each head is an `nn.Module` taking the
-stacked series (l+1, N, f) like the JAX `apply_classifier`, with
-training dropout drawn from an explicit generator.
+The port of `repro.gnn.models` (``jk_gamlp`` has no JAX counterpart):
+each head is an `nn.Module` taking the stacked series (l+1, N, f) like
+the JAX `apply_classifier`, with training dropout drawn from an explicit
+generator.
 Initialization follows `repro.nn.params` (fan-in normal weights, zero
 biases, 0.02-scaled attention) drawn from an explicit `torch.Generator`;
 `repro_torch.gnn.convert.params_from_numpy` loads the JAX package's
@@ -29,7 +33,7 @@ from repro_torch.device import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class GNNConfig:
-    base_model: str            # sgc | s2gc | sign | gamlp
+    base_model: str            # sgc | s2gc | sign | gamlp | jk_gamlp
     feat_dim: int
     num_classes: int
     k: int                     # max propagation order
@@ -38,6 +42,8 @@ class GNNConfig:
     mlp_layers: int = 2        # P in Table 1
     dropout: float = 0.2       # training only (forward's `generator`)
     att_dim: int = 32          # GAMLP attention projection
+    jk_layers: int = 4         # JK_GAMLP's reference net depth (n_layers_1)
+    alpha: float = 0.5         # JK_GAMLP's initial-residual weight
 
     def input_dim(self, l: int) -> int:
         return self.feat_dim * (l + 1) if self.base_model == "sign" \
@@ -98,6 +104,82 @@ class OrderClassifier(nn.Module):
         return x
 
 
+def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``x W``, plus ``x`` where the layer keeps the width."""
+    y = layer(x)
+    return y + x if layer.in_features == layer.out_features else y
+
+
+class ResidualNet(nn.Module):
+    """GAMLP's ``FeedForwardNetII`` without batch norm or dropout:
+    bias-free layers d_in -> hidden ... -> d_out and one PReLU q. The
+    first layer gives h_1 = x W_1 (+ x where the width is kept), each
+    middle layer ``((1 - alpha) q(h) + alpha h_1) W_i + q(h)`` (GCNII's
+    initial residual), the last ``q(h) W_last`` (+ q(h) likewise)."""
+
+    def __init__(self, d_in: int, hidden: int, d_out: int, n_layers: int,
+                 alpha: float):
+        super().__init__()
+        dims = [d_in] + [hidden] * (n_layers - 1) + [d_out]
+        self.layers = nn.ModuleList(nn.Linear(a, b, bias=False)
+                                    for a, b in zip(dims[:-1], dims[1:]))
+        self.prelu = nn.PReLU(init=0.25)
+        self.alpha = alpha
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h0 = x = _dense(self.layers[0], x)
+        last = len(self.layers) - 1
+        for i in range(1, last + 1):
+            x = self.prelu(x)
+            if i < last:
+                x = self.layers[i]((1 - self.alpha) * x + self.alpha * h0) + x
+            else:
+                x = _dense(self.layers[i], x)
+        return x
+
+
+class JKGAMLPHead(nn.Module):
+    """f^(l) of GAMLP as published (PKU-DAIR/GAMLP ``JK_GAMLP``), for
+    inference: no dropout, no batch norm, no label reuse (unseen nodes
+    have no labels), sigmoid hop scores as in the paper.
+
+    On X^(0..l): per hop j a 2-layer net ``Z_j = p_j(X^(j) A_j + a_j) B_j
+    + b_j``; the JK reference ``E = g(ResidualNet([Z_0 || ... || Z_l]))``;
+    hop scores ``sigmoid([E || Z_j] u + c)``, softmax over the hops, ``R =
+    sum_j w_j Z_j``; ``R' = g(R + X^(0) V + v)``; logits
+    ``ResidualNet(R')`` to the classes. g is the head's own PReLU."""
+
+    def __init__(self, cfg: GNNConfig, l: int):
+        super().__init__()
+        f, h = cfg.feat_dim, cfg.hidden
+        self.cfg, self.order = cfg, l
+        self.process = nn.ModuleList(
+            nn.Sequential(nn.Linear(f, h), nn.PReLU(init=0.25),
+                          nn.Linear(h, h)) for _ in range(l + 1))
+        self.jk = ResidualNet((l + 1) * h, h, h, cfg.jk_layers, cfg.alpha)
+        self.att = nn.Linear(2 * h, 1)
+        self.res = nn.Linear(f, h)
+        self.prelu = nn.PReLU(init=0.25)
+        self.out = ResidualNet(h, h, cfg.num_classes, cfg.mlp_layers,
+                               cfg.alpha)
+
+    def forward(self, feats: torch.Tensor, *,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Logits (N, num_classes) of f^(l) on the series feats (>= l+1,
+        N, f)."""
+        if generator is not None:
+            raise NotImplementedError(
+                "jk_gamlp heads are served only: training them (dropout, "
+                "train_nai) is not implemented")
+        z = [hop(feats[j]) for j, hop in enumerate(self.process)]
+        e = self.prelu(self.jk(torch.cat(z, dim=1)))
+        scores = torch.cat([torch.sigmoid(self.att(torch.cat((e, zj), dim=1)))
+                            for zj in z], dim=1)
+        w = torch.softmax(scores, dim=1)
+        r = sum(w[:, j:j + 1] * zj for j, zj in enumerate(z))
+        return self.out(self.prelu(r + self.res(feats[0])))
+
+
 class Classifiers(nn.Module):
     """The per-order heads f^(1..k); `head(l)` is f^(l). `ens_s` is the
     (C, 1) projection s of the self-attention ensemble (Eq. 5): None until
@@ -107,11 +189,12 @@ class Classifiers(nn.Module):
     def __init__(self, cfg: GNNConfig):
         super().__init__()
         self.cfg = cfg
-        self.heads = nn.ModuleList(OrderClassifier(cfg, l)
-                                   for l in range(1, cfg.k + 1))
+        head = JKGAMLPHead if cfg.base_model == "jk_gamlp" \
+            else OrderClassifier
+        self.heads = nn.ModuleList(head(cfg, l) for l in range(1, cfg.k + 1))
         self.register_parameter("ens_s", None)
 
-    def head(self, l: int) -> OrderClassifier:
+    def head(self, l: int) -> nn.Module:
         return self.heads[l - 1]
 
 
@@ -120,6 +203,10 @@ def init_classifiers(cfg: GNNConfig, generator: torch.Generator,
     """Random heads from `generator` (a CPU generator, so the weights are
     the same whatever the device), moved to `device`."""
     dev = resolve_device(device)
+    if cfg.base_model == "jk_gamlp":
+        raise NotImplementedError(
+            "jk_gamlp heads are served only: load their weights with "
+            "repro_torch.gnn.convert.params_from_numpy")
     cls = Classifiers(cfg)
     with torch.no_grad():
         for head in cls.heads:
@@ -139,6 +226,16 @@ def init_classifiers(cfg: GNNConfig, generator: torch.Generator,
 
 def classification_macs(cfg: GNNConfig, l: int) -> int:
     """MACs per node for f^(l) (Table 1 / Table 3 accounting)."""
+    if cfg.base_model == "jk_gamlp":
+        f, h = cfg.feat_dim, cfg.hidden
+
+        def net(d_in, d_out, n):
+            dims = [d_in] + [h] * (n - 1) + [d_out]
+            return sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+        # hop nets, JK net, hop scores and weighted sum, residual, output
+        return ((l + 1) * (f * h + h * h) + net((l + 1) * h, h, cfg.jk_layers)
+                + (l + 1) * (2 * h + h) + f * h
+                + net(h, cfg.num_classes, cfg.mlp_layers))
     dims = cfg.layer_dims(l)
     macs = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
     if cfg.base_model == "gamlp":

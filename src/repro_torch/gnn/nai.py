@@ -99,9 +99,28 @@ def support_stationary_factors(g, sup: Support, x0: np.ndarray,
     store = as_store(g)
     dt = (np.asarray(store.degrees[sup.nodes]) + 1).astype(np.float64)
     denom = 2.0 * sup.sub_edges + len(sup)
-    s = ((dt ** (1.0 - r))[:, None] * x0).sum(axis=0)
+    s = _weighted_row_sum(dt ** (1.0 - r), x0)
     c = (dt[:sup.n_batch] ** r) / denom
     return c, s
+
+
+def _weighted_row_sum(w: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """``(w[:, None] * x).sum(axis=0)`` in float64, bit for bit, without
+    its (S, f) float64 temporary: a support's fresh pages cost more than
+    the arithmetic on them. numpy adds the rows of an axis-0 sum in
+    order, so each block of rows continues the sum from the previous
+    block's result, held in the buffer's first row."""
+    rows = 1024
+    buf = np.empty((rows + 1, x.shape[1]), np.float64)
+    acc = np.zeros(x.shape[1], np.float64)
+    for a in range(0, len(x), rows):
+        n = min(rows, len(x) - a)
+        first = int(a > 0)
+        if first:
+            buf[0] = acc
+        np.multiply(w[a:a + n, None], x[a:a + n], out=buf[first:first + n])
+        acc = buf[:first + n].sum(axis=0)
+    return acc
 
 
 def support_stationary_state(g, sup: Support, x0: np.ndarray,

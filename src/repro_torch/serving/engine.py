@@ -499,7 +499,8 @@ class NAIServingEngine:
         self.row_stats["rows_support"] += len(sup)
         self.row_stats["rows_packed"] += len(sup) - n_hit
         with _span("serve.host.gather", rec, "gather_s"):
-            x0 = store.gather_features(sup.nodes).astype(np.float32)
+            x0 = store.gather_features(sup.nodes).astype(np.float32,
+                                                         copy=False)
         # the dense x_inf is built from the f32 factors, so the fused
         # kernel (which multiplies the factors in f32) sees the same
         # stationary state bit for bit; the fused path never builds it

@@ -187,3 +187,17 @@ def test_subgraph_spmm_array_equal(active):
         np.testing.assert_array_equal(jx, tx)
         assert je == te
         x = tx
+
+
+@pytest.mark.parametrize("rows", [0, 1, 1023, 1024, 1025, 5000])
+def test_weighted_row_sum_is_numpys_bit_for_bit(rows):
+    """The stationary sum in blocks equals ``(w[:, None] * x).sum(axis=0)``
+    exactly, across block edges (1,024 rows a block)."""
+    from repro_torch.gnn.nai import _weighted_row_sum
+    rng = np.random.default_rng(rows)
+    x = rng.standard_normal((rows, 37)).astype(np.float32)
+    w = rng.random(rows) * 3.0
+    want = (w[:, None] * x).sum(axis=0)
+    got = _weighted_row_sum(w, x)
+    assert got.dtype == want.dtype == np.float64
+    assert got.tobytes() == want.tobytes()

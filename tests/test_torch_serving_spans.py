@@ -1,7 +1,8 @@
 """The serving engine's spans and per-batch stage record: under
 `torch.profiler` a compiled-mode engine emits every `serve.*` range,
 nested as the stages nest (the host stage's four parts inside
-`serve.host`, `serve.dispatch` after it); `batch_timings` holds each
+`serve.host`, `serve.dispatch` after it, the heads' `serve.heads` inside
+`serve.dispatch`); `batch_timings` holds each
 part's seconds, summing to no more than `host_s`; the placed collectives'
 `exchange.*` ranges open only under a profiler too."""
 import contextlib
@@ -74,13 +75,16 @@ def test_spans_nest_as_the_stages(setup, case):
     for e in prof.events():
         if e.name.startswith("serve."):
             spans.setdefault(e.name, []).append(e)
-    assert sorted(spans) == sorted(("serve.host", "serve.dispatch") + HOST)
+    assert sorted(spans) == sorted(("serve.host", "serve.dispatch",
+                                    "serve.heads") + HOST)
     assert all(len(v) == 2 for v in spans.values()), \
         {k: len(v) for k, v in spans.items()}
     for name in HOST:
         assert all(_inside(e, spans["serve.host"]) for e in spans[name])
     assert not any(_inside(e, spans["serve.host"])
                    for e in spans["serve.dispatch"])
+    assert all(_inside(e, spans["serve.dispatch"])
+               for e in spans["serve.heads"])
     ends = sorted(e.time_range.end for e in spans["serve.host"])
     starts = sorted(e.time_range.start for e in spans["serve.dispatch"])
     assert all(a <= b for a, b in zip(ends, starts))
@@ -111,6 +115,16 @@ def test_ranges_only_while_a_profiler_records():
             pass
     assert isinstance(rng, torch.profiler.record_function)
     assert [e.name for e in prof.events()].count("serve.x") == 1
+
+
+def test_heads_range_only_while_a_profiler_records(setup, monkeypatch):
+    """Without a profiler the engine opens no `serve.*` range, the heads'
+    included: `profiled` hands back no `record_function`."""
+    opened = []
+    monkeypatch.setattr(torch.profiler, "record_function", opened.append)
+    eng = _engine(setup, "segment-2")
+    assert len(_serve(eng, setup["nodes"])) == 2 * BATCH
+    assert opened == []
 
 
 def test_exchange_ranges_only_while_a_profiler_records(monkeypatch):
