@@ -1007,9 +1007,10 @@ def gnn_phases(torch, dev, kernels, tmp, scale):
         check(eng.jit_stats["compiles"] == keys,
               f"{impl} depth {depth}: the steady-state pass adds no shape "
               f"key ({eng.jit_stats})")
-        check(h2d["copy_stream_ms"] > 0.5 * h2d["ms"],
-              f"{impl} depth {depth}: Memcpy HtoD runs on the copy stream "
-              f"({h2d})")
+        if eng.pack_place["host"]:
+            check(h2d["copy_stream_ms"] > 0.5 * h2d["ms"],
+                  f"{impl} depth {depth}: Memcpy HtoD runs on the copy "
+                  f"stream ({h2d})")
     del serial
 
     dist = request_distances(cfg, nai, g, requests, nai.batch_size)
@@ -1040,6 +1041,11 @@ def gnn_phases(torch, dev, kernels, tmp, scale):
               and eng.sample_stats["device"] > 0
               for eng in engines.values()),
           "the serving engines sampled every batch on the card")
+    check(all((eng.pack_place["host"] == 0) == (impl == "segment")
+              for impl, eng in engines.items()),
+          f"segment built every batch's operands on the card, the tile "
+          f"backends on the host "
+          f"({ {i: e.pack_place for i, e in engines.items()} })")
     # the serving engines' pinned pools go before the next phases'
     del engines, host, prof
     gc.collect()

@@ -33,24 +33,72 @@ Each step is a handful of tensor ops over O(support) elements:
    so the result equals ``_edge_coefs`` bit for bit.
 
 The host reads only sizes (one total per expansion, one count of new
-nodes per hop, one count of kept edges) and, at the end, the five arrays
-and the self-loop count in one copy into page-locked memory from the
-caching host allocator, after which the call synchronises. Each returned
-`Support` owns its memory. On a CUDA device the work runs on the
-sampler's own stream, so it never queues behind propagation on the
-compute stream. The device copy is refreshed whenever the store's
-`mutation_clock` or `n` differs from the copy's.
+nodes per hop, one count of kept edges, the self-loop count).
+`sample_device` stops there and returns a `DeviceSupport`, the five
+arrays as device tensors handed to the caller's current stream, for the
+device packer (`repro_torch.gnn.device_packing`); `sample` adds one copy
+of the five arrays into page-locked memory from the caching host
+allocator, after which it synchronises, and returns a `Support` that owns
+its memory. On a CUDA device the work runs on the sampler's own stream,
+so it never queues behind propagation on the compute stream. The device
+copy is refreshed whenever the store's `mutation_clock` or `n` differs
+from the copy's.
+
+`feature_tables()` keeps, under the same version key, what the device
+packer reads beside the support: the store's features as float32 and two
+float64 tables per node, ``w = (deg + 1) ** (1 - r)`` and ``cr = (deg +
+1) ** r``, computed once per version by numpy on the host with the host
+path's own expressions (`support_stationary_factors`), so that the
+factors gathered from them equal the host path's bit for bit (CUDA's
+``pow`` would not). They are made only on request, on the caller's
+stream, and kept only when they take at most half of the device memory
+free at the refresh (counting the caching allocator's unused blocks);
+otherwise `feature_tables()` returns None until the next version, and
+the engine packs on the host. A mutation (`add_nodes`, `add_edges`)
+refreshes them at the next call.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import List, Tuple
+import dataclasses
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.gnn.sampler import Support
 from repro_torch.gnn.store import GraphStore
+
+
+@dataclasses.dataclass
+class DeviceSupport:
+    """A sampled support whose arrays are device tensors: `nodes` (S,)
+    int64, `hop` (S,) int32, `src` / `dst` (E,) int32 local ids and `coef`
+    (E,) float32, as `Support` holds them, with the sizes the host read."""
+    nodes: torch.Tensor
+    hop: torch.Tensor
+    src: torch.Tensor
+    dst: torch.Tensor
+    coef: torch.Tensor
+    n_batch: int
+    sub_edges: int
+    graph_version: int
+
+    def __len__(self) -> int:
+        return len(self.nodes)
+
+    @property
+    def n_edges(self) -> int:
+        return len(self.src)
+
+
+class FeatureTables(NamedTuple):
+    """Per-node tables of a store version on the device: the features as
+    float32, and the stationary factors' float64 weights ``w = (deg + 1)
+    ** (1 - r)`` and ``cr = (deg + 1) ** r``."""
+    features: torch.Tensor
+    w: torch.Tensor
+    cr: torch.Tensor
 
 
 class DeviceSampler:
@@ -69,6 +117,8 @@ class DeviceSampler:
         self.stream = (torch.cuda.Stream(self.device)
                        if self.device.type == "cuda" else None)
         self._version = None     # (mutation_clock, n) of the device copy
+        self._tables: Optional[FeatureTables] = None
+        self._tables_version = None
 
     def _refresh(self) -> None:
         """Upload the CSR, the coefficient factors and fresh stamp maps
@@ -120,8 +170,46 @@ class DeviceSampler:
         self.first.scatter_reduce_(0, neigh, key, "amin", include_self=False)
         return neigh[fresh & (self.first[neigh] == pos)]
 
-    def sample(self, batch: np.ndarray, hops: int) -> Support:
-        """The `Support` of `batch` up to `hops` hops (no cache fields)."""
+    def feature_tables(self) -> Optional[FeatureTables]:
+        """The store's features and stationary-factor tables on the device
+        for its current version (refreshed, as the CSR is, when
+        `mutation_clock` or `n` moved), or None where they would take more
+        than half of a CUDA device's memory free at the refresh. Made on
+        the caller's current stream, which is the stream that reads
+        them."""
+        store = self.store
+        version = (store.mutation_clock, store.n)
+        if version == self._tables_version:
+            return self._tables
+        self._tables = None      # the old tables count as free below
+        n, f, dev = store.n, store.feat_dim, self.device
+        need = n * (4 * f + 16)
+        if dev.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(dev)
+            free += (torch.cuda.memory_reserved(dev)
+                     - torch.cuda.memory_allocated(dev))
+            if need > free // 2:
+                self._tables_version = version
+                return None
+        feats = torch.empty((n, f), dtype=torch.float32, device=dev)
+        rows = max(1, (32 << 20) // max(4 * f, 1))
+        for a in range(0, n, rows):
+            ids = np.arange(a, min(n, a + rows), dtype=np.int64)
+            feats[a:a + len(ids)] = torch.from_numpy(
+                store.gather_features(ids).astype(np.float32, copy=False))
+        # the host path's expressions (`support_stationary_factors`), per
+        # node: numpy's power of the same float64 gives the same bits
+        dt = (np.asarray(store.degrees) + 1).astype(np.float64)
+        r = self.r
+        self._tables = FeatureTables(
+            features=feats, w=torch.from_numpy(dt ** (1.0 - r)).to(dev),
+            cr=torch.from_numpy(dt ** r).to(dev))
+        self._tables_version = version
+        return self._tables
+
+    def _sample(self, batch: np.ndarray, hops: int) -> DeviceSupport:
+        """The support of `batch` up to `hops` hops as tensors made on the
+        sampler's stream."""
         batch = np.asarray(batch, np.int64)
         stream = (torch.cuda.stream(self.stream) if self.stream is not None
                   else contextlib.nullcontext())
@@ -160,12 +248,35 @@ class DeviceSampler:
             coef = (self.a[nodes[dst]] * self.b[src_g]).to(torch.float32)
             # actual self loops (a graph whose loops were dropped would
             # undercount otherwise)
-            loops = (src == dst).sum().reshape(1)
+            n_loops = int((src == dst).sum())
+            return DeviceSupport(
+                nodes=nodes, hop=hop, src=src.to(torch.int32),
+                dst=dst.to(torch.int32), coef=coef, n_batch=len(batch),
+                sub_edges=max((len(kept) - n_loops) // 2, 0),
+                graph_version=graph_version)
 
-            # the five arrays and the loop count back in one copy
+    def sample_device(self, batch: np.ndarray, hops: int) -> DeviceSupport:
+        """The support of `batch` up to `hops` hops, left on the device and
+        handed to the caller's current stream: it waits for the sampler's
+        stream, and the tensors are marked as used by it, so that their
+        memory is not handed out again under its work."""
+        sup = self._sample(batch, hops)
+        if self.stream is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_stream(self.stream)
+            for t in (sup.nodes, sup.hop, sup.src, sup.dst, sup.coef):
+                t.record_stream(cur)
+        return sup
+
+    def sample(self, batch: np.ndarray, hops: int) -> Support:
+        """The `Support` of `batch` up to `hops` hops (no cache fields): the
+        device support and one copy of its five arrays back."""
+        sup = self._sample(batch, hops)
+        stream = (torch.cuda.stream(self.stream) if self.stream is not None
+                  else contextlib.nullcontext())
+        with stream:
             flat = torch.cat([t.view(torch.uint8) for t in (
-                nodes, loops, hop, src.to(torch.int32),
-                dst.to(torch.int32), coef)])
+                sup.nodes, sup.hop, sup.src, sup.dst, sup.coef)])
             if self.stream is not None:
                 host = torch.empty(flat.shape, dtype=torch.uint8,
                                    pin_memory=True)
@@ -174,15 +285,13 @@ class DeviceSampler:
             else:
                 host = flat
         buf = host.numpy()
-        Es = len(kept)
-        cut = np.cumsum([0, 8 * S, 8, 4 * S, 4 * Es, 4 * Es, 4 * Es])
-        nodes_h = buf[cut[0]:cut[1]].view(np.int64)
-        n_loops = int(buf[cut[1]:cut[2]].view(np.int64)[0])
-        hop_h = buf[cut[2]:cut[3]].view(np.int32)
-        src_h = buf[cut[3]:cut[4]].view(np.int32)
-        dst_h = buf[cut[4]:cut[5]].view(np.int32)
-        coef_h = buf[cut[5]:cut[6]].view(np.float32)
-        return Support(nodes=nodes_h, hop=hop_h, n_batch=len(batch),
-                       src=src_h, dst=dst_h, coef=coef_h,
-                       sub_edges=max((Es - n_loops) // 2, 0),
-                       graph_version=graph_version)
+        S, Es = len(sup), sup.n_edges
+        cut = np.cumsum([0, 8 * S, 4 * S, 4 * Es, 4 * Es, 4 * Es])
+        return Support(nodes=buf[cut[0]:cut[1]].view(np.int64),
+                       hop=buf[cut[1]:cut[2]].view(np.int32),
+                       n_batch=sup.n_batch,
+                       src=buf[cut[2]:cut[3]].view(np.int32),
+                       dst=buf[cut[3]:cut[4]].view(np.int32),
+                       coef=buf[cut[4]:cut[5]].view(np.float32),
+                       sub_edges=sup.sub_edges,
+                       graph_version=sup.graph_version)

@@ -64,7 +64,7 @@ moves, so halo propagation keeps the sharded == single-device identity.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -91,6 +91,36 @@ def batch_bucket(n_batch: int, n_shards: int = 1) -> int:
     sharded (every shard must own the same number of leading batch
     superblocks)."""
     return next_bucket(n_batch, RB if n_shards == 1 else CB * n_shards)
+
+
+def pack_rows(n_batch: int, n_rows: int, n_feat: int, *,
+              nb_bucket: Optional[int] = None,
+              s_bucket: Optional[int] = None,
+              n_shards: int = 1) -> Tuple[int, int, int]:
+    """The padded row and feature geometry of a pack of `n_rows` support
+    rows, `n_batch` of them batch rows, `n_feat` wide: (the batch region's
+    bucket, the padded row count, the padded feature width). Explicit
+    buckets are floors (legal sizes: `nb_bucket` RB-aligned, CB * D
+    sharded; `s_bucket` a multiple of CB * D)."""
+    row_align = CB * n_shards
+    batch_align = RB if n_shards == 1 else CB * n_shards
+    if s_bucket and s_bucket % row_align:
+        raise ValueError(f"s_bucket {s_bucket} not a multiple of "
+                         f"{row_align} (CB * n_shards)")
+    nb_bucket = max(batch_bucket(n_batch, n_shards), nb_bucket or 0)
+    if nb_bucket % batch_align:
+        raise ValueError(f"nb_bucket {nb_bucket} not a multiple of "
+                         f"{batch_align}")
+    rows_needed = nb_bucket + (n_rows - n_batch)
+    n_pad = max(next_bucket(-(-rows_needed // row_align), 1) * row_align,
+                s_bucket or 0)
+    return nb_bucket, n_pad, -(-n_feat // FB) * FB
+
+
+def edge_bucket(n_edges: int, e_bucket: Optional[int] = None) -> int:
+    """The padded length of an edge list of `n_edges` (per shard, the
+    widest shard's count); `e_bucket` is a floor."""
+    return max(next_bucket(n_edges, 1), e_bucket or 0)
 
 
 def shard_block_perm(n_blocks: int, n_shards: int) -> np.ndarray:
@@ -319,19 +349,10 @@ def pack_support(sup: Support, x0: np.ndarray, x_inf: np.ndarray, *,
     `k_bucket` is the hwm floor for the seed-row pad, same contract as
     the other buckets. Batch rows must never be marked hit (their series
     is the output)."""
-    row_align = CB * n_shards
-    batch_align = RB if n_shards == 1 else CB * n_shards
-    if s_bucket and s_bucket % row_align:
-        raise ValueError(f"s_bucket {s_bucket} not a multiple of "
-                         f"{row_align} (CB * n_shards)")
     nb, S = sup.n_batch, len(sup)
-    nb_bucket = max(batch_bucket(nb, n_shards), nb_bucket or 0)
-    if nb_bucket % batch_align:
-        raise ValueError(f"nb_bucket {nb_bucket} not a multiple of "
-                         f"{batch_align}")
-    rows_needed = nb_bucket + (S - nb)
-    n_pad = max(next_bucket(-(-rows_needed // row_align), 1) * row_align,
-                s_bucket or 0)
+    nb_bucket, n_pad, f_pad = pack_rows(nb, S, x0.shape[1],
+                                        nb_bucket=nb_bucket,
+                                        s_bucket=s_bucket, n_shards=n_shards)
 
     seeds_on = seeds is not None
     if seeds_on:
@@ -408,15 +429,13 @@ def pack_support(sup: Support, x0: np.ndarray, x_inf: np.ndarray, *,
         tb = max(next_bucket(tb_needed, 1), tb_bucket or 0)
     else:
         tb = 0
-    f_pad = -(-x0.shape[1] // FB) * FB
     xi_cols = f_pad if x_inf.shape[1] else 0
     if build_edges:
         if n_shards > 1:
             e_counts = np.bincount(e_shard, minlength=n_shards)
-            e_pad = max(next_bucket(max(int(e_counts.max()), 1), 1),
-                        e_bucket or 0)
+            e_pad = edge_bucket(int(e_counts.max()), e_bucket)
         else:
-            e_pad = max(next_bucket(len(src), 1), e_bucket or 0)
+            e_pad = edge_bucket(len(src), e_bucket)
     else:
         e_pad = 0
     e_shape = ((n_shards, e_pad) if n_shards > 1 and build_edges

@@ -24,7 +24,16 @@ Two serving modes:
     stream, array-equal to the numpy sampler); with the cache (which
     probes each hop on the host), on a mesh, or on the CPU it samples with
     the numpy `sample_support`. `sample_stats` counts the batches each
-    path sampled (``device`` / ``host``).
+    path sampled (``device`` / ``host``). With the device sampler, a
+    backend that reads the edge list and no tiles (``segment``) and the
+    store's feature tables on the card (`DeviceSampler.feature_tables`:
+    they fit), the support never leaves the card: the operands are built
+    there (`pack_support_device`, the host packer's bucket rules) into a
+    pool of ``pipeline_depth + 1`` device sets per batch bucket, on the
+    compute stream, so a set is refilled only after the batch that read
+    it; `_device_stage` takes them as they are. `pack_place` counts the
+    batches whose operands were built on the card and on the host
+    (``device`` / ``host``).
   - **device stage** (`_device_stage`): asynchronous host-to-device copies
     of the operands from the pinned buffers on a copy stream of each
     device (one `torch.cuda.Stream` a distinct device), which the compute
@@ -125,6 +134,7 @@ from repro_torch.gnn.backends import (BACKENDS, GATHER_MODES,
                                       exchange_bytes_per_step, get_backend,
                                       mesh_devices, normalize_mesh,
                                       pack_operands, shard_operands)
+from repro_torch.gnn.device_packing import pack_support_device
 from repro_torch.gnn.device_sampler import DeviceSampler
 from repro_torch.gnn.models import Classifiers, GNNConfig
 from repro_torch.gnn.nai import (NAIConfig, infer_batch_host,
@@ -142,12 +152,12 @@ from repro_torch.serving.faults import (InjectedFault, NaNGuardError,
 @contextlib.contextmanager
 def _span(name: str, rec: Dict, key: str):
     """One named part of the host stage of the batch being served: a
-    profiler range (`profiled`) and its seconds in the batch's record
-    `rec` under `key`."""
+    profiler range (`profiled`) and its seconds, added to the batch's
+    record `rec` under `key`."""
     t0 = time.perf_counter()
     with profiled(name):
         yield
-    rec[key] = time.perf_counter() - t0
+    rec[key] = rec.get(key, 0.0) + time.perf_counter() - t0
 
 
 def _tensors(tree):
@@ -383,6 +393,8 @@ class NAIServingEngine:
                                           "rows_packed": 0}
         # batches sampled on the card (DeviceSampler) and on the host
         self.sample_stats: Dict[str, int] = {"device": 0, "host": 0}
+        # batches whose operands were built on the card and on the host
+        self.pack_place: Dict[str, int] = {"device": 0, "host": 0}
         self.pack_stats: Dict[str, int] = {"allocs": 0, "reuses": 0}
         # distinct operand-shape keys dispatched (the reference's jit
         # cache): a new key counts as a compile, a seen one as a hit
@@ -405,6 +417,9 @@ class NAIServingEngine:
         self._copied: Dict[Tuple[int, int], List[torch.cuda.Event]] = {}
         # pinned staging of the operands packing does not pool, per slot
         self._staged: Dict[Tuple[Tuple[int, int], str], torch.Tensor] = {}
+        # device-built operand sets: bucket -> pipeline_depth + 1 sets,
+        # oldest first
+        self._device_pool: Dict[int, Deque[Optional[PackedSupport]]] = {}
         # the host-to-device copies' stream, one per distinct device
         self._copy_streams = ({d: torch.cuda.Stream(d)
                                for d in dict.fromkeys(self.devices)}
@@ -445,14 +460,16 @@ class NAIServingEngine:
         return d
 
     def reset_stats(self) -> None:
-        """Zero the request counters, timings, row and sampler accounting
-        and the cache's counters; serving state (cache contents, pools,
-        high-water marks, pack and shape-key counters) survives."""
+        """Zero the request counters, timings, row, sampler and pack-place
+        accounting and the cache's counters; serving state (cache
+        contents, pools, high-water marks, pack and shape-key counters)
+        survives."""
         self.stats = EngineStats(
             latencies=LatencyRing(self.config.latency_window))
         self.batch_timings.clear()
         self.row_stats = {"rows_support": 0, "rows_packed": 0}
         self.sample_stats = {"device": 0, "host": 0}
+        self.pack_place = {"device": 0, "host": 0}
         if self.cache is not None:
             self.cache.reset_stats()
 
@@ -483,20 +500,43 @@ class NAIServingEngine:
         `nodes` must be duplicate-free; `rec` takes the seconds of the
         stage's parts (`_span`). Returns (packed, step_active, slot,
         fill): `fill` is the cache's fill record (batch nodes, support
-        nodes, mutation clock at sample time), or None."""
+        nodes, mutation clock at sample time), or None. With the device
+        sampler, a backend that reads the edge list and no tiles, and the
+        store's feature tables on the device, the support stays there and
+        the operands are built there (`pack_support_device`; slot None)."""
         store, cfg, nai = self.store, self.cfg, self.nai
         be = self._backend
+        sampler = self._device_sampler
         with _span("serve.host.sample", rec, "sample_s"):
-            if self._device_sampler is not None:
-                sup = self._device_sampler.sample(nodes, nai.t_max)
-                self.sample_stats["device"] += 1
+            tables = (sampler.feature_tables()
+                      if sampler is not None and be.uses_edges
+                      and not be.uses_tiles else None)
+            if tables is not None:
+                sup = sampler.sample_device(nodes, nai.t_max)
+            elif sampler is not None:
+                sup = sampler.sample(nodes, nai.t_max)
             else:
                 sup = sample_support(store, nodes, nai.t_max, cfg.r,
                                      cache=self.cache)
-                self.sample_stats["host"] += 1
+            self.sample_stats["host" if sampler is None else "device"] += 1
+        self.row_stats["rows_support"] += len(sup)
+        if tables is not None:
+            self.row_stats["rows_packed"] += len(sup)
+            nb_bucket = batch_bucket(sup.n_batch)
+            hwm = self._bucket_hwm.get(nb_bucket, (0,) * 6)
+            ring = self._device_pool.setdefault(
+                nb_bucket, deque([None] * (self.pipeline_depth + 1)))
+            packed = pack_support_device(
+                sup, tables, nb_bucket=nb_bucket, s_bucket=hwm[0],
+                e_bucket=hwm[2], out=ring.popleft(),
+                part=lambda k: _span(f"serve.host.{k}", rec, f"{k}_s"))
+            ring.append(packed)
+            with _span("serve.host.pack", rec, "pack_s"):
+                self._note_pack(packed, nb_bucket, hwm)
+            self.pack_place["device"] += 1
+            return packed, None, None, None
         nb = sup.n_batch
         n_hit = int(sup.hit.sum()) if sup.hit is not None else 0
-        self.row_stats["rows_support"] += len(sup)
         self.row_stats["rows_packed"] += len(sup) - n_hit
         with _span("serve.host.gather", rec, "gather_s"):
             x0 = store.gather_features(sup.nodes).astype(np.float32,
@@ -537,24 +577,11 @@ class NAIServingEngine:
                                   k_bucket=hwm[5])
             slots[idx] = packed
             self._pool_idx[nb_bucket] = (idx + 1) % len(slots)
-            self.pack_stats["reuses" if packed.reused else "allocs"] += 1
             if self.device.type == "cuda" and not packed.reused:
                 self._pinned[slot] = self._pin(packed)
-            self._bucket_hwm[nb_bucket] = (
-                max(hwm[0], packed.n_pad),
-                max(hwm[1], packed.tiles.shape[1]),
-                max(hwm[2], packed.src.shape[-1]),
-                max(hwm[3], packed.n_halo_pad),
-                max(hwm[4], packed.halo_send_pad),
-                max(hwm[5], packed.seed_pad))
+            self._note_pack(packed, nb_bucket, hwm)
             if self.mesh is not None:
                 self._record_halo(packed)
-            key = packed.shape_key(self.spmm_impl)
-            if key in self._seen_keys:
-                self.jit_stats["hits"] += 1
-            else:
-                self._seen_keys.add(key)
-                self.jit_stats["compiles"] += 1
             step_active = (step_active_blocks(packed.hop_rb, nai.t_max)
                            if be.uses_tiles else None)
         fill = None
@@ -562,7 +589,27 @@ class NAIServingEngine:
             # the whole support is the conservative dependency cone of
             # every batch row's series (see PropCache.fill)
             fill = (nodes, sup.nodes, sup.graph_version)
+        self.pack_place["host"] += 1
         return packed, step_active, slot, fill
+
+    def _note_pack(self, packed: PackedSupport, nb_bucket: int,
+                   hwm: Tuple[int, ...]) -> None:
+        """Count a pack (a pooled set allocated or reused, its shape key
+        new or seen) and raise the bucket's high-water marks to it."""
+        self.pack_stats["reuses" if packed.reused else "allocs"] += 1
+        self._bucket_hwm[nb_bucket] = (
+            max(hwm[0], packed.n_pad),
+            max(hwm[1], packed.tiles.shape[1]),
+            max(hwm[2], packed.src.shape[-1]),
+            max(hwm[3], packed.n_halo_pad),
+            max(hwm[4], packed.halo_send_pad),
+            max(hwm[5], packed.seed_pad))
+        key = packed.shape_key(self.spmm_impl)
+        if key in self._seen_keys:
+            self.jit_stats["hits"] += 1
+        else:
+            self._seen_keys.add(key)
+            self.jit_stats["compiles"] += 1
 
     def _record_halo(self, packed: PackedSupport) -> None:
         """Fold one sharded pack into `halo_stats` (structural: the rows
@@ -590,7 +637,37 @@ class NAIServingEngine:
         done) without waiting for the card: host tensors valid once the
         CUDA event `done` has fired (None on the CPU, where they are ready
         on return); `series` is the batch rows' steps 1..T_max with the
-        cache on, else None."""
+        cache on, else None. Operands built on the device (slot None) are
+        taken as they are."""
+        dev = self.device
+        if slot is None:
+            on_dev = pack_operands(self._backend, packed, step_active)
+            x0, x_inf = packed.x0, packed.x_inf
+        else:
+            on_dev, x0, x_inf = self._upload(packed, step_active, slot)
+        out = self._runner(self.classifiers, on_dev, x0, x_inf)
+        if self.cache is not None:
+            out = (*out[:2], out[2][1:])
+        else:
+            out = (*out, None)
+        if dev.type != "cuda":
+            return (*out, None)
+        host = []
+        for t in out:
+            if t is not None:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                t = h
+            host.append(t)
+        done = torch.cuda.Event()
+        done.record()
+        return (*host, done)
+
+    def _upload(self, packed: PackedSupport,
+                step_active: Optional[np.ndarray], slot):
+        """The host-built operands on the device (sharded: each shard's
+        slice on its device), copied on the copy streams, which the
+        compute streams wait on. Returns (operands, x0, x_inf)."""
         dev = self.device
         arrays = pack_operands(self._backend, packed, step_active)
         arrays.update(x0=packed.x0, x_inf=packed.x_inf)
@@ -623,23 +700,7 @@ class NAIServingEngine:
             self._copied[slot] = copied
             for t in _tensors((on_dev, x0, x_inf)):
                 t.record_stream(torch.cuda.current_stream(t.device))
-        out = self._runner(self.classifiers, on_dev, x0, x_inf)
-        if self.cache is not None:
-            out = (*out[:2], out[2][1:])
-        else:
-            out = (*out, None)
-        if dev.type != "cuda":
-            return (*out, None)
-        host = []
-        for t in out:
-            if t is not None:
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                h.copy_(t, non_blocking=True)
-                t = h
-            host.append(t)
-        done = torch.cuda.Event()
-        done.record()
-        return (*host, done)
+        return on_dev, x0, x_inf
 
     def _stage(self, slot, name: str, arr: np.ndarray) -> torch.Tensor:
         """An operand that packing does not write into the pool, as a

@@ -22,8 +22,9 @@ blocks equal) and B4 at their per-position shapes; B4's query offset
 bit for bit the rows of the whole causal call, and the fallback
 placements (query rows over "model", rwkv's (batch row, head) pairs) of
 smoke models on the card against the unsharded model (f32 1e-4); the
-device sampler on the card array-equal to the numpy sampler, and the
-engine's choice between the two (`sample_stats`). Run on
+device sampler on the card array-equal to the numpy sampler, the
+engine's choice between the two (`sample_stats`), and the segment
+operands built on the card (`pack_place`) equal to the host path's. Run on
 a GPU
 machine with
 
@@ -1918,5 +1919,107 @@ def test_engine_sampler_choice_on_card(cuda):
         assert set(op) == {1, 2}
     assert plain.sample_stats == {"device": 3, "host": 0}
     assert cached.sample_stats == {"device": 0, "host": 3}
+    assert plain.pack_place == {"device": 3, "host": 0}
+    assert cached.pack_place == {"device": 0, "host": 3}
     plain.reset_stats()
     assert plain.sample_stats == {"device": 0, "host": 0}
+    assert plain.pack_place == {"device": 0, "host": 0}
+
+
+# ------------------------------------------------ the device packer
+@pytest.mark.parametrize("r", [0.5, 0.3])
+def test_device_pack_on_card(cuda, r):
+    """The segment operands built on the card equal the host path's on the
+    same support: x0, src, dst, coef and c_inf bit for bit, s_inf and
+    x_inf within one float32 ulp (CUDA sums s in a tree), s in float64
+    within 1e-11 of the terms' magnitudes of the host's; also for a
+    refilled set and after a mutation of the store."""
+    from repro_torch.gnn.device_packing import pack_support_device
+    from repro_torch.gnn.device_sampler import DeviceSampler
+    from repro_torch.gnn.nai import support_stationary_factors
+    from repro_torch.gnn.store import InMemoryStore
+    from test_torch_device_packing import assert_same_pack, host_pack
+    g = load_dataset("arxiv-like", scale=0.05, seed=0)
+    store = InMemoryStore(g)
+    sampler = DeviceSampler(store, r, cuda)
+    rng = np.random.default_rng(3)
+    packed, hwm = None, dict(s_bucket=0, e_bucket=0)
+    for rnd in range(3):
+        if rnd == 2:
+            src = rng.choice(g.test_idx, size=16, replace=False)
+            new = store.add_nodes(rng.standard_normal(
+                (4, g.features.shape[1])).astype(np.float32))
+            store.add_edges(new, src[:4])
+        batch = rng.choice(g.test_idx, size=500 - rnd, replace=False)
+        tables = sampler.feature_tables()
+        dsup = sampler.sample_device(batch, 2)
+        sup = sampler.sample(batch, 2)
+        want = host_pack(store, sup, r, nb_bucket=512, **hwm)
+        # the last round packs twice: the second refills the first's set
+        for again in range(1 + (rnd == 2)):
+            packed = pack_support_device(dsup, tables, nb_bucket=512,
+                                         out=packed, **hwm)
+            torch.cuda.synchronize()
+            assert packed.x0.device.type == cuda.type
+            assert_same_pack(packed, want,
+                             equal=("x0", "src", "dst", "coef", "c_inf"),
+                             ulp=("s_inf", "x_inf"))
+        hwm = dict(s_bucket=want.n_pad, e_bucket=want.src.shape[0])
+        x0 = store.gather_features(sup.nodes)
+        _, s_host = support_stationary_factors(store, sup, x0, r)
+        s_card = (tables.w[dsup.nodes][:, None]
+                  * tables.features[dsup.nodes]).sum(0).cpu().numpy()
+        # another order of the same float64 sum: ~n eps of the sum of
+        # the terms' magnitudes apart
+        w = (np.asarray(store.degrees[sup.nodes]) + 1.0) ** (1.0 - r)
+        scale = (w[:, None] * np.abs(x0)).sum(0)
+        np.testing.assert_array_less(np.abs(s_card - s_host),
+                                     1e-11 * scale + 1e-300)
+    assert packed.reused
+    assert len(sampler.feature_tables().features) == store.n
+
+
+def test_device_tables_that_do_not_fit_on_card(cuda, monkeypatch):
+    """With too little free device memory for the feature tables the
+    segment engine packs on the host, and serves as before."""
+    g, cfg, nai, (plain, tight) = _arxiv_engines(cuda)
+    free, total = torch.cuda.mem_get_info(cuda)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda *a: (1 << 20, total))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda *a: 0)
+    assert tight._device_sampler.feature_tables() is None
+    nodes = np.random.default_rng(4).choice(g.test_idx, size=1000,
+                                            replace=False)
+    pt, ot = _serve_all(tight, nodes)
+    monkeypatch.undo()
+    pp, op = _serve_all(plain, nodes)
+    near = near_threshold(decision_distances, cfg, nai, g, nodes, 500)
+    assert_orders_match(pp, op, pt, ot, near)
+    assert tight.pack_place == {"device": 0, "host": 2}
+    assert tight.sample_stats == {"device": 2, "host": 0}
+    assert plain.pack_place == {"device": 2, "host": 0}
+
+
+def test_device_pack_pool_in_flight_on_card(cuda):
+    """Depth 2 over twice as many batches as the device pool has sets
+    (a set is refilled while later batches are in flight) serves what
+    depth 1 and the host-packed path serve, outside the threshold margin
+    (segment sums with atomics)."""
+    g, cfg, nai, (deep, host) = _arxiv_engines(cuda)
+    host._device_sampler = None       # numpy sampler, host pack
+    serial = NAIServingEngine(cfg, nai, deep.classifiers, deep.store,
+                              device=cuda, max_wait_s=10.0, mode="compiled",
+                              spmm_impl="segment", pipeline_depth=1)
+    rng = np.random.default_rng(9)
+    nodes = np.concatenate([rng.choice(g.test_idx, size=500, replace=False)
+                            for _ in range(6)])
+    pd, od = _serve_all(deep, nodes)
+    ps, os_ = _serve_all(serial, nodes)
+    ph, oh = _serve_all(host, nodes)
+    near = near_threshold(decision_distances, cfg, nai, g, nodes, 500)
+    assert_orders_match(pd, od, ps, os_, near)
+    assert_orders_match(pd, od, ph, oh, near)
+    assert deep.pack_place == {"device": 6, "host": 0}
+    assert serial.pack_place == {"device": 6, "host": 0}
+    assert host.pack_place == {"device": 0, "host": 6}
+    assert [len(ring) for ring in deep._device_pool.values()] == [3]

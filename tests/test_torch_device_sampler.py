@@ -6,9 +6,11 @@ over two graphs, hops 1-3, batches of 1 to 500 and two coefficient
 exponents; a batch whose frontier empties before `hops`; and a store
 mutated between two calls, which the sampler's device copy must follow
 by `mutation_clock`. Every comparison is exact. The serving engine's
-`sample_stats`: a CPU engine samples on the host, and an engine given
-the device sampler (as a CUDA engine without cache or mesh takes it)
-serves the same predictions and exit orders bit for bit."""
+`sample_stats` and `pack_place`: a CPU engine samples and packs on the
+host, and an engine given the device sampler (as a CUDA engine without
+cache or mesh takes it) samples on the device and, on `segment`, packs
+there too; it serves the same predictions and exit orders bit for bit,
+its pools go quiet, and appended nodes reach its x0."""
 import numpy as np
 import pytest
 import torch
@@ -123,15 +125,30 @@ def test_device_sampler_rejects_graph(graphs):
         DeviceSampler(graphs["pubmed-like"][1], 0.5, "cpu")
 
 
+def _serve(eng, nodes):
+    eng.submit(nodes)
+    done = []
+    while eng.queue:
+        done += eng.step()
+    done += eng.flush()
+    assert [r.status for r in done] == ["completed"] * len(nodes)
+    return [r.prediction for r in done], [r.exit_order for r in done]
+
+
 @pytest.mark.parametrize("impl", ["segment", "fused"])
 def test_engine_with_device_sampler(graphs, impl):
+    """With the device sampler a segment engine builds its operands on the
+    device (`pack_place`), a fused one on the host; both serve what the
+    numpy path serves, their pools go quiet over repeated passes, and a
+    mutation of the store reaches the device-built x0."""
     tg = graphs["pubmed-like"][1]
     cfg = GNNConfig("sgc", tg.features.shape[1], tg.num_classes, k=2)
     nai = NAIConfig(t_s=6.0, t_min=1, t_max=2, batch_size=32)
     heads = init_classifiers(cfg, torch.Generator().manual_seed(0),
                              device="cpu")
-    nodes = np.random.default_rng(1).choice(tg.test_idx, size=96,
-                                            replace=False)
+    rng = np.random.default_rng(1)
+    nodes = rng.choice(tg.test_idx, size=96, replace=False)
+    feats = rng.standard_normal((4, tg.features.shape[1])).astype(np.float32)
     out = {}
     for path in ("host", "device"):
         eng = NAIServingEngine(cfg, nai, heads, tst.InMemoryStore(tg),
@@ -141,17 +158,32 @@ def test_engine_with_device_sampler(graphs, impl):
         assert eng._device_sampler is None      # the CPU keeps numpy
         if path == "device":
             eng._device_sampler = DeviceSampler(eng.store, cfg.r, "cpu")
-        eng.submit(nodes)
-        done = []
-        while eng.queue:
-            done += eng.step()
-        done += eng.flush()
-        assert [r.status for r in done] == ["completed"] * len(nodes)
+        served = [_serve(eng, nodes)]
         want = {"device": 3 if path == "device" else 0,
                 "host": 0 if path == "device" else 3}
         assert eng.sample_stats == want
-        out[path] = ([r.prediction for r in done],
-                     [r.exit_order for r in done])
+        on_card = path == "device" and impl == "segment"
+        assert eng.pack_place == {"device": 3 * on_card,
+                                  "host": 3 * (not on_card)}
+        # the pools and shape keys stop growing, so a warm-up can go quiet
+        served.append(_serve(eng, nodes))
+        quiet = (dict(eng.pack_stats), dict(eng.jit_stats))
+        served.append(_serve(eng, nodes))
+        assert eng.pack_stats["allocs"] == quiet[0]["allocs"]
+        assert eng.jit_stats["compiles"] == quiet[1]["compiles"]
+        assert served[2] == served[1] == served[0]
+        # nodes appended and joined to the batch: the device tables follow
+        new = eng.store.add_nodes(feats)
+        eng.store.add_edges(new, nodes[:4])
+        batch = np.concatenate([nodes[:28], new])
+        served.append(_serve(eng, batch))
+        if on_card:
+            packed = eng._device_pool[32][-1]
+            rows = np.searchsorted(np.unique(batch), new)
+            np.testing.assert_array_equal(
+                packed.x0[rows, :feats.shape[1]].numpy(), feats)
+        out[path] = served
         eng.reset_stats()
         assert eng.sample_stats == {"device": 0, "host": 0}
+        assert eng.pack_place == {"device": 0, "host": 0}
     assert out["device"] == out["host"]
